@@ -1,0 +1,90 @@
+"""PyTorch port: what the card's machine lacks is never imported, and the
+kernel build finds nvcc, hashes its sources and reports failures."""
+
+import os
+import stat
+import subprocess
+import sys
+
+import pytest
+
+from twinvoice_tpu_torch import _build
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "twinvoice_tpu", "PIL", "cv2")
+
+_IMPORT_ALL = f"""
+import importlib, pkgutil, sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None  # any import of it now raises ImportError
+import twinvoice_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(twinvoice_tpu_torch.__path__,
+                                              "twinvoice_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+loaded = [m for m, v in sys.modules.items()
+          if v is not None and m.split(".")[0] in {BLOCKED!r}]
+assert not loaded, loaded
+print(len(mods))
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax_pil_cv2():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 15  # every module was imported
+
+
+def test_find_nvcc_names_every_place_it_looked(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
+    with pytest.raises(FileNotFoundError) as e:
+        _build.find_nvcc()
+    msg = str(e.value)
+    for place in ("PATH", str(tmp_path / "bin" / "nvcc"), "$CUDA_PATH (unset)",
+                  "/usr/local/cuda/bin/nvcc"):
+        assert place in msg
+
+
+def _fake_nvcc(tmp_path, exit_code=0):
+    """A stand-in nvcc that records its arguments and writes its -o file."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> "{tmp_path}/calls"\n'
+        f"[ {exit_code} -ne 0 ] && echo 'error: bad kernel' && exit {exit_code}\n"
+        'while [ $# -gt 0 ]; do [ "$1" = -o ] && touch "$2"; shift; done\n')
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
+    return nvcc
+
+
+def test_build_compiles_each_source_once_for_sm90a(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("TWINVOICE_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    _fake_nvcc(tmp_path)
+    built = _build.build()
+    assert set(built) == set(_build.sources()) >= {"bbox_postprocess"}
+    for name, path in built.items():
+        assert path.exists() and path.parent == tmp_path / "out"
+        assert path.name.startswith(name + "-") and path.suffix == ".so"
+    calls = (tmp_path / "calls").read_text().splitlines()
+    assert len(calls) == len(built)
+    assert all("arch=compute_90a,code=sm_90a" in c and "-shared" in c for c in calls)
+    _build.build()  # unchanged sources: nothing is compiled again
+    assert len((tmp_path / "calls").read_text().splitlines()) == len(built)
+
+
+def test_build_failure_raises_with_compiler_output(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("TWINVOICE_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    _fake_nvcc(tmp_path, exit_code=2)
+    with pytest.raises(RuntimeError, match="bad kernel"):
+        _build.build(["bbox_postprocess"])
+    assert not list((tmp_path / "out").glob("*.so"))

@@ -1,0 +1,222 @@
+"""The segmenter serving path (``twinvoice_tpu.infer.pipeline.Segmenter``).
+
+uint8 batch → (device resize) → normalise → BN-folded U-Net → per-field box
+(K1, ``ops.bbox_postprocess``) → scale and pad → boxes back to the host →
+crops. The model is folded and moved to its device once. Everything up to the
+boxes stays on the device; only the crop slice touches the host.
+
+Public layout is the JAX package's: NHWC uint8 images in; masks
+``(B,S,S,3)`` bool, boxes ``(B,3,4)`` int32 ``[x1,y1,x2,y2]`` and ok
+``(B,3)`` bool out, as torch tensors on the segmenter's device.
+
+Pillow and OpenCV are imported only inside the PIL entry points, as the JAX
+package does; :func:`crop_fields` is the crop rule on numpy arrays, so a
+caller without either library can crop too.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from twinvoice_tpu_torch import FIELDS, resolve_device
+from twinvoice_tpu_torch.config import InferConfig, UNetConfig
+from twinvoice_tpu_torch.infer.postprocess import (
+    probability_to_logit_thresholds,
+    scale_and_pad_boxes,
+)
+from twinvoice_tpu_torch.models.unet import fold_unet, unet_apply_folded
+from twinvoice_tpu_torch.ops.bbox_postprocess import bbox_postprocess
+from twinvoice_tpu_torch.ops.image import normalize_uint8, resize_bilinear
+
+
+def crop_fields(page, boxes, ok, black_crop_mean):
+    """The crop rule of the JAX ``Segmenter`` on a numpy page.
+
+    ``page``: (H, W) or (H, W, C) uint8 at original resolution; ``boxes``:
+    (3, 4) int [x1,y1,x2,y2] and ``ok``: (3,) from ``segment_batch``. →
+    {field: the (y1:y2, x1:x2) view of ``page``, or None when the field was
+    not found, the crop is empty, or its mean is below ``black_crop_mean``
+    (an all-black crop)}.
+    """
+    crops = {}
+    for i, f in enumerate(FIELDS):
+        if not ok[i]:
+            crops[f] = None
+            continue
+        x1, y1, x2, y2 = (int(v) for v in boxes[i])
+        carr = page[y1:y2, x1:x2]
+        if carr.size == 0 or carr.mean() < black_crop_mean:
+            crops[f] = None
+            continue
+        crops[f] = carr
+    return crops
+
+
+def _pil_crops(pil_img, boxes, ok, black_crop_mean):
+    """crop_fields on a PIL image; kept crops come back as PIL images."""
+    arrs = crop_fields(np.asarray(pil_img), boxes, ok, black_crop_mean)
+    return {
+        f: None if arrs[f] is None
+        else pil_img.crop(tuple(int(v) for v in boxes[i]))
+        for i, f in enumerate(FIELDS)
+    }
+
+
+class Segmenter:
+    """Field segmenter holding a BN-folded U-Net on its device."""
+
+    def __init__(self, params, state, model_cfg: UNetConfig = UNetConfig(),
+                 cfg: InferConfig = InferConfig(), dtype=torch.float32,
+                 device=None):
+        """``params``/``state``: torch-layout trees (``weights.load_npz`` or
+        ``weights.from_jax_params``). ``device=None`` means ``"cuda"`` and
+        raises without a card; pass ``device="cpu"`` to run on the CPU, where
+        K1 runs as its plain PyTorch version."""
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model_cfg = model_cfg
+        self.dtype = dtype
+        self.folded = fold_unet(params, state, cfg=model_cfg, dtype=dtype,
+                                device=self.device)
+        self._thr = torch.tensor(cfg.thresholds, dtype=torch.float32,
+                                 device=self.device)
+        # host float32 values; the kernel takes them as launch arguments
+        self._logit_thr = probability_to_logit_thresholds(cfg.thresholds)
+
+    # -- device graph ------------------------------------------------------
+
+    def _forward(self, x, orig_sizes, return_masks):
+        """x: (B,3,S,S) in ``self.dtype``; orig_sizes: (B,2) int32 (ow, oh)."""
+        # channels-last memory (NHWC, as the JAX graph runs) is the layout
+        # cuDNN's tensor-core convs take without transposes; the logits come
+        # out NHWC-contiguous and K1 reads the NHWC view in place
+        x = x.contiguous(memory_format=torch.channels_last)
+        logits = unet_apply_folded(self.folded, x).permute(0, 2, 3, 1)
+        gboxes, valid = bbox_postprocess(logits, self._logit_thr)
+        boxes, ok = scale_and_pad_boxes(gboxes, valid, orig_sizes,
+                                        self.cfg.img_size, self.cfg.pad_frac)
+        mask = None
+        if return_masks:
+            mask = torch.sigmoid(logits.to(torch.float32)) > self._thr
+        return mask, boxes, ok
+
+    def _to_device(self, a, dtype):
+        if isinstance(a, np.ndarray) and not a.flags.writeable:
+            a = a.copy()  # torch.as_tensor shares memory and wants it writable
+        return torch.as_tensor(a).to(self.device, dtype, non_blocking=True)
+
+    def _run(self, imgs_u8, orig_sizes, return_masks=True):
+        """imgs_u8: (B,S,S,3) uint8, or (B,S,S) luminance replicated to three
+        channels on the device (3× fewer host→device bytes)."""
+        with torch.inference_mode():
+            u8 = self._to_device(imgs_u8, torch.uint8)
+            if u8.dim() == 3:
+                u8 = u8[..., None].expand(-1, -1, -1, 3)
+            x = normalize_uint8(u8.permute(0, 3, 1, 2), self.dtype)
+            sizes = self._to_device(orig_sizes, torch.int32)
+            return self._forward(x, sizes, return_masks)
+
+    def _run_from_raw(self, raw_u8, orig_sizes, return_masks=True):
+        """Device resize: raw_u8 (B,H,W,3) uint8 at any one H, W."""
+        size = self.cfg.img_size
+        with torch.inference_mode():
+            raw = self._to_device(raw_u8, torch.uint8).permute(0, 3, 1, 2)
+            x = (resize_bilinear(raw, size, size) / 255.0).to(self.dtype)
+            sizes = self._to_device(orig_sizes, torch.int32)
+            return self._forward(x, sizes, return_masks)
+
+    # -- batch API (throughput path) ---------------------------------------
+
+    def segment_batch(self, imgs_u8, orig_sizes=None, *, pre_resized=True,
+                      return_masks=True):
+        """Batched device path.
+
+        ``imgs_u8``: uint8 (B, H, W, 3), numpy or torch; if ``pre_resized``
+        H=W=img_size, else any H, W, resized on the device. ``orig_sizes``:
+        (B, 2) int32 (ow, oh); defaults to the input size. Returns (mask
+        (B,S,S,3) bool or None, boxes (B,3,4) int32, ok (B,3) bool) on the
+        device. ``return_masks=False`` is the throughput path.
+        """
+        if orig_sizes is None:
+            b, h, w = imgs_u8.shape[:3]
+            orig_sizes = np.tile(np.asarray([[w, h]], np.int32), (b, 1))
+        if not pre_resized:
+            return self._run_from_raw(imgs_u8, orig_sizes, return_masks)
+        return self._run(imgs_u8, orig_sizes, return_masks)
+
+    def segment_pil_batch(self, pil_images, *, return_masks=True,
+                          gray_h2d=False):
+        """Batched PIL path: one device call segments all images; crops are
+        sliced per image on the host. → list of (masks, crops) pairs with
+        :meth:`segment_pil`'s contract. ``return_masks=False`` fetches only
+        the boxes. ``gray_h2d=True`` uploads luminance and replicates it to
+        three channels on the device (3× fewer host→device bytes).
+        """
+        from twinvoice_tpu_torch.utils.tracing import trace_span
+
+        size = self.cfg.img_size
+        convert = "L" if gray_h2d else "RGB"
+
+        try:  # host resize with OpenCV when present, else Pillow
+            import cv2
+
+            def prep(imgs):
+                out = []
+                for im in imgs:
+                    arr = np.asarray(im.convert("RGB"))
+                    if gray_h2d:
+                        arr = cv2.cvtColor(arr, cv2.COLOR_RGB2GRAY)
+                    out.append(cv2.resize(arr, (size, size),
+                                          interpolation=cv2.INTER_AREA))
+                return np.stack(out)
+        except ImportError:
+
+            def prep(imgs):
+                return np.stack([
+                    np.asarray(im.convert(convert).resize((size, size)),
+                               np.uint8)
+                    for im in imgs
+                ])
+
+        with trace_span("segment.prep"):
+            arrs = prep(pil_images)
+        sizes = np.asarray([im.size for im in pil_images], np.int32)
+        with trace_span("segment.dispatch"):
+            mask, boxes, ok = self._run(arrs, sizes, return_masks=return_masks)
+        with trace_span("segment.fetch"):
+            if return_masks:
+                mask = mask.cpu().numpy()
+            boxes = boxes.cpu().numpy()
+            ok = ok.cpu().numpy()
+
+        out = []
+        for bi, pil_img in enumerate(pil_images):
+            masks = (
+                {f: mask[bi, :, :, i] for i, f in enumerate(FIELDS)}
+                if return_masks else None
+            )
+            crops = _pil_crops(pil_img, boxes[bi], ok[bi],
+                               self.cfg.black_crop_mean)
+            out.append((masks, crops))
+        return out
+
+    # -- single-image PIL API (reference-parity surface) -------------------
+
+    def segment_pil(self, pil_img):
+        """→ ``(masks: dict[field, bool (S,S)], crops: dict[field, PIL|None])``.
+
+        The resize runs on the host with Pillow, as the JAX ``segment_pil``
+        does; the model and the boxes run on the device.
+        """
+        size = self.cfg.img_size
+        ow, oh = pil_img.size
+        small = pil_img.convert("RGB").resize((size, size))
+        arr = np.asarray(small, np.uint8)[None]
+        sizes = np.asarray([[ow, oh]], np.int32)
+        mask, boxes, ok = self._run(arr, sizes)
+        mask = mask[0].cpu().numpy()
+        boxes = boxes[0].cpu().numpy()
+        ok = ok[0].cpu().numpy()
+        masks = {f: mask[:, :, i] for i, f in enumerate(FIELDS)}
+        return masks, _pil_crops(pil_img, boxes, ok, self.cfg.black_crop_mean)
