@@ -21,10 +21,28 @@ Phases, each printing one line with its wall time:
    protocol)
 7. K1's time on the model's serving logits against its bound and the plain
    version's
+8. the int8 kernels K2 (``ops.head``), K4a and K5 (``ops.qconv``) and K6
+   (``ops.qupsample``) against their plain versions on the card: exactly
+   equal int8 outputs (K2 within a stated float32 summation bound) on planted
+   and random inputs, H≠W, odd W, Cin 3, 5, 16, 48 and 256, ReLU and none,
+   scales that clip at both ends, and every layer shape of the w16 int8 trunk
+   at b128 (held on a subset of the batch)
+9. the int8 routes on the fixture pages against the JAX package
+   (``tests/data/torch_smoke_int8.npz``): the port's calibration scales
+   within 1e-5 of JAX's; then, with JAX's scales carried in, each route's ok
+   flags equal to JAX's and its grid boxes within one grid cell; the
+   Pallas-trunk route against the port's ``xla`` route (flags equal, row/col
+   maxima within JAX's own tolerance)
+10. b128 512² box-only int8 serving, one img/s line per route, boxes read
+    back after every batch, as phase 6
+11. the int8 kernels' times at the serving shapes against their bounds and
+    their plain versions'
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
-ran the kernels.
+ran the kernels. Each int8 route of phases 9 and 10 is driven with the counts
+zeroed just before it and read just after; every kernel of the route must
+have launched.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
 only. Without a CUDA device, or if any phase fails, it exits non-zero and
@@ -52,15 +70,22 @@ from twinvoice_tpu_torch.infer.postprocess import (  # noqa: E402
     bbox_from_probs,
     probability_to_logit_thresholds,
 )
+from twinvoice_tpu_torch.infer import quant  # noqa: E402
 from twinvoice_tpu_torch.models.pretrained import load_pretrained_segmenter  # noqa: E402
 from twinvoice_tpu_torch.models.unet import unet_apply_folded  # noqa: E402
 from twinvoice_tpu_torch.ops import bbox_postprocess as k1  # noqa: E402
+from twinvoice_tpu_torch.ops import head as k2  # noqa: E402
+from twinvoice_tpu_torch.ops import qconv  # noqa: E402
+from twinvoice_tpu_torch.ops import qupsample as k6  # noqa: E402
 from twinvoice_tpu_torch.ops.image import resize_bilinear  # noqa: E402
 
 FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_pages.npz")
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside tensor cores
+INT8_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_int8.npz")
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside tensor
+# cores, int8 on the tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
 SERVE_BATCH = 128
 SERVE_ITERS = 20
 
@@ -286,7 +311,7 @@ def phase_serving(seg, fix, card):
     print(f"  b{SERVE_BATCH} {size}^2 bf16 box-only, boxes to host each batch: "
           f"{ips:.1f} img/s ({1e3 * dt / SERVE_ITERS:.2f} ms/batch, "
           f"{SERVE_ITERS} batches) [{card}]", flush=True)
-    return imgs, 3 + SERVE_ITERS
+    return imgs, 3 + SERVE_ITERS, ips
 
 
 def time_k1(seg, imgs, thr, card):
@@ -320,6 +345,445 @@ def time_k1(seg, imgs, thr, card):
     return ms, plain_ms, bound_ms, bound_by
 
 
+# -- phase 8: the int8 kernels against their plain versions -------------------
+
+
+def trunk_shapes(base=16, size=512, depth=4):
+    """The w16 int8 trunk's launches at a ``size``² grid, each shape once:
+    → {kernel: [(hw, cin, cout)]} with ``hw`` the input's side (K5's ``cin``
+    is each half's; K4a's decoder conv1 takes both halves concatenated)."""
+    convs, splits, ups = [], [], []
+    cin, hw = 3, size
+    widths = [base * 2 ** i for i in range(depth)]
+    for w in widths:
+        convs += [(hw, cin, w), (hw, w, w)]
+        cin, hw = w, hw // 2
+    convs += [(hw, cin, 2 * cin), (hw, 2 * cin, 2 * cin)]
+    c = 2 * cin
+    for w in reversed(widths):
+        ups.append((hw, c, w))
+        hw *= 2
+        convs += [(hw, 2 * w, w), (hw, w, w)]
+        splits.append((hw, w, w))
+        c = w
+    return {qconv.K4A: list(dict.fromkeys(convs)), qconv.K5: splits, k6.K6: ups}
+
+
+def conv_bound_ms(kind, n, hw, cin, co):
+    """Least time for one launch on the H100 SXM: each input byte read once,
+    each output byte written once, against the int8 operations at the
+    tensor-core rate. → (bound_ms, "bytes" or "operations")."""
+    px = n * hw * hw
+    if kind == k6.K6:
+        n_bytes = px * cin + 4 * cin * co + 4 * px * co + 8 * co
+        ops = 2 * 4 * px * cin * co
+    else:
+        halves = 2 if kind == qconv.K5 else 1
+        n_bytes = halves * (px * cin + 9 * cin * co) + px * co + 8 * co
+        ops = 2 * 9 * px * halves * cin * co
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / INT8_OPS_PER_S
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def head_bound_ms(b, h, w, c):
+    n_bytes = b * h * w * c + 12 * c + 12 * b * (h + w)
+    ops = 2 * 3 * c * b * h * w  # float32 multiply-adds on the CUDA cores
+    bytes_ms, ops_ms = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def rand_s8(g, shape, lo=-127, hi=128):
+    return torch.randint(lo, hi, shape, generator=g, device="cuda").to(torch.int8)
+
+
+def planted_s8(g, shape):
+    """Zeros with extreme values at the corners and the centre, and a random
+    3×3 patch on the right edge: SAME padding and tap orientation show."""
+    n, h, w, c = shape
+    x = torch.zeros(shape, dtype=torch.int8, device="cuda")
+    x[:, 0, 0] = 127
+    x[:, h - 1, w - 1] = -127
+    x[:, h // 2, w // 2] = rand_s8(g, (n, c))
+    r0, r1, c0 = max(0, h // 2 - 1), min(h, h // 2 + 2), max(0, w - 3)
+    x[:, r0:r1, c0:] = rand_s8(g, (n, r1 - r0, w - c0, c))
+    return x
+
+
+def epilogue_operands(g, co):
+    w_scale = 1e-3 + 1e-3 * torch.rand(co, generator=g, device="cuda")
+    bias = 0.5 * torch.randn(co, generator=g, device="cuda")
+    return w_scale, bias
+
+
+def check_int8(label, got, ref, lo, need_clips):
+    if not torch.equal(got, ref):
+        d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+        idx = d.nonzero()[:4].tolist()
+        raise AssertionError(f"{label}: {int((d > 0).sum())} of {d.numel()} outputs "
+                             f"differ (max |d| {int(d.max())}), first at {idx}")
+    top, bottom = int((ref == 127).sum()), int((ref == lo).sum())
+    if need_clips and not (top and bottom):
+        raise AssertionError(f"{label}: the case does not clip at both ends "
+                             f"({top} at 127, {bottom} at {lo})")
+    print(f"  {label}: equal, {ref.numel()} outputs ({top} at 127, {bottom} at {lo})",
+          flush=True)
+
+
+def spread_scale(y):
+    """An out_scale that puts the top and bottom of ``y`` past the clip."""
+    return float(0.5 * y.abs().max().clamp_min(1e-6))
+
+
+def case_conv(g, kind, label, n, h, w, cin, co, *, relu=True, scale_first=False,
+              s_in2=None, planted=False, subset=None, need_clips=True):
+    """One K4a/K5/K6 launch held against its plain version on ``subset`` of
+    the batch (all of it by default)."""
+    taps = 2 if kind == k6.K6 else 3
+    make = planted_s8 if planted else rand_s8
+    x = make(g, (n, h, w, cin))
+    x2 = make(g, (n, h, w, cin)) if kind == qconv.K5 else None
+    kern = rand_s8(g, (co, taps, taps, cin))
+    kern2 = rand_s8(g, (co, taps, taps, cin)) if kind == qconv.K5 else None
+    ws, b = epilogue_operands(g, co)
+    s_in = 0.5 + float(torch.rand((), generator=g, device="cuda"))
+    sub = slice(None) if subset is None else subset
+    xs = x[sub]
+    if kind == k6.K6:
+        relu = False
+        acc = qconv.conv_transpose2x2_i8(xs, kern)
+    else:
+        acc = qconv.conv3x3_i8(xs, kern)
+        if x2 is not None:
+            acc2 = qconv.conv3x3_i8(x2[sub], kern2)
+    if kind == qconv.K5 and s_in2 is not None:
+        y = (acc.float() * np.float32(s_in) + acc2.float() * np.float32(s_in2)) * ws + b
+    elif kind == qconv.K5:
+        y = qconv.dequant(acc + acc2, ws, b, s_in)
+    else:
+        y = qconv.dequant(acc, ws, b, s_in, scale_first=scale_first)
+    out_scale = spread_scale(y)
+    del acc, y
+    if kind == k6.K6:
+        got = k6.qupsample2x2_requant(x, kern, ws, b, s_in, out_scale)
+        ref = k6.qupsample2x2_requant_reference(xs, kern, ws, b, s_in, out_scale)
+    elif kind == qconv.K5:
+        got = qconv.qconv3x3_split_requant(x, x2, kern, kern2, ws, b, s_in, out_scale,
+                                           s_in2=s_in2, relu=relu)
+        ref = qconv.qconv3x3_split_requant_reference(
+            xs, x2[sub], kern, kern2, ws, b, s_in, out_scale, s_in2=s_in2, relu=relu)
+    else:
+        got = qconv.qconv3x3_requant(x, kern, ws, b, s_in, out_scale, relu=relu,
+                                     scale_first=scale_first)
+        ref = qconv.qconv3x3_requant_reference(xs, kern, ws, b, s_in, out_scale,
+                                               relu=relu, scale_first=scale_first)
+    torch.cuda.synchronize()
+    check_int8(f"{kind} {label} {tuple(x.shape)}->{co}", got[sub], ref,
+               0 if relu else -127, need_clips)
+
+
+def check_k2(label, x, w, scale):
+    """K2 against its plain version. The int8 × bf16 products are exact in
+    float32; the sums differ only in order, so each maximum may differ by at
+    most C·2^-23 times the largest sum of |terms| over the pixels it spans
+    (twice the float32 bound (C−1)·2^-24·Σ|terms| of a sum of C terms)."""
+    row, col = k2.head_rowcol_max(x, w, scale)
+    rrow, rcol = k2.head_rowcol_max_reference(x, w, scale)
+    absterms = x.abs().to(torch.float32) @ k2.head_weight(w, scale).abs()
+    c = x.shape[-1]
+    tol_row = c * 2.0 ** -23 * absterms.amax(dim=2)
+    tol_col = c * 2.0 ** -23 * absterms.amax(dim=1)
+    del absterms
+    torch.cuda.synchronize()
+    err_row, err_col = (row - rrow).abs(), (col - rcol).abs()
+    if (err_row > tol_row).any() or (err_col > tol_col).any():
+        raise AssertionError(f"K2 {label}: row err {float(err_row.max())}, col err "
+                             f"{float(err_col.max())} beyond the summation bound")
+    err = max(float(err_row.max()), float(err_col.max()))
+    print(f"  K2 {label} {tuple(x.shape)}: max |d| {err:.3g} (bound "
+          f"{float(max(tol_row.max(), tol_col.max())):.3g})", flush=True)
+    return err
+
+
+def phase_int8_kernels():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    # planted and random inputs; H != W and odd W; Cin 3, 5, 16, 48, 256;
+    # ReLU and none; the out scale clips at both ends
+    for cin in (3, 5, 16, 48, 256):
+        for relu in (True, False):
+            case_conv(g, qconv.K4A, f"random relu={relu}", 2, 13, 37, cin, 16, relu=relu)
+    case_conv(g, qconv.K4A, "planted", 2, 9, 21, 16, 16, need_clips=False)
+    case_conv(g, qconv.K4A, "planted Cin=5 Co=3", 1, 7, 5, 5, 3, relu=False,
+              need_clips=False)
+    case_conv(g, qconv.K4A, "concat form (scale first)", 2, 11, 17, 32, 16,
+              scale_first=True)
+    case_conv(g, qconv.K4A, "Co=24", 1, 8, 33, 48, 24)
+    for cin in (5, 16, 48):
+        case_conv(g, qconv.K5, "shared sum", 2, 13, 37, cin, 16)
+        case_conv(g, qconv.K5, "two scales", 2, 13, 37, cin, 16, s_in2=0.7)
+    case_conv(g, qconv.K5, "planted", 1, 10, 19, 16, 16, need_clips=False)
+    for cin, co in ((3, 16), (5, 3), (16, 16), (48, 24), (256, 128)):
+        case_conv(g, k6.K6, "random", 2, 9, 13, cin, co)
+    case_conv(g, k6.K6, "planted", 1, 6, 7, 32, 16, need_clips=False)
+
+    err = 0.0
+    for b, h, w, c in ((2, 16, 24, 8), (3, 9, 13, 16), (8, 16, 256, 32),
+                       (2, 7, 11, 5), (2, 12, 20, 12)):
+        x = rand_s8(g, (b, h, w, c))
+        wt = 0.2 * torch.randn((c, 3), generator=g, device="cuda")
+        err = max(err, check_k2("random", x, wt, 0.037))
+    x = torch.zeros((2, 33, 47, 16), dtype=torch.int8, device="cuda")
+    x[0, 5, 40] = 127
+    x[1, 32, 0] = -127
+    err = max(err, check_k2("planted", x, 0.2 * torch.randn((16, 3), generator=g,
+                                                            device="cuda"), 0.05))
+
+    # every layer shape of the w16 trunk at b128, held on images 0 and 127
+    sub = torch.tensor([0, SERVE_BATCH - 1], device="cuda")
+    for kind, shapes in trunk_shapes().items():
+        for hw, cin, co in shapes:
+            case_conv(g, kind, "w16 trunk", SERVE_BATCH, hw, hw, cin, co, subset=sub,
+                      relu=kind != k6.K6)
+    x = rand_s8(g, (SERVE_BATCH, 512, 512, 16), 0, 128)
+    err = max(err, check_k2("w16 serving shape", x,
+                            0.2 * torch.randn((16, 3), generator=g, device="cuda"), 0.05))
+    return err
+
+
+# -- phases 9-10: the int8 routes --------------------------------------------
+
+
+ROUTE_KERNELS = {  # kernels each box-only route launches, per segment_batch call
+    "xla": {qconv.K4A: 18, k6.K6: 4, k1.NAME: 1},
+    "xla-bf16": {qconv.K4A: 18, k6.K6: 4, k1.NAME: 1},
+    "pallas": {qconv.K4A: 18, k6.K6: 4, k2.NAME: 1},
+    "pallas trunk": {qconv.K4A: 14, qconv.K5: 4, k6.K6: 4},
+}
+ROUTE_ARGS = {"xla": {"int8_head": "xla"}, "xla-bf16": {"int8_head": "xla-bf16"},
+              "pallas": {"int8_head": "pallas"}, "pallas trunk": {"int8_pallas": True}}
+
+
+def counted(route, expect, calls, fn):
+    """Run ``fn`` with the launch counts zeroed just before and read just
+    after; every kernel in ``expect`` must have launched ``expect·calls`` times
+    and no other int8 kernel at all. → (fn's result, the counts)."""
+    _build.launches.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(_build.launches)
+    want = {k: v * calls for k, v in expect.items()}
+    if got != want:
+        raise AssertionError(f"route {route}: launches {got}, expected {want}")
+    return out, got
+
+
+def grid_check(label, gboxes, gvalid, ref_boxes, ref_valid):
+    gboxes, gvalid = np.asarray(torch.as_tensor(gboxes).cpu()), np.asarray(
+        torch.as_tensor(gvalid).cpu())
+    if not np.array_equal(gvalid, ref_valid):
+        raise AssertionError(f"{label}: valid {gvalid.tolist()} != JAX {ref_valid.tolist()}")
+    d = np.abs(gboxes - ref_boxes)[gvalid]
+    if d.size and d.max() > 1:
+        raise AssertionError(f"{label}: grid boxes off by {d.max()} cells from JAX:\n"
+                             f"{gboxes.tolist()}\nvs\n{ref_boxes.tolist()}")
+    return int((d == 0).all(-1).sum()), int(gvalid.sum()), int(d.max()) if d.size else 0
+
+
+def ok_check(label, ok, boxes, ref_ok, ref_boxes, tol_px):
+    ok, boxes = ok.cpu().numpy(), boxes.cpu().numpy()
+    if not np.array_equal(ok, ref_ok):
+        raise AssertionError(f"{label}: ok {ok.tolist()} != JAX {ref_ok.tolist()}")
+    d = np.abs(boxes.astype(np.int64) - ref_boxes)[ok]
+    if d.size and d.max() > tol_px:
+        raise AssertionError(f"{label}: pixel boxes off by {d.max()} px from JAX "
+                             f"(one grid cell is {tol_px} px)")
+    return int((d == 0).all(-1).sum()), int(ok.sum())
+
+
+def phase_int8_routes(fix, fix8):
+    from twinvoice_tpu_torch.config import UNetConfig
+    from twinvoice_tpu_torch.models.pretrained import variant_path
+    from twinvoice_tpu_torch.models.unet import fold_unet
+    from twinvoice_tpu_torch.weights import load_npz
+
+    calib = fix8["calib"]
+    rgb = np.repeat(calib[..., None], 3, axis=-1)
+    params, state = load_npz(variant_path("w16"))
+    folded = fold_unet(params, state, cfg=UNetConfig(base_width=16),
+                       dtype=torch.float32, device="cuda")
+    mine = quant.scales_to_array(quant.calibrate(folded, [rgb]))
+    rel = np.abs(mine - fix8["scales"]) / fix8["scales"]
+    if rel.max() > 1e-5:
+        raise AssertionError(f"calibration scales off JAX's by {rel.max():.3g} relative")
+    print(f"  calibration: {len(mine)} scales, max relative difference from JAX "
+          f"{rel.max():.3g} (TF32 off inside calibrate)", flush=True)
+    scales = quant.scales_from_array(fix8["scales"])
+    pages = fix["pages"]
+    h, w = pages.shape[1:]
+    grid = calib.shape[1]
+    sizes = np.tile(np.asarray([[w, h]], np.int32), (len(pages), 1))
+    tol_px = -(-max(h, w) // grid) + 1  # one grid cell in pixels, +1 for the pad's floor
+    segs = {r: load_pretrained_segmenter("w16", dtype=torch.float32, int8_scales=scales,
+                                         **ROUTE_ARGS[r]) for r in ROUTE_KERNELS}
+    thr = probability_to_logit_thresholds((0.25, 0.40, 0.30))
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    seg = segs["xla"]
+    (mask, boxes, ok), n = counted("xla (masks)", ROUTE_KERNELS["xla"], 1,
+                                   lambda: seg.segment_batch(rgb, sizes))
+    add(n)
+    exact = grid_check("xla", *grid_boxes(mask), fix8["xla_grid_boxes"],
+                       fix8["xla_grid_valid"])
+    px = ok_check("xla", ok, boxes, fix8["xla_ok"], fix8["xla_boxes"], tol_px)
+    print(f"  xla (masks): ok equal; grid boxes exactly equal {exact[0]}/{exact[1]}, "
+          f"max |d| {exact[2]} cell; pixel boxes exactly equal {px[0]}/{px[1]}; "
+          f"launches {n}", flush=True)
+
+    raw = np.repeat(pages[..., None], 3, axis=-1)
+    (mask, boxes, ok), n = counted("raw (device resize)", ROUTE_KERNELS["xla"], 1,
+                                   lambda: seg.segment_batch(raw, pre_resized=False))
+    add(n)
+    exact = grid_check("raw", *grid_boxes(mask), fix8["raw_grid_boxes"],
+                       fix8["raw_grid_valid"])
+    px = ok_check("raw", ok, boxes, fix8["raw_ok"], fix8["raw_boxes"], tol_px)
+    print(f"  raw (device resize): ok equal; grid boxes exactly equal "
+          f"{exact[0]}/{exact[1]}, max |d| {exact[2]} cell; pixel boxes exactly "
+          f"equal {px[0]}/{px[1]}; launches {n}", flush=True)
+
+    u8 = torch.as_tensor(rgb, device="cuda")
+    q = seg.qparams
+    thr_eff = thr - q["out"]["bias"].cpu()  # the bias folded into the thresholds
+    with torch.inference_mode():
+        logits = quant.unet_apply_quantized(q, u8)
+        grids = {
+            "xla-bf16": k1.bbox_postprocess(
+                quant.unet_apply_quantized(q, u8, logits_dtype=torch.bfloat16), thr),
+            "pallas": k2.bbox_from_rowcol_max(
+                *quant.unet_apply_quantized_rowcol_max(q, u8), thr_eff),
+        }
+        trunk = quant.unet_apply_quantized_pallas_rowcol_max(
+            q, segs["pallas trunk"].pallas_params, u8)
+    ref_route = {"xla-bf16": "xla", "pallas": "pallas"}
+    for route in ("xla-bf16", "pallas", "pallas trunk"):
+        s = segs[route]
+        (_, boxes, ok), n = counted(route, ROUTE_KERNELS[route], 1,
+                                    lambda: s.segment_batch(rgb, sizes, return_masks=False))
+        add(n)
+        jr = ref_route.get(route, "pallas")
+        px = ok_check(route, ok, boxes, fix8[f"{jr}_ok"], fix8[f"{jr}_boxes"], tol_px)
+        msg = f"pixel boxes within {tol_px} px, exactly equal {px[0]}/{px[1]}"
+        if route in grids:
+            exact = grid_check(route, *grids[route], fix8[f"{jr}_grid_boxes"],
+                               fix8[f"{jr}_grid_valid"])
+            msg = (f"grid boxes exactly equal {exact[0]}/{exact[1]}, max |d| "
+                   f"{exact[2]} cell; " + msg)
+        print(f"  {route} (box-only) vs JAX {jr}: ok equal; {msg}; launches {n}",
+              flush=True)
+
+    # the Pallas-trunk route against the port's xla route: bias-free maxima
+    bias = q["out"]["bias"]
+    row_ref, col_ref = logits.amax(dim=2) - bias, logits.amax(dim=1) - bias
+    for name, got, ref in (("row", trunk[0], row_ref), ("col", trunk[1], col_ref)):
+        if not torch.allclose(got, ref, rtol=2e-2, atol=5e-2):
+            raise AssertionError(f"pallas trunk {name} maxima off the xla route's: "
+                                 f"max |d| {float((got - ref).abs().max())}")
+    d = max(float((trunk[0] - row_ref).abs().max()), float((trunk[1] - col_ref).abs().max()))
+    print(f"  pallas trunk vs the port's xla route: row/col maxima within rtol 2e-2, "
+          f"atol 5e-2 (max |d| {d:.3g})", flush=True)
+    return segs, launches
+
+
+def phase_int8_serving(segs, fix, card, bf16_ips):
+    size = 512
+    imgs = serving_batch(fix, size)
+    h, w = fix["pages"].shape[1:]
+    sizes = np.tile(np.asarray([[w, h]], np.int32), (SERVE_BATCH, 1))
+    launches, rates = {}, {}
+    for route, expect in ROUTE_KERNELS.items():
+        seg = segs[route]
+
+        def serve():
+            for _ in range(3):
+                seg.segment_batch(imgs, sizes, return_masks=False)[1].cpu()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(SERVE_ITERS):
+                _, boxes, ok = seg.segment_batch(imgs, sizes, return_masks=False)
+                host = boxes.cpu().numpy()
+            return time.perf_counter() - t, host, ok.cpu().numpy()
+
+        (dt, host, ok), n = counted(route, expect, 3 + SERVE_ITERS, serve)
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        if not ok.all() or host.shape != (SERVE_BATCH, 3, 4):
+            raise AssertionError(f"{route} b{SERVE_BATCH}: {int(ok.sum())}/{ok.size} ok")
+        rates[route] = SERVE_BATCH * SERVE_ITERS / dt
+        per_call = {k: v // (3 + SERVE_ITERS) for k, v in n.items()}
+        print(f"  b{SERVE_BATCH} {size}^2 int8 {route} box-only, boxes to host each "
+              f"batch: {rates[route]:.1f} img/s ({1e3 * dt / SERVE_ITERS:.2f} ms/batch; "
+              f"bf16 {bf16_ips:.1f} img/s in phase 6); launches per batch {per_call} "
+              f"[{card}]", flush=True)
+    return launches, rates
+
+
+# -- phase 11: int8 kernel times ------------------------------------------------
+
+
+def time_int8_kernels(card):
+    """Each int8 kernel at every serving shape of the w16 trunk (b128); the
+    plain version at the kernel's heaviest shape. → {kernel: (ms, plain ms,
+    bound ms, bound by)} at that shape."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    calls = {
+        qconv.K4A: (qconv.qconv3x3_requant, qconv.qconv3x3_requant_reference),
+        qconv.K5: (qconv.qconv3x3_split_requant,
+                   qconv.qconv3x3_split_requant_reference),
+        k6.K6: (k6.qupsample2x2_requant, k6.qupsample2x2_requant_reference),
+    }
+    rows = {}
+    for kind, shapes in trunk_shapes().items():
+        kernel_fn, plain_fn = calls[kind]
+        best = None
+        for hw, cin, co in shapes:
+            taps = 2 if kind == k6.K6 else 3
+            x = rand_s8(g, (SERVE_BATCH, hw, hw, cin), 0, 128)
+            kern = rand_s8(g, (co, taps, taps, cin))
+            ws, b = epilogue_operands(g, co)
+            args = ((x, rand_s8(g, x.shape, 0, 128), kern, kern) if kind == qconv.K5
+                    else (x, kern)) + (ws, b, 0.01, 3.0)
+            ms = cuda_ms(lambda: kernel_fn(*args), iters=10, warmup=2)
+            bound, by = conv_bound_ms(kind, SERVE_BATCH, hw, cin, co)
+            print(f"  {kind} b{SERVE_BATCH} {hw}^2 {cin}->{co}: {ms:.4f} ms vs bound "
+                  f"{bound:.4f} ms ({by}; {100 * bound / ms:.1f}% of bound)", flush=True)
+            if best is None or ms > best[0]:
+                best = (ms, bound, by, (hw, cin, co), args)
+        ms, bound, by, shape, args = best
+        plain_ms = cuda_ms(lambda: plain_fn(*args), iters=2, warmup=1)
+        rows[kind] = (ms, plain_ms, bound, by)
+        print(f"  {kind} heaviest, b{SERVE_BATCH} {shape[0]}^2 {shape[1]}->{shape[2]}: "
+              f"{ms:.4f} ms, plain PyTorch (float64 sums) {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}); no single PyTorch call computes it (PyTorch "
+              f"has no int8 conv with an s32 sum) [{card}]", flush=True)
+        del best, args
+    x = rand_s8(g, (SERVE_BATCH, 512, 512, 16), 0, 128)
+    wt = 0.2 * torch.randn((16, 3), generator=g, device="cuda")
+    ms = cuda_ms(lambda: k2.head_rowcol_max(x, wt, 0.05), iters=20)
+    plain_ms = cuda_ms(lambda: k2.head_rowcol_max_reference(x, wt, 0.05), iters=5)
+    bound, by = head_bound_ms(*x.shape)
+    rows[k2.NAME] = (ms, plain_ms, bound, by)
+    print(f"  {k2.NAME} {tuple(x.shape)}: {ms:.4f} ms vs bound {bound:.4f} ms ({by}; "
+          f"{100 * bound / ms:.1f}% of bound); plain PyTorch {plain_ms:.4f} ms; no "
+          f"single PyTorch call computes it [{card}]", flush=True)
+    return rows
+
+
 def main():
     ph = Phases()
     name, card = ph.run(1, "device", phase_device)
@@ -332,8 +796,8 @@ def main():
     _build.launches.clear()  # the main path starts here
     ref = ph.run(4, "w16 fp32 end to end vs JAX", phase_fp32, fix)
     seg = ph.run(5, "w16 bf16 end to end", phase_bf16, fix, ref)
-    imgs, serve_calls = ph.run(6, f"b{SERVE_BATCH} bf16 serving",
-                               phase_serving, seg, fix, card)
+    imgs, serve_calls, bf16_ips = ph.run(6, f"b{SERVE_BATCH} bf16 serving",
+                                         phase_serving, seg, fix, card)
     launches = dict(_build.launches)
     calls = 2 + serve_calls  # segment_batch calls in phases 4-6
     if launches.get(k1.NAME, 0) != calls:
@@ -343,21 +807,43 @@ def main():
           f"{launches[k1.NAME] / calls:g}", flush=True)
     ms, plain_ms, bound_ms, bound_by = ph.run(
         7, "K1 timing", time_k1, seg, imgs, thr, card)
+    del seg, imgs
 
+    with np.load(INT8_FIXTURE) as z:
+        fix8 = {k: z[k] for k in z.files}
+    k2_err = ph.run(8, "int8 kernels vs plain PyTorch on the card", phase_int8_kernels)
+    segs, int8_launches = ph.run(9, "int8 routes vs JAX on the fixture pages",
+                                 phase_int8_routes, fix, fix8)
+    served, _ = ph.run(10, f"b{SERVE_BATCH} int8 serving", phase_int8_serving, segs,
+                       fix, card, bf16_ips)
+    del segs
+    for k, v in served.items():
+        int8_launches[k] = int8_launches.get(k, 0) + v
+    print(f"  launches on the int8 routes (phases 9-10): {int8_launches}", flush=True)
+    times = ph.run(11, "int8 kernel timing", time_int8_kernels, card)
+
+    rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
+             launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]
+    rows += [(name, src, where, int8_launches[name], err, times[name])
+             for name, src, where, err in (
+                 (k2.NAME, "head_rowcol_max.cu", "ops/pallas_head.py:87", k2_err),
+                 (qconv.K4A, "qconv3x3.cu", "ops/qconv_pallas.py:229", 0),
+                 (qconv.K5, "qconv3x3.cu", "ops/qconv_pallas.py:275", 0),
+                 (k6.K6, "qupsample2x2.cu", "ops/qconv_pallas.py:495", 0))]
     print(card, flush=True)
     print(json.dumps({"kernels": [{
-        "name": k1.NAME,
+        "name": name,
         "route": "cuda",
-        "source": "twinvoice_tpu_torch/csrc/bbox_postprocess.cu",
-        "replaces": "twinvoice_tpu/ops/pallas/postprocess.py:52",
-        "launches": launches[k1.NAME],
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "source": f"twinvoice_tpu_torch/csrc/{src}",
+        "replaces": f"twinvoice_tpu/{where}",
+        "launches": n,
+        "max_abs_err": err,
+        "ms": t[0],
+        "plain_ms": t[1],
+        "bound_ms": t[2],
+        "bound_by": t[3],
         "library_ms": None,
-    }]}), flush=True)
+    } for name, src, where, n, err, t in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

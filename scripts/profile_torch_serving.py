@@ -1,12 +1,15 @@
 """Where a serving batch's time goes in the PyTorch port, on one CUDA card.
 
-Runs the bundled w16 segmenter at bf16 on a batch of random uint8 512² images
-(``bench.py``'s input), box-only, boxes read back after every batch, under
-``torch.profiler``; prints the device time per kernel and per launching op
-(top rows), the device busy time (sum of kernel times) and host wall time per
-batch, the idle share, and the card's name and power limit.
+Runs the bundled w16 segmenter at bf16 (or on an int8 route, with the
+activation scales of ``tests/data/torch_smoke_int8.npz``) on a batch of
+random uint8 512² images (``bench.py``'s input), box-only, boxes read back
+after every batch, under ``torch.profiler``; prints the device time per
+kernel and per launching op (top rows), the device busy time (sum of kernel
+times) and host wall time per batch, the idle share, and the card's name and
+power limit.
 
     python3 scripts/profile_torch_serving.py [--batch 128] [--iters 5]
+        [--int8 xla|xla-bf16|pallas|pallas-trunk]
 """
 
 from __future__ import annotations
@@ -17,12 +20,19 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from twinvoice_tpu_torch.infer.quant import scales_from_array  # noqa: E402
 from twinvoice_tpu_torch.models.pretrained import load_pretrained_segmenter  # noqa: E402
+
+INT8_FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "tests", "data", "torch_smoke_int8.npz")
+INT8_ROUTES = {"xla": {"int8_head": "xla"}, "xla-bf16": {"int8_head": "xla-bf16"},
+               "pallas": {"int8_head": "pallas"}, "pallas-trunk": {"int8_pallas": True}}
 
 
 def main():
@@ -30,6 +40,8 @@ def main():
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--rows", type=int, default=15, help="kernel rows to print")
+    ap.add_argument("--int8", choices=sorted(INT8_ROUTES), default=None,
+                    help="profile this int8 route instead of bf16")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serving: no CUDA device")
@@ -38,7 +50,14 @@ def main():
         capture_output=True, text=True, timeout=30, check=True,
     ).stdout.strip().splitlines()[0]
 
-    seg = load_pretrained_segmenter("w16", dtype=torch.bfloat16)
+    if args.int8:
+        with np.load(INT8_FIXTURE) as z:
+            scales = scales_from_array(z["scales"])
+        seg = load_pretrained_segmenter("w16", dtype=torch.float32, int8_scales=scales,
+                                        **INT8_ROUTES[args.int8])
+    else:
+        seg = load_pretrained_segmenter("w16", dtype=torch.bfloat16)
+    what = f"int8 {args.int8}" if args.int8 else "bf16"
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     size = seg.cfg.img_size
@@ -74,7 +93,7 @@ def main():
     ops.sort(reverse=True)
     busy_ms = sum(r[0] for r in kernels) / 1e3
     print(f"card: {card}; torch {torch.__version__}")
-    print(f"b{args.batch} {size}^2 bf16 box-only, {args.iters} batches profiled: "
+    print(f"b{args.batch} {size}^2 {what} box-only, {args.iters} batches profiled: "
           f"host wall {1e3 * wall:.3f} ms/batch ({args.batch / wall:.1f} img/s "
           f"under the profiler), device busy {busy_ms:.3f} ms/batch, idle share "
           f"{max(0.0, 1 - busy_ms / (1e3 * wall)):.3f}")

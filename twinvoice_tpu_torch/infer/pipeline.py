@@ -5,6 +5,21 @@ uint8 batch → (device resize) → normalise → BN-folded U-Net → per-field 
 crops. The model is folded and moved to its device once. Everything up to the
 boxes stays on the device; only the crop slice touches the host.
 
+With ``int8_calib`` the forward is the int8 one (``infer.quant``), on the
+routes of the JAX ``Segmenter`` (``pipeline.py:124-248``):
+
+- ``int8_head="xla"`` (default) and the masks path of every int8 route: the
+  concat-form int8 trunk (K4a, K6), float32 logits, K1;
+- ``int8_head="xla-bf16"``, box-only: the same with bf16 logits;
+- ``int8_head="pallas"``, box-only: the same trunk, then K2's row/col maxima;
+- ``int8_pallas=True``, box-only: the Pallas-form trunk (K4a, K5, K6) and
+  its plain head;
+- device resize (``pre_resized=False``): resize, round to uint8, then the
+  ``"xla"`` route.
+
+On the head routes the out-conv bias is folded into the thresholds
+(``thr_eff = logit_thr − out_bias`` in float32).
+
 Public layout is the JAX package's: NHWC uint8 images in; masks
 ``(B,S,S,3)`` bool, boxes ``(B,3,4)`` int32 ``[x1,y1,x2,y2]`` and ok
 ``(B,3)`` bool out, as torch tensors on the segmenter's device.
@@ -25,9 +40,19 @@ from twinvoice_tpu_torch.infer.postprocess import (
     probability_to_logit_thresholds,
     scale_and_pad_boxes,
 )
+from twinvoice_tpu_torch.infer.quant import (
+    prepack_pallas,
+    quantize_unet,
+    unet_apply_quantized,
+    unet_apply_quantized_pallas_rowcol_max,
+    unet_apply_quantized_rowcol_max,
+)
 from twinvoice_tpu_torch.models.unet import fold_unet, unet_apply_folded
 from twinvoice_tpu_torch.ops.bbox_postprocess import bbox_postprocess
+from twinvoice_tpu_torch.ops.head import bbox_from_rowcol_max
 from twinvoice_tpu_torch.ops.image import normalize_uint8, resize_bilinear
+
+INT8_HEADS = ("xla", "xla-bf16", "pallas")
 
 
 def crop_fields(page, boxes, ok, black_crop_mean):
@@ -68,11 +93,26 @@ class Segmenter:
 
     def __init__(self, params, state, model_cfg: UNetConfig = UNetConfig(),
                  cfg: InferConfig = InferConfig(), dtype=torch.float32,
-                 device=None):
+                 device=None, int8_calib=None, int8_pallas=None,
+                 int8_head="xla", int8_wpack=False, int8_scales=None):
         """``params``/``state``: torch-layout trees (``weights.load_npz`` or
         ``weights.from_jax_params``). ``device=None`` means ``"cuda"`` and
         raises without a card; pass ``device="cpu"`` to run on the CPU, where
-        K1 runs as its plain PyTorch version."""
+        every kernel runs as its plain PyTorch version.
+
+        ``int8_calib``: an iterable of uint8 (B,H,W,3) batches switches the
+        forward to int8, weights quantized per channel and activation scales
+        calibrated on these batches; ``int8_scales`` (a scales tree of
+        ``infer.quant.calibrate``) gives the scales instead. ``int8_pallas``
+        and ``int8_head`` pick the box-only route (module doc).
+        ``int8_wpack`` (the W-phase-packed trunk) is not ported and raises.
+        """
+        if int8_wpack:
+            raise NotImplementedError(
+                "int8_wpack: the W-phase-packed int8 trunk is not ported yet "
+                "(ROADMAP queue 1 item 3)")
+        if int8_head not in INT8_HEADS:
+            raise ValueError(f"int8_head must be one of {INT8_HEADS}, got {int8_head!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model_cfg = model_cfg
@@ -83,6 +123,17 @@ class Segmenter:
                                  device=self.device)
         # host float32 values; the kernel takes them as launch arguments
         self._logit_thr = probability_to_logit_thresholds(cfg.thresholds)
+        self.int8_head = int8_head
+        self.qparams = None
+        self.pallas_params = None
+        if int8_calib is not None or int8_scales is not None:
+            folded32 = fold_unet(params, state, cfg=model_cfg, dtype=torch.float32,
+                                 device=self.device)
+            self.qparams = quantize_unet(folded32, int8_calib, scales=int8_scales)
+            if int8_pallas:
+                self.pallas_params = prepack_pallas(self.qparams)
+            out_bias = self.qparams["out"]["bias"].cpu()
+            self._thr_eff = (self._logit_thr - out_bias).to(self.device)
 
     # -- device graph ------------------------------------------------------
 
@@ -93,6 +144,27 @@ class Segmenter:
         # out NHWC-contiguous and K1 reads the NHWC view in place
         x = x.contiguous(memory_format=torch.channels_last)
         logits = unet_apply_folded(self.folded, x).permute(0, 2, 3, 1)
+        return self._post(logits, orig_sizes, return_masks)
+
+    def _forward_int8(self, u8, orig_sizes, return_masks):
+        """u8: (B,S,S,3) uint8 NHWC on the device; the int8 routes."""
+        q, pq = self.qparams, self.pallas_params
+        if not return_masks and (self.int8_head == "pallas" or pq is not None):
+            if pq is not None:
+                row_max, col_max = unet_apply_quantized_pallas_rowcol_max(q, pq, u8)
+            else:
+                row_max, col_max = unet_apply_quantized_rowcol_max(q, u8)
+            gboxes, valid = bbox_from_rowcol_max(row_max, col_max, self._thr_eff)
+            boxes, ok = scale_and_pad_boxes(gboxes, valid, orig_sizes,
+                                            self.cfg.img_size, self.cfg.pad_frac)
+            return None, boxes, ok
+        bf16 = self.int8_head == "xla-bf16" and not return_masks
+        logits = unet_apply_quantized(
+            q, u8, logits_dtype=torch.bfloat16 if bf16 else torch.float32)
+        return self._post(logits, orig_sizes, return_masks)
+
+    def _post(self, logits, orig_sizes, return_masks):
+        """(B,S,S,3) logits → K1 boxes, scaled and padded, and the masks."""
         gboxes, valid = bbox_postprocess(logits, self._logit_thr)
         boxes, ok = scale_and_pad_boxes(gboxes, valid, orig_sizes,
                                         self.cfg.img_size, self.cfg.pad_frac)
@@ -113,8 +185,10 @@ class Segmenter:
             u8 = self._to_device(imgs_u8, torch.uint8)
             if u8.dim() == 3:
                 u8 = u8[..., None].expand(-1, -1, -1, 3)
-            x = normalize_uint8(u8.permute(0, 3, 1, 2), self.dtype)
             sizes = self._to_device(orig_sizes, torch.int32)
+            if self.qparams is not None:
+                return self._forward_int8(u8, sizes, return_masks)
+            x = normalize_uint8(u8.permute(0, 3, 1, 2), self.dtype)
             return self._forward(x, sizes, return_masks)
 
     def _run_from_raw(self, raw_u8, orig_sizes, return_masks=True):
@@ -122,9 +196,13 @@ class Segmenter:
         size = self.cfg.img_size
         with torch.inference_mode():
             raw = self._to_device(raw_u8, torch.uint8).permute(0, 3, 1, 2)
-            x = (resize_bilinear(raw, size, size) / 255.0).to(self.dtype)
+            x = resize_bilinear(raw, size, size)
             sizes = self._to_device(orig_sizes, torch.int32)
-            return self._forward(x, sizes, return_masks)
+            if self.qparams is not None:
+                u8 = torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+                logits = unet_apply_quantized(self.qparams, u8.permute(0, 2, 3, 1))
+                return self._post(logits, sizes, return_masks)
+            return self._forward((x / 255.0).to(self.dtype), sizes, return_masks)
 
     # -- batch API (throughput path) ---------------------------------------
 

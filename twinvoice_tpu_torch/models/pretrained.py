@@ -32,10 +32,12 @@ def variant_path(variant: str) -> str:
 
 
 def load_pretrained_segmenter(variant: str = "w16", dtype=torch.bfloat16,
-                              device=None, infer_cfg: InferConfig = None):
+                              device=None, infer_cfg: InferConfig = None,
+                              **segmenter_kw):
     """→ a ready :class:`~twinvoice_tpu_torch.infer.pipeline.Segmenter` on
     bundled trained weights. ``infer_cfg`` defaults to the variant's training
-    grid; ``device=None`` means ``"cuda"``."""
+    grid; ``device=None`` means ``"cuda"``. Extra keywords (``int8_calib``,
+    ``int8_head``, ...) pass through to the ``Segmenter``."""
     from twinvoice_tpu_torch.infer.pipeline import Segmenter
     from twinvoice_tpu_torch.weights import load_npz
 
@@ -44,4 +46,5 @@ def load_pretrained_segmenter(variant: str = "w16", dtype=torch.bfloat16,
     if infer_cfg is None:
         infer_cfg = InferConfig(img_size=grid)
     params, state = load_npz(variant_path(variant))
-    return Segmenter(params, state, mcfg, infer_cfg, dtype=dtype, device=device)
+    return Segmenter(params, state, mcfg, infer_cfg, dtype=dtype, device=device,
+                     **segmenter_kw)

@@ -1,0 +1,226 @@
+"""int8 convolutions of the quantized U-Net: the plain ops, and K4a/K5.
+
+Ports of the int8 pieces of ``twinvoice_tpu.infer.quant`` (``_conv3x3_i8``,
+``_conv_transpose2x2_i8``, ``_requant``, the int8 ``max_pool2``) and of the
+Pallas kernels ``ops/qconv_pallas.py:qconv3x3_requant`` (K4a) and
+``:qconv3x3_split_requant`` (K5), which one CUDA source
+(``csrc/qconv3x3.cu``) replaces; its design note is there.
+
+Layout: activations are NHWC-contiguous int8 tensors; a 3×3 kernel is
+``(Co, 3, 3, Ci)`` int8 and a 2×2 transpose-conv kernel ``(Co, 2, 2, Ci)``
+(channels innermost, as the activations). The TPU frame layout is not
+carried over: SAME padding is the conv's own.
+
+The plain convs sum in float64, where every s32 sum of int8 products is exact
+(127·127·9·Cin < 2^53); float32 is not once Cin > 115. The float32 epilogue
+then rounds each step once, in the order of the JAX call site it mirrors:
+
+- ``scale_first=False``: ``acc · (s_in · w_scale) + bias`` (``quant._qconv``,
+  the Pallas kernels);
+- ``scale_first=True``: ``(acc · s_in) · w_scale + bias`` (the concat decoder,
+  ``quant.py:237``);
+- split with ``s_in2``: ``(acc₁ · s_in + acc₂ · s_in2) · w_scale + bias`` (the
+  split decoder, ``quant.py:242``).
+
+Then ReLU where asked and ``clip(round(y · inv))`` to [0, 127] after a ReLU,
+[−127, 127] without, with ``inv = float32(127) / float32(out_scale)`` as JAX
+computes it inside ``jit``. Scalars are host floats, rounded to float32 once.
+
+``qconv3x3_requant`` and ``qconv3x3_split_requant`` launch the kernel for
+CUDA tensors and take their plain versions only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from twinvoice_tpu_torch import _build
+
+NAME = "qconv3x3"
+K4A = "qconv3x3_requant"        # launch-count keys
+K5 = "qconv3x3_split_requant"
+_PROD, _CHAIN, _SEPARATE = 0, 1, 2  # epilogue modes of the source
+
+
+def out_inv(out_scale) -> np.float32:
+    """``127 / out_scale`` in float32, as ``quant._requant`` and the Pallas
+    kernels compute it (``127.0 / s`` on a float32 scale)."""
+    return np.float32(127.0) / np.float32(out_scale)
+
+
+# -- plain int8 ops ------------------------------------------------------------
+
+
+def conv3x3_i8(x, kernel):
+    """int8 3×3 SAME conv: (N,H,W,Ci) int8, (Co,3,3,Ci) int8 → (N,H,W,Co)
+    float64 holding the exact s32 sums (``quant._conv3x3_i8``)."""
+    xf = x.permute(0, 3, 1, 2).to(torch.float64)
+    kf = kernel.permute(0, 3, 1, 2).to(torch.float64)
+    return F.conv2d(xf, kf, padding=1).permute(0, 2, 3, 1)
+
+
+def conv_transpose2x2_i8(x, kernel):
+    """int8 2×2 stride-2 transpose conv: (N,H,W,Ci) int8, (Co,2,2,Ci) int8 →
+    (N,2H,2W,Co) float64 exact sums, ``y[2h+a, 2w+b, o] = Σ_c K[o,a,b,c]·x[h,w,c]``
+    (``quant._conv_transpose2x2_i8``)."""
+    n, h, w, _ = x.shape
+    co = kernel.shape[0]
+    y = torch.einsum("nhwc,oabc->nhawbo", x.to(torch.float64), kernel.to(torch.float64))
+    return y.reshape(n, 2 * h, 2 * w, co)
+
+
+def requant(y, out_scale, relu=True):
+    """float32 → int8 at scale ``out_scale/127`` (``quant._requant``; the
+    symmetric form with ``relu=False``). ReLU is applied here when asked."""
+    if relu:
+        y = torch.relu(y)
+    inv = torch.tensor(out_inv(out_scale), device=y.device)
+    return torch.clamp(torch.round(y * inv), 0.0 if relu else -127.0, 127.0).to(torch.int8)
+
+
+def max_pool2_i8(x):
+    """2×2 stride-2 max pool of (N,H,W,C) int8, floor mode. A reshape and
+    ``amax`` is exact for int8 on any device."""
+    n, h, w, c = x.shape
+    h2, w2 = h // 2, w // 2
+    x = x[:, : 2 * h2, : 2 * w2].reshape(n, h2, 2, w2, 2, c)
+    return x.amax(dim=(2, 4))
+
+
+def _scalar(v, device):
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def dequant(acc, w_scale, bias, s_in, *, scale_first=False):
+    """Exact sums (float64) → float32 ``y`` by the formula ``scale_first``
+    names (module doc); one rounding per step, no fused multiply-add."""
+    s = _scalar(s_in, acc.device)
+    f = acc.to(torch.float32)
+    y = (f * s) * w_scale if scale_first else f * (s * w_scale)
+    return y + bias
+
+
+# -- K4a / K5 --------------------------------------------------------------------
+
+
+def qconv3x3_requant_reference(x, kernel, w_scale, bias, s_in, out_scale, *,
+                               relu=True, scale_first=False):
+    """Plain version of :func:`qconv3x3_requant`."""
+    y = dequant(conv3x3_i8(x, kernel), w_scale, bias, s_in, scale_first=scale_first)
+    return requant(y, out_scale, relu).contiguous()
+
+
+def qconv3x3_split_requant_reference(x, x2, kernel, kernel2, w_scale, bias, s_in,
+                                     out_scale, *, s_in2=None, relu=True):
+    """Plain version of :func:`qconv3x3_split_requant`."""
+    acc, acc2 = conv3x3_i8(x, kernel), conv3x3_i8(x2, kernel2)
+    if s_in2 is None:
+        y = dequant(acc + acc2, w_scale, bias, s_in)
+    else:
+        s, s2 = _scalar(s_in, acc.device), _scalar(s_in2, acc.device)
+        y = (acc.to(torch.float32) * s + acc2.to(torch.float32) * s2) * w_scale + bias
+    return requant(y, out_scale, relu).contiguous()
+
+
+def _library():
+    fn = _build.library(NAME).twv_qconv3x3_requant
+    if fn.argtypes is None:
+        ci, cf, vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, cf, cf,
+                       ci, ci, vp, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_operands(name, x, kernel, w_scale, bias, taps):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    for t, what, dtype in ((x, "x", torch.int8), (kernel, "kernel", torch.int8),
+                           (w_scale, "w_scale", torch.float32),
+                           (bias, "bias", torch.float32)):
+        if t.device != x.device:
+            raise ValueError(f"{name}: {what} on {t.device}, x on {x.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be (N,H,W,C), got {tuple(x.shape)}")
+    co = kernel.shape[0]
+    if kernel.shape != (co, taps, taps, x.shape[3]):
+        raise ValueError(f"{name}: kernel {tuple(kernel.shape)} for x "
+                         f"{tuple(x.shape)}; expected (Co,{taps},{taps},Ci)")
+    if w_scale.shape != (co,) or bias.shape != (co,):
+        raise ValueError(f"{name}: w_scale {tuple(w_scale.shape)} and bias "
+                         f"{tuple(bias.shape)} for {co} output channels")
+    if min(x.shape) == 0 or co == 0:
+        raise ValueError(f"{name}: empty shape {tuple(x.shape)} → {co}")
+    return co
+
+
+def _launch(name, x, x2, kernel, kernel2, w_scale, bias, s0, s1, out_scale, mode,
+            relu):
+    n, h, w, cin = x.shape
+    co = kernel.shape[0]
+    out = torch.empty((n, h, w, co), dtype=torch.int8, device=x.device)
+    fn = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), x2.data_ptr() if x2 is not None else None,
+                 kernel.data_ptr(), kernel2.data_ptr() if kernel2 is not None else None,
+                 w_scale.data_ptr(), bias.data_ptr(), n, h, w, cin, co,
+                 float(s0), float(s1), float(out_inv(out_scale)), mode,
+                 int(bool(relu)), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
+    _build.launches[name] += 1
+    return out
+
+
+def qconv3x3_requant(x, kernel, w_scale, bias, s_in, out_scale, *, relu=True,
+                     scale_first=False):
+    """K4a: int8 3×3 SAME conv → float32 epilogue → int8.
+
+    ``x``: (N,H,W,Ci) int8 NHWC-contiguous; ``kernel``: (Co,3,3,Ci) int8;
+    ``w_scale``, ``bias``: (Co,) float32; ``s_in``, ``out_scale``: host
+    floats. → (N,H,W,Co) int8. The epilogue is ``acc·(s_in·w_scale) + bias``,
+    or ``(acc·s_in)·w_scale + bias`` with ``scale_first``; then ReLU where
+    asked and the requant of ``quant._requant``.
+    """
+    if x.device.type == "cpu":
+        return qconv3x3_requant_reference(x, kernel, w_scale, bias, s_in, out_scale,
+                                          relu=relu, scale_first=scale_first)
+    check_operands(K4A, x, kernel, w_scale, bias, 3)
+    return _launch(K4A, x, None, kernel, None, w_scale, bias, s_in, 0.0, out_scale,
+                   _CHAIN if scale_first else _PROD, relu)
+
+
+def qconv3x3_split_requant(x, x2, kernel, kernel2, w_scale, bias, s_in, out_scale,
+                           *, s_in2=None, relu=True):
+    """K5: the decoder conv1 on two int8 inputs (upsample half ``x``, skip half
+    ``x2``, equal shapes) with their two kernels, then K4a's epilogue.
+
+    With ``s_in2=None`` both halves share one s32 sum and one dequant factor,
+    ``(acc₁+acc₂)·(s_in·w_scale) + bias`` (the Pallas K5; valid because
+    ``quantize_unet`` harmonises the two scales); with ``s_in2`` each half
+    keeps its scale, ``(acc₁·s_in + acc₂·s_in2)·w_scale + bias`` (the split
+    XLA form, ``quant.py:242``).
+    """
+    if x.device.type == "cpu":
+        return qconv3x3_split_requant_reference(
+            x, x2, kernel, kernel2, w_scale, bias, s_in, out_scale, s_in2=s_in2,
+            relu=relu)
+    check_operands(K5, x, kernel, w_scale, bias, 3)
+    check_operands(K5, x2, kernel2, w_scale, bias, 3)
+    if x2.shape != x.shape or kernel2.shape != kernel.shape:
+        raise ValueError(f"{K5}: halves {tuple(x.shape)}/{tuple(x2.shape)}, kernels "
+                         f"{tuple(kernel.shape)}/{tuple(kernel2.shape)} differ")
+    if s_in2 is None:
+        return _launch(K5, x, x2, kernel, kernel2, w_scale, bias, s_in, 0.0,
+                       out_scale, _PROD, relu)
+    return _launch(K5, x, x2, kernel, kernel2, w_scale, bias, s_in, s_in2, out_scale,
+                   _SEPARATE, relu)

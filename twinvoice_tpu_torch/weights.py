@@ -63,7 +63,7 @@ def _tensor(a, perm=None):
     a = np.asarray(a)
     if perm is not None:
         a = np.transpose(a, perm)
-    return torch.from_numpy(np.ascontiguousarray(a))
+    return torch.from_numpy(np.array(a, order="C"))  # a writable copy
 
 
 def _conv(p):
@@ -110,3 +110,36 @@ def from_jax_params(params, state):
 def load_npz(path):
     """Bundled npz → ``(params, state)`` torch trees on the CPU, float32."""
     return from_jax_params(*read_npz_tree(path))
+
+
+def _qconv(p, device):
+    """JAX int8 conv leaf (kernel (kh,kw,Ci,Co)) → the port's (Co,kh,kw,Ci)."""
+    return {
+        "kernel": _tensor(p["kernel"], (3, 0, 1, 2)).to(device),
+        "w_scale": _tensor(np.asarray(p["w_scale"], np.float32)).to(device),
+        "bias": _tensor(np.asarray(p["bias"], np.float32)).to(device),
+    }
+
+
+def _q_double_conv(q, device):
+    return {"conv1": _qconv(q["conv1"], device), "conv2": _qconv(q["conv2"], device),
+            "s1": float(q["s1"]), "s2": float(q["s2"])}
+
+
+def from_jax_qparams(q, device="cpu"):
+    """Carry the JAX int8 qparams pytree (``twinvoice_tpu.infer.quant.
+    quantize_unet``; leaves as numpy or JAX arrays) into the port's tree on
+    ``device`` (``infer.quant``'s module doc): int8 kernels (kh,kw,Ci,Co) →
+    (Co,kh,kw,Ci), the upsample's (2,2,Ci,Co) likewise, the out conv's
+    (1,1,C,3) float32 kernel → a (C,3) ``weight``; ``w_scale`` and biases as
+    float32, activation scales as Python floats."""
+    return {
+        "enc": [_q_double_conv(lq, device) for lq in q["enc"]],
+        "bottleneck": _q_double_conv(q["bottleneck"], device),
+        "up": [{**_qconv(uq, device), "s_out": float(uq["s_out"])} for uq in q["up"]],
+        "dec": [_q_double_conv(dq, device) for dq in q["dec"]],
+        "out": {
+            "weight": _tensor(np.asarray(q["out"]["kernel"], np.float32)[0, 0]).to(device),
+            "bias": _tensor(np.asarray(q["out"]["bias"], np.float32)).to(device),
+        },
+    }
