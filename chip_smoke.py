@@ -37,12 +37,24 @@ Phases, each printing one line with its wall time:
     back after every batch, as phase 6
 11. the int8 kernels' times at the serving shapes against their bounds and
     their plain versions'
+12. K7b (``ops.nhwc_conv``) against its plain version on the card: exactly
+    equal int8 outputs A->B and B->A, odd pair counts, no ReLU, the chain
+    A->B->A, two packed sources, packed weights ``pack_w_pair`` could not
+    produce, zero pad half-pairs of every B->A output, and the three K7b
+    calls of the w16 "nhwc" trunk at b128 (held on a subset of the batch)
+13. the W-phase routes (``int8_wpack`` "full", "enc", "nhwc" box-only, and
+    "nhwc" with masks, its "full" fallback) on the fixture pages against the
+    JAX package (``tests/data/torch_smoke_wpack.npz``), with JAX's scales
+    carried in: ok flags and grid boxes equal, row/col maxima within 1e-5,
+    the trunk's channel sums equal to the port's plain sums stored there
+14. b128 512² box-only img/s on each W-phase route, and K7b's time at its
+    three serving shapes against its bound and its plain version's
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
-ran the kernels. Each int8 route of phases 9 and 10 is driven with the counts
-zeroed just before it and read just after; every kernel of the route must
-have launched.
+ran the kernels. Each int8 route of phases 9, 10, 13 and 14 is driven with
+the counts zeroed just before it and read just after; every kernel of the
+route must have launched its expected number of times, and no other.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
 only. Without a CUDA device, or if any phase fails, it exits non-zero and
@@ -57,6 +69,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -75,12 +88,14 @@ from twinvoice_tpu_torch.models.pretrained import load_pretrained_segmenter  # n
 from twinvoice_tpu_torch.models.unet import unet_apply_folded  # noqa: E402
 from twinvoice_tpu_torch.ops import bbox_postprocess as k1  # noqa: E402
 from twinvoice_tpu_torch.ops import head as k2  # noqa: E402
+from twinvoice_tpu_torch.ops import nhwc_conv as nhwc  # noqa: E402
 from twinvoice_tpu_torch.ops import qconv  # noqa: E402
 from twinvoice_tpu_torch.ops import qupsample as k6  # noqa: E402
 from twinvoice_tpu_torch.ops.image import resize_bilinear  # noqa: E402
 
 FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_pages.npz")
 INT8_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_int8.npz")
+WPACK_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_wpack.npz")
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside tensor
 # cores, int8 on the tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -230,7 +245,7 @@ def phase_fp32(fix):
     torch.backends.cuda.matmul.allow_tf32 = False
     print("  TF32 off: torch.backends.cudnn.allow_tf32 = "
           "torch.backends.cuda.matmul.allow_tf32 = False", flush=True)
-    seg = load_pretrained_segmenter("w16", dtype=torch.float32)
+    seg = load_pretrained_segmenter(variant="w16", dtype=torch.float32)
     pages = fix["pages"]
     rgb = np.repeat(pages[..., None], 3, axis=-1)
     mask, boxes, ok = seg.segment_batch(rgb, pre_resized=False)
@@ -268,7 +283,7 @@ def phase_fp32(fix):
 
 def phase_bf16(fix, ref):
     gb32, gv32 = ref
-    seg = load_pretrained_segmenter("w16", dtype=torch.bfloat16)
+    seg = load_pretrained_segmenter(variant="w16", dtype=torch.bfloat16)
     rgb = np.repeat(fix["pages"][..., None], 3, axis=-1)
     mask, _, ok = seg.segment_batch(rgb, pre_resized=False)
     gb, gv = grid_boxes(mask)
@@ -482,14 +497,16 @@ def case_conv(g, kind, label, n, h, w, cin, co, *, relu=True, scale_first=False,
                0 if relu else -127, need_clips)
 
 
-def check_k2(label, x, w, scale):
+def check_k2(label, x, w, scale, compute_dtype=torch.bfloat16):
     """K2 against its plain version. The int8 × bf16 products are exact in
     float32; the sums differ only in order, so each maximum may differ by at
     most C·2^-23 times the largest sum of |terms| over the pixels it spans
-    (twice the float32 bound (C−1)·2^-24·Σ|terms| of a sum of C terms)."""
-    row, col = k2.head_rowcol_max(x, w, scale)
-    rrow, rcol = k2.head_rowcol_max_reference(x, w, scale)
-    absterms = x.abs().to(torch.float32) @ k2.head_weight(w, scale).abs()
+    (twice the float32 bound (C−1)·2^-24·Σ|terms| of a sum of C terms). With
+    float32 weights each product is rounded once more (or fused into its
+    sum), which the same bound still covers: C·2^-24·Σ|terms| a side."""
+    row, col = k2.head_rowcol_max(x, w, scale, compute_dtype)
+    rrow, rcol = k2.head_rowcol_max_reference(x, w, scale, compute_dtype)
+    absterms = x.abs().to(torch.float32) @ k2.head_weight(w, scale, compute_dtype).abs()
     c = x.shape[-1]
     tol_row = c * 2.0 ** -23 * absterms.amax(dim=2)
     tol_col = c * 2.0 ** -23 * absterms.amax(dim=1)
@@ -500,7 +517,7 @@ def check_k2(label, x, w, scale):
         raise AssertionError(f"K2 {label}: row err {float(err_row.max())}, col err "
                              f"{float(err_col.max())} beyond the summation bound")
     err = max(float(err_row.max()), float(err_col.max()))
-    print(f"  K2 {label} {tuple(x.shape)}: max |d| {err:.3g} (bound "
+    print(f"  K2 {label} {tuple(x.shape)} {compute_dtype} weights: max |d| {err:.3g} (bound "
           f"{float(max(tol_row.max(), tol_col.max())):.3g})", flush=True)
     return err
 
@@ -625,8 +642,9 @@ def phase_int8_routes(fix, fix8):
     grid = calib.shape[1]
     sizes = np.tile(np.asarray([[w, h]], np.int32), (len(pages), 1))
     tol_px = -(-max(h, w) // grid) + 1  # one grid cell in pixels, +1 for the pad's floor
-    segs = {r: load_pretrained_segmenter("w16", dtype=torch.float32, int8_scales=scales,
-                                         **ROUTE_ARGS[r]) for r in ROUTE_KERNELS}
+    segs = {r: load_pretrained_segmenter(torch.float32, variant="w16",
+                                         int8_scales=scales, **ROUTE_ARGS[r])
+            for r in ROUTE_KERNELS}
     thr = probability_to_logit_thresholds((0.25, 0.40, 0.30))
     launches = {}
 
@@ -784,6 +802,251 @@ def time_int8_kernels(card):
     return rows
 
 
+# -- phase 12: K7b against its plain version ------------------------------------
+
+
+def k7b_bound_ms(n, h, p_in, cpk, co2, in_phase):
+    """Least time of one K7b launch on the H100 SXM: each input byte read
+    once, each output byte written once, against the packed int8 operations
+    (6 taps of Cpk channels for each output pair and channel) at the
+    tensor-core rate. → (bound_ms, "bytes" or "operations")."""
+    p_out = p_in - 1 if in_phase == "A" else p_in + 1
+    n_bytes = n * h * p_in * cpk + 6 * cpk * co2 + n * h * p_out * co2 + 8 * co2
+    ops = 2 * 6 * n * h * p_out * co2 * cpk
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / INT8_OPS_PER_S
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def k7b_serving_calls(base=16, size=512, n=SERVE_BATCH):
+    """The three K7b launches of the w16 "nhwc" trunk at ``size``²:
+    → [(label, (n, h, p_in, cpk, co2), in_phase)]."""
+    p = size // 2
+    return [("enc0 conv2 A->B", (n, size, p + 1, 2 * base, 2 * base), "A"),
+            ("dec0 conv1 B->A", (n, size, p, 4 * base, 2 * base), "B"),
+            ("dec0 conv2 A->B", (n, size, p + 1, 2 * base, 2 * base), "A")]
+
+
+def check_k7b(g, label, x, wp, in_phase, *, relu=True, subset=None, need_clips=True):
+    """One K7b launch held against its plain version on ``subset`` of the
+    batch; a B->A output's pad half-pairs must be zero. → the output."""
+    co2 = wp.shape[0]
+    a2, b2 = epilogue_operands(g, co2)
+    sub = slice(None) if subset is None else subset
+    acc = nhwc.pair_conv_i8(x[sub], wp, in_phase)
+    out_scale = spread_scale(acc.to(torch.float32) * a2 + b2)
+    del acc
+    got = nhwc.qconv3x3_pair_requant(x, wp, a2, b2, out_scale, in_phase=in_phase,
+                                     relu=relu)
+    ref = nhwc.qconv3x3_pair_requant_reference(x[sub], wp, a2, b2, out_scale,
+                                               in_phase=in_phase, relu=relu)
+    torch.cuda.synchronize()
+    check_int8(f"{nhwc.K7B} {label} {in_phase}: {tuple(x.shape)}->{co2}", got[sub], ref,
+               0 if relu else -127, need_clips)
+    if in_phase == "B":
+        half = co2 // 2
+        if got[:, :, 0, :half].any() or got[:, :, -1, half:].any():
+            raise AssertionError(f"{nhwc.K7B} {label}: pad half-pairs not zero")
+    return got
+
+
+def phase_k7b():
+    """K7b's cases, then K2 with float32 weights (the W-phase heads). → K2's
+    largest difference from its plain version."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    # one conv each way, odd P_out (w=24 -> 13 pairs in A, 13 out of B), no
+    # ReLU on signed inputs, Cpk and Co2 off the 16-wide tiles
+    for (n, h, w, c, co), relu in (((2, 32, 24, 16, 8), True), ((1, 24, 16, 8, 8), True),
+                                   ((1, 9, 8, 4, 8), True), ((2, 16, 40, 6, 10), False),
+                                   ((2, 13, 68, 16, 16), True)):
+        x = rand_s8(g, (n, h, w, c), 0 if relu else -127, 127)
+        wp = nhwc.pack_w_pair(rand_s8(g, (co, 3, 3, c)))
+        check_k7b(g, "pack_w_pair", nhwc.to_phase_a(x), wp, "A", relu=relu)
+        check_k7b(g, "pack_w_pair", x.view(n, h, w // 2, 2 * c), wp, "B", relu=relu)
+    # the chain A->B->A: the second launch reads the first's output as it lies
+    x = rand_s8(g, (1, 16, 16, 8), 0, 127)
+    wp1, wp2 = (nhwc.pack_w_pair(rand_s8(g, (8, 3, 3, 8))) for _ in range(2))
+    t1 = check_k7b(g, "chain step 1", nhwc.to_phase_a(x), wp1, "A")
+    check_k7b(g, "chain step 2", t1, wp2, "B")
+    # two packed sources, the decoder's conv1
+    up, skip = rand_s8(g, (2, 16, 24, 8)), rand_s8(g, (2, 16, 24, 8), 0, 127)
+    tcat = torch.cat([up.view(2, 16, 12, 16), skip.view(2, 16, 12, 16)], -1).contiguous()
+    wp = nhwc.pack_w_pair_multi([rand_s8(g, (8, 3, 3, 8)), rand_s8(g, (8, 3, 3, 8))])
+    check_k7b(g, "two sources", tcat, wp, "B")
+    # packed weights pack_w_pair could not produce
+    for in_phase, p in (("A", 7), ("B", 6)):
+        check_k7b(g, "random wp", rand_s8(g, (2, 16, p, 12)), rand_s8(g, (10, 3, 2, 12)),
+                  in_phase, relu=False)
+    # the three serving calls of the w16 "nhwc" trunk at b128, held on images
+    # 0 and 127
+    sub = torch.tensor([0, SERVE_BATCH - 1], device="cuda")
+    for label, (n, h, p, cpk, co2), in_phase in k7b_serving_calls():
+        x = rand_s8(g, (n, h, p, cpk), 0, 128)
+        if in_phase == "A":
+            x[:, :, 0, : cpk // 2] = 0  # the baked-in W pad of a phase-A input
+            x[:, :, -1, cpk // 2:] = 0
+        check_k7b(g, f"w16 {label}", x, rand_s8(g, (co2, 3, 2, cpk)), in_phase, subset=sub)
+        del x
+    err = 0.0
+    for shape in ((3, 9, 13, 16), (2, 7, 11, 5), (SERVE_BATCH, 512, 512, 16)):
+        x = rand_s8(g, shape, 0, 128)
+        wt = 0.2 * torch.randn((shape[-1], 3), generator=g, device="cuda")
+        err = max(err, check_k2("random", x, wt, 0.037, torch.float32))
+    return err
+
+
+# -- phases 13-14: the W-phase routes ------------------------------------------
+
+
+WPACK_ROUTE_KERNELS = {  # kernels each route launches, per segment_batch call
+    "full": {qconv.K4A: 18, k6.K6: 4, k2.NAME: 1},
+    "enc": {qconv.K4A: 18, k6.K6: 4, k2.NAME: 1},
+    "nhwc": {qconv.K4A: 15, nhwc.K7B: 3, k6.K6: 4, k2.NAME: 1},
+}
+
+
+def fingerprints(hp, c):
+    """Final int8 activations of ``c`` channels (any packing) → (B, c) int64
+    channel sums."""
+    b, h = hp.shape[:2]
+    return hp.reshape(b, h, -1, c).to(torch.int64).sum(dim=(1, 2)).cpu().numpy()
+
+
+def phase_wpack_routes(fix, fix8, fixw):
+    from twinvoice_tpu_torch.infer import wpack
+
+    scales = quant.scales_from_array(fix8["scales"])
+    calib = fix8["calib"]
+    rgb = np.repeat(calib[..., None], 3, axis=-1)
+    u8 = torch.as_tensor(rgb, device="cuda")
+    h, w = fix["pages"].shape[1:]
+    sizes = np.tile(np.asarray([[w, h]], np.int32), (len(calib), 1))
+    tol_px = -(-max(h, w) // calib.shape[1]) + 1
+    thr = probability_to_logit_thresholds((0.25, 0.40, 0.30))
+    segs = {}
+    for mode in WPACK_ROUTE_KERNELS:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # the "nhwc" fallback note
+            segs[mode] = load_pretrained_segmenter(torch.float32, variant="w16",
+                                                   int8_scales=scales, int8_wpack=mode)
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for mode, expect in WPACK_ROUTE_KERNELS.items():
+        seg = segs[mode]
+        (_, boxes, ok), n = counted(mode, expect, 1, lambda: seg.segment_batch(
+            rgb, sizes, return_masks=False))
+        add(n)
+        px = ok_check(mode, ok, boxes, fixw[f"{mode}_ok"], fixw[f"{mode}_boxes"], tol_px)
+        q = seg.qparams
+        with torch.inference_mode():
+            if mode == "nhwc":
+                hp, _ = wpack.unet_apply_quantized_features_nhwc(q, u8)
+                row, col = wpack.unet_apply_quantized_nhwc_rowcol_max(q, u8)
+            else:
+                hp, _ = wpack.unet_apply_quantized_features_wpack(q, u8, mode)
+                row, col = wpack.unet_apply_quantized_wpack_rowcol_max(q, u8, mode)
+        thr_eff = thr - q["out"]["bias"].cpu()
+        jrow = torch.as_tensor(fixw[f"{mode}_row_max"], device="cuda")
+        jcol = torch.as_tensor(fixw[f"{mode}_col_max"], device="cuda")
+        exact = grid_check(mode, *k2.bbox_from_rowcol_max(row, col, thr_eff),
+                           *(t.cpu().numpy() for t in k2.bbox_from_rowcol_max(
+                               jrow, jcol, thr_eff)))
+        if exact[0] != exact[1]:
+            raise AssertionError(f"{mode}: grid boxes {exact[0]}/{exact[1]} equal JAX's")
+        # the bound of tests/unit/test_wpack.py; K2 sums the 1x1 head in
+        # channel order, XLA in its own
+        if not (torch.allclose(row, jrow, rtol=1e-5, atol=1e-5)
+                and torch.allclose(col, jcol, rtol=1e-5, atol=1e-5)):
+            raise AssertionError(f"{mode}: row/col maxima off JAX's beyond rtol 1e-5, "
+                                 f"atol 1e-5")
+        d = max(float((row - jrow).abs().max()), float((col - jcol).abs().max()))
+        fp = fingerprints(hp, q["out"]["weight"].shape[0])
+        port_fp = fixw["nhwc_port_fingerprint" if mode == "nhwc" else "full_port_fingerprint"]
+        if not np.array_equal(fp, port_fp):
+            raise AssertionError(f"{mode}: trunk channel sums {fp.tolist()} != the port's "
+                                 f"plain sums {port_fp.tolist()}")
+        dj = np.abs(fp - fixw[f"{mode}_fingerprint"])
+        print(f"  {mode} (box-only) vs JAX: ok equal; grid boxes exactly equal "
+              f"{exact[0]}/{exact[1]}; pixel boxes exactly equal {px[0]}/{px[1]}; "
+              f"maxima within rtol 1e-5, atol 1e-5 (max |d| {d:.3g}); trunk channel "
+              f"sums equal the port's plain sums on all {len(fp)} pages, JAX's on "
+              f"{int((dj == 0).all(1).sum())}/{len(fp)} pages (max |d| {int(dj.max())}, "
+              f"XLA's CPU FMA at requant ties); launches {n}", flush=True)
+
+    seg = segs["nhwc"]
+    expect = {qconv.K4A: 18, k6.K6: 4, k1.NAME: 1}
+    (mask, boxes, ok), n = counted("nhwc (masks)", expect, 1,
+                                   lambda: seg.segment_batch(rgb, sizes))
+    add(n)
+    px = ok_check("nhwc (masks)", ok, boxes, fixw["nhwc_masks_ok"],
+                  fixw["nhwc_masks_boxes"], tol_px)
+    # JAX's "full" logits are the concat graph's bits (tests/unit/test_wpack.py),
+    # so its mask grid boxes are those of the int8 fixture's xla route
+    exact = grid_check("nhwc (masks)", *grid_boxes(mask), fix8["xla_grid_boxes"],
+                       fix8["xla_grid_valid"])
+    print(f"  nhwc with masks (the full fallback) vs JAX: ok equal; grid boxes exactly "
+          f"equal {exact[0]}/{exact[1]}, max |d| {exact[2]} cell; pixel boxes exactly "
+          f"equal {px[0]}/{px[1]}; launches {n}", flush=True)
+    return segs, launches
+
+
+def phase_wpack_serving(segs, fix, card):
+    imgs = serving_batch(fix, 512)
+    h, w = fix["pages"].shape[1:]
+    sizes = np.tile(np.asarray([[w, h]], np.int32), (SERVE_BATCH, 1))
+    launches, rates = {}, {}
+    for mode, expect in WPACK_ROUTE_KERNELS.items():
+        seg = segs[mode]
+
+        def serve():
+            for _ in range(3):
+                seg.segment_batch(imgs, sizes, return_masks=False)[1].cpu()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(SERVE_ITERS):
+                _, boxes, ok = seg.segment_batch(imgs, sizes, return_masks=False)
+                host = boxes.cpu().numpy()
+            return time.perf_counter() - t, host, ok.cpu().numpy()
+
+        (dt, host, ok), n = counted(mode, expect, 3 + SERVE_ITERS, serve)
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        if not ok.all() or host.shape != (SERVE_BATCH, 3, 4):
+            raise AssertionError(f"{mode} b{SERVE_BATCH}: {int(ok.sum())}/{ok.size} ok")
+        rates[mode] = SERVE_BATCH * SERVE_ITERS / dt
+        print(f"  b{SERVE_BATCH} 512^2 int8_wpack={mode!r} box-only, boxes to host each "
+              f"batch: {rates[mode]:.1f} img/s ({1e3 * dt / SERVE_ITERS:.2f} ms/batch); "
+              f"launches per batch {expect} [{card}]", flush=True)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    worst = None
+    for label, (n, hh, p, cpk, co2), in_phase in k7b_serving_calls():
+        x = rand_s8(g, (n, hh, p, cpk), 0, 128)
+        args = (x, rand_s8(g, (co2, 3, 2, cpk))) + epilogue_operands(g, co2) + (3.0,)
+        ms = cuda_ms(lambda: nhwc.qconv3x3_pair_requant(*args, in_phase=in_phase),
+                     iters=10, warmup=2)
+        bound, by = k7b_bound_ms(n, hh, p, cpk, co2, in_phase)
+        print(f"  {nhwc.K7B} {label} b{n} {(hh, p, cpk)}->{co2}: {ms:.4f} ms vs bound "
+              f"{bound:.4f} ms ({by}; {100 * bound / ms:.1f}% of bound) [{card}]",
+              flush=True)
+        if worst is None or ms > worst[0]:
+            worst = (ms, bound, by, label, args, in_phase)
+        del x, args
+    ms, bound, by, label, args, in_phase = worst
+    plain_ms = cuda_ms(lambda: nhwc.qconv3x3_pair_requant_reference(
+        *args, in_phase=in_phase), iters=2, warmup=1)
+    print(f"  {nhwc.K7B} heaviest, {label}: {ms:.4f} ms, plain PyTorch (float64 sums) "
+          f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); no single PyTorch call "
+          f"computes it (PyTorch has no int8 conv with an s32 sum) [{card}]", flush=True)
+    return launches, rates, (ms, plain_ms, bound, by)
+
+
 def main():
     ph = Phases()
     name, card = ph.run(1, "device", phase_device)
@@ -822,6 +1085,22 @@ def main():
     print(f"  launches on the int8 routes (phases 9-10): {int8_launches}", flush=True)
     times = ph.run(11, "int8 kernel timing", time_int8_kernels, card)
 
+    with np.load(WPACK_FIXTURE) as z:
+        fixw = {k: z[k] for k in z.files}
+    k2_err = max(k2_err, ph.run(12, "K7b (and K2's float32 weights) vs plain PyTorch "
+                                    "on the card", phase_k7b))
+    wsegs, wlaunches = ph.run(13, "W-phase routes vs JAX on the fixture pages",
+                              phase_wpack_routes, fix, fix8, fixw)
+    wserved, _, k7b_time = ph.run(14, f"b{SERVE_BATCH} W-phase serving and K7b timing",
+                                  phase_wpack_serving, wsegs, fix, card)
+    del wsegs
+    for counts in (wlaunches, wserved):
+        for k, v in counts.items():
+            int8_launches[k] = int8_launches.get(k, 0) + v
+    print(f"  launches on the int8 routes (phases 9-10, 13-14): {int8_launches}",
+          flush=True)
+    times[nhwc.K7B] = k7b_time
+
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
              launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]
     rows += [(name, src, where, int8_launches[name], err, times[name])
@@ -829,7 +1108,8 @@ def main():
                  (k2.NAME, "head_rowcol_max.cu", "ops/pallas_head.py:87", k2_err),
                  (qconv.K4A, "qconv3x3.cu", "ops/qconv_pallas.py:229", 0),
                  (qconv.K5, "qconv3x3.cu", "ops/qconv_pallas.py:275", 0),
-                 (k6.K6, "qupsample2x2.cu", "ops/qconv_pallas.py:495", 0))]
+                 (k6.K6, "qupsample2x2.cu", "ops/qconv_pallas.py:495", 0),
+                 (nhwc.K7B, "qconv3x3_pair.cu", "ops/nhwc_conv.py:474", 0))]
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": name,

@@ -9,7 +9,7 @@ times) and host wall time per batch, the idle share, and the card's name and
 power limit.
 
     python3 scripts/profile_torch_serving.py [--batch 128] [--iters 5]
-        [--int8 xla|xla-bf16|pallas|pallas-trunk]
+        [--int8 xla|xla-bf16|pallas|pallas-trunk|wpack-full|wpack-enc|wpack-nhwc]
 """
 
 from __future__ import annotations
@@ -32,7 +32,9 @@ from twinvoice_tpu_torch.models.pretrained import load_pretrained_segmenter  # n
 INT8_FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                             "tests", "data", "torch_smoke_int8.npz")
 INT8_ROUTES = {"xla": {"int8_head": "xla"}, "xla-bf16": {"int8_head": "xla-bf16"},
-               "pallas": {"int8_head": "pallas"}, "pallas-trunk": {"int8_pallas": True}}
+               "pallas": {"int8_head": "pallas"}, "pallas-trunk": {"int8_pallas": True},
+               "wpack-full": {"int8_wpack": "full"}, "wpack-enc": {"int8_wpack": "enc"},
+               "wpack-nhwc": {"int8_wpack": "nhwc"}}
 
 
 def main():
@@ -53,10 +55,10 @@ def main():
     if args.int8:
         with np.load(INT8_FIXTURE) as z:
             scales = scales_from_array(z["scales"])
-        seg = load_pretrained_segmenter("w16", dtype=torch.float32, int8_scales=scales,
-                                        **INT8_ROUTES[args.int8])
+        seg = load_pretrained_segmenter(torch.float32, variant="w16",
+                                        int8_scales=scales, **INT8_ROUTES[args.int8])
     else:
-        seg = load_pretrained_segmenter("w16", dtype=torch.bfloat16)
+        seg = load_pretrained_segmenter(variant="w16", dtype=torch.bfloat16)
     what = f"int8 {args.int8}" if args.int8 else "bf16"
     g = torch.Generator(device="cuda")
     g.manual_seed(0)

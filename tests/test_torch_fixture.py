@@ -45,7 +45,7 @@ def test_fixture_reproduces_from_its_script():
 
 def test_port_fp32_equals_jax_on_fixture_pages():
     fix = _fixture()
-    seg = load_pretrained_segmenter("w16", dtype=torch.float32, device="cpu")
+    seg = load_pretrained_segmenter(variant="w16", dtype=torch.float32, device="cpu")
     rgb = np.repeat(fix["pages"][..., None], 3, axis=-1)
     mask, boxes, ok = seg.segment_batch(rgb, pre_resized=False)
     np.testing.assert_array_equal(boxes.numpy(), fix["boxes"])

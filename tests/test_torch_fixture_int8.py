@@ -56,7 +56,7 @@ def test_port_calibration_within_1e5_of_jax(fix):
 @pytest.fixture(scope="module")
 def segmenters(fix):
     scales = quant.scales_from_array(fix["scales"])
-    return {route: load_pretrained_segmenter("w16", dtype=torch.float32, device="cpu",
+    return {route: load_pretrained_segmenter(torch.float32, variant="w16", device="cpu",
                                              int8_scales=scales, **kw)
             for route, kw in (("pallas", {"int8_head": "pallas"}),
                               ("pallas trunk", {"int8_pallas": True}))}

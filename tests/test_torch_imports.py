@@ -34,7 +34,7 @@ def test_port_and_chip_smoke_import_without_jax_pil_cv2():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 19  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 21  # every module was imported
 
 
 def test_find_nvcc_names_every_place_it_looked(monkeypatch, tmp_path):
@@ -70,7 +70,8 @@ def test_build_compiles_each_source_once_for_sm90a(monkeypatch, tmp_path):
     _fake_nvcc(tmp_path)
     built = _build.build()
     assert set(built) == set(_build.sources()) >= {
-        "bbox_postprocess", "head_rowcol_max", "qconv3x3", "qupsample2x2"}
+        "bbox_postprocess", "head_rowcol_max", "qconv3x3", "qconv3x3_pair",
+        "qupsample2x2"}
     for name, path in built.items():
         assert path.exists() and path.parent == tmp_path / "out"
         assert path.name.startswith(name + "-") and path.suffix == ".so"

@@ -71,13 +71,15 @@ def test_segment_batch_pre_resized(pair, return_masks):
 
 @pytest.mark.parametrize("return_masks", [True, False])
 def test_segment_batch_raw_device_resize(pair, return_masks):
-    """pre_resized=False: the device resize shrinks H and grows W at once."""
+    """pre_resized=False: the device resize shrinks H and grows W at once,
+    and returns the masks whatever ``return_masks`` says, as JAX's does."""
     jseg, tseg = pair
     x = pages(1, 3, 100, 48)
-    jout = jseg.segment_batch(x, pre_resized=False)  # JAX always returns masks
+    jout = jseg.segment_batch(x, pre_resized=False, return_masks=return_masks)
     tout = tseg.segment_batch(x, pre_resized=False, return_masks=return_masks)
     assert tout[1].shape == (3, 3, 4) and tout[2].dtype == torch.bool
-    assert_same(jout, tout, masks=return_masks)
+    assert tout[0] is not None and tout[0].shape == (3, GRID, GRID, 3)
+    assert_same(jout, tout, masks=True)
 
 
 def _pil_pages(seed, n):
@@ -143,3 +145,26 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch, pair):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Segmenter({}, {}, device=None)
     assert tseg.device.type == "cpu"
+
+
+def test_load_pretrained_segmenter_takes_jax_positional_order():
+    """``(dtype, infer_cfg, variant)`` means the same in both packages, and
+    ``available`` agrees on every variant."""
+    from twinvoice_tpu.models import pretrained as jpretrained
+    from twinvoice_tpu_torch.models import pretrained
+
+    jseg = jpretrained.load_pretrained_segmenter(jnp.float32, JaxInferConfig(img_size=64),
+                                                 "w16_g384")
+    tseg = load_pretrained_segmenter(torch.float32, InferConfig(img_size=64), "w16_g384",
+                                     device="cpu")
+    assert jseg.dtype == jnp.float32 and tseg.dtype == torch.float32
+    assert jseg.cfg.img_size == tseg.cfg.img_size == 64
+    assert jseg.model_cfg.base_width == tseg.model_cfg.base_width == 16
+    # the variant's own weights: the folded out conv of w16_g384, not of w16
+    w = np.asarray(jseg.folded["out"]["kernel"])[0, 0]
+    np.testing.assert_array_equal(tseg.folded["out"]["weight"][:, :, 0, 0].numpy().T, w)
+    w16 = load_pretrained_segmenter(torch.float32, None, "w16", device="cpu")
+    assert not torch.equal(w16.folded["out"]["weight"], tseg.folded["out"]["weight"])
+    for v in pretrained.VARIANTS:
+        assert pretrained.available(v) == jpretrained.available(v)
+    assert pretrained.available("w16")

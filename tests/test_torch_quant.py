@@ -196,10 +196,3 @@ def test_segmenter_int8_device_resize_and_gray_match_jax(segmenters):
     tm, tb, to = tseg._run(gray, sizes)
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
-
-
-def test_int8_wpack_is_not_ported(model):
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        Segmenter(model["tp"], model["ts"], UNetConfig(base_width=8),
-                  InferConfig(img_size=GRID), device="cpu",
-                  int8_calib=model["calib"], int8_wpack="nhwc")

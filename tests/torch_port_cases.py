@@ -55,3 +55,26 @@ def random_unet(seed, base_width=8):
     params["out"] = conv(1, widths[0], cfg.num_classes)
     params["out"]["bias"] = f32([0.5, -0.8, 0.0])
     return cfg, params, state
+
+
+def int8_unet(seed=3, grid=32):
+    """A random base-width-8 U-Net quantized by the JAX package on two
+    calibration batches of ``grid``² pages, and the same qparams carried into
+    the port. → {"jcfg", "params", "state", "tp", "ts", "calib", "jq", "q"}."""
+    import jax
+    import jax.numpy as jnp
+
+    from twinvoice_tpu.infer import quant as jquant
+    from twinvoice_tpu.models.unet import fold_unet as jax_fold_unet
+    from twinvoice_tpu_torch.weights import from_jax_params, from_jax_qparams
+
+    from tests.test_torch_pipeline import pages
+
+    jcfg, params, state = random_unet(seed)
+    jfolded = jax_fold_unet(jax.tree.map(jnp.asarray, params),
+                            jax.tree.map(jnp.asarray, state), cfg=jcfg)
+    tp, ts = from_jax_params(params, state)
+    calib = [pages(5, 2, grid, grid), pages(6, 1, grid, grid)]
+    jq = jquant.quantize_unet(jfolded, calib)
+    return {"jcfg": jcfg, "params": params, "state": state, "tp": tp, "ts": ts,
+            "calib": calib, "jq": jq, "q": from_jax_qparams(jq)}

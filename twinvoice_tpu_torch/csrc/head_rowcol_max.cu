@@ -11,6 +11,9 @@
 // The bias is folded into the thresholds by the caller. Every product of an
 // int8 and a bf16 is exact in float32, so only the order of the sum over C
 // differs from another implementation: it runs in channel order here.
+// With bf16_weights = 0, wf = w * act_scale stays float32 (the W-phase heads
+// of twinvoice_tpu/infer/wpack.py, a float32 XLA conv): each fmaf then rounds
+// a product once with its sum, still within C ulps of any order's sum.
 //
 // Bound: the activations are read once (128 x 512^2 x 16 = 537 MB at w16,
 // b128: 0.16 ms at 3.35 TB/s); 3 x 2 x C operations a pixel are far below the
@@ -83,10 +86,10 @@ __device__ __forceinline__ void pixel_logits(const int8_t* px, const float* ws, 
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 head_band_kernel(const int8_t* __restrict__ x, const float* __restrict__ w,
-                 float act_scale, int H, int W, int C, int rows,
+                 float act_scale, int bf16_weights, int H, int W, int C, int rows,
                  float* __restrict__ row_max, float* __restrict__ partial) {
   extern __shared__ float smem[];
-  float* ws = smem;                  // (C, 3) bf16-rounded weights
+  float* ws = smem;                  // (C, 3) scaled weights
   float* col = ws + C * kK;          // (W, 3) running column maxima
   float* rowp = col + W * kK;        // (rows, warps, 3) per-warp row maxima
   const int band = blockIdx.x;
@@ -95,7 +98,8 @@ head_band_kernel(const int8_t* __restrict__ x, const float* __restrict__ w,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   for (int i = threadIdx.x; i < C * kK; i += kThreads) {
-    ws[i] = __bfloat162float(__float2bfloat16_rn(__fmul_rn(w[i], act_scale)));
+    const float v = __fmul_rn(w[i], act_scale);
+    ws[i] = bf16_weights ? __bfloat162float(__float2bfloat16_rn(v)) : v;
   }
   for (int i = threadIdx.x; i < W * kK; i += kThreads) col[i] = -INFINITY;
   __syncthreads();
@@ -155,9 +159,9 @@ __global__ void head_col_reduce_kernel(const float* __restrict__ partial, int ba
 }
 
 template <int VEC>
-cudaError_t launch_band(const int8_t* x, const float* w, float act_scale, int B, int H,
-                        int W, int C, int bands, int rows, size_t smem, float* row_max,
-                        float* partial, cudaStream_t stream) {
+cudaError_t launch_band(const int8_t* x, const float* w, float act_scale, int bf16_w,
+                        int B, int H, int W, int C, int bands, int rows, size_t smem,
+                        float* row_max, float* partial, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         head_band_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -165,19 +169,22 @@ cudaError_t launch_band(const int8_t* x, const float* w, float act_scale, int B,
     if (e != cudaSuccess) return e;
   }
   head_band_kernel<VEC><<<dim3(bands, B), kThreads, smem, stream>>>(
-      x, w, act_scale, H, W, C, rows, row_max, partial);
+      x, w, act_scale, bf16_w, H, W, C, rows, row_max, partial);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x: (B, H, W, C) int8 NHWC-contiguous; w: (C, 3) float32 contiguous, the
-// out-conv weight; act_scale: the activations' dequant scale. Each image is
-// cut into `bands` bands of `rows` rows (bands * rows >= H, no band empty).
+// out-conv weight; act_scale: the activations' dequant scale; bf16_weights !=
+// 0 rounds w * act_scale to bf16 (the Pallas head), 0 keeps it float32. Each
+// image is cut into `bands` bands of `rows` rows (bands * rows >= H, no band
+// empty).
 // partial: (B, bands, W, 3) float32 scratch; row_max: (B, H, 3) and col_max:
 // (B, W, 3) float32 contiguous; all on the device.
 extern "C" int twv_head_rowcol_max(const void* x, const void* w, float act_scale,
-                                   int B, int H, int W, int C, int bands, int rows,
+                                   int bf16_weights, int B, int H, int W, int C,
+                                   int bands, int rows,
                                    void* partial, void* row_max, void* col_max,
                                    void* stream) {
   const size_t smem = sizeof(float) * (static_cast<size_t>(C) * kK +
@@ -195,11 +202,14 @@ extern "C" int twv_head_rowcol_max(const void* x, const void* w, float act_scale
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
   cudaError_t e;
   if (C % 16 == 0 && addr % 16 == 0) {
-    e = launch_band<16>(xi, wf, act_scale, B, H, W, C, bands, rows, smem, rm, pt, st);
+    e = launch_band<16>(xi, wf, act_scale, bf16_weights, B, H, W, C, bands, rows, smem,
+                        rm, pt, st);
   } else if (C % 4 == 0 && addr % 4 == 0) {
-    e = launch_band<4>(xi, wf, act_scale, B, H, W, C, bands, rows, smem, rm, pt, st);
+    e = launch_band<4>(xi, wf, act_scale, bf16_weights, B, H, W, C, bands, rows, smem,
+                        rm, pt, st);
   } else {
-    e = launch_band<1>(xi, wf, act_scale, B, H, W, C, bands, rows, smem, rm, pt, st);
+    e = launch_band<1>(xi, wf, act_scale, bf16_weights, B, H, W, C, bands, rows, smem,
+                        rm, pt, st);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long per_image = static_cast<long long>(W) * kK;

@@ -14,8 +14,20 @@ routes of the JAX ``Segmenter`` (``pipeline.py:124-248``):
 - ``int8_head="pallas"``, box-only: the same trunk, then K2's row/col maxima;
 - ``int8_pallas=True``, box-only: the Pallas-form trunk (K4a, K5, K6) and
   its plain head;
+- ``int8_wpack=True|"full"|"enc"`` (``infer.wpack``), box-only: the W-phase
+  trunk, whose bits are the concat trunk's (K4a, K6), then K2 with float32
+  weights; with masks, its float32 logits and K1;
+- ``int8_wpack="nhwc"``, box-only: the W-phase trunk with its three
+  full-resolution convs in K7b, then K2 with float32 weights; the masks path
+  and the device resize fall back to ``"full"`` (a ``UserWarning`` at
+  construction says so);
 - device resize (``pre_resized=False``): resize, round to uint8, then the
-  ``"xla"`` route.
+  ``"xla"`` route (the W-phase logits with ``int8_wpack``); it always
+  returns the masks, as JAX's does.
+
+On the box-only path ``int8_head="pallas"`` and ``int8_pallas`` take
+precedence over ``int8_wpack``, and ``"xla-bf16"`` does not change a W-phase
+route.
 
 On the head routes the out-conv bias is folded into the thresholds
 (``thr_eff = logit_thr − out_bias`` in float32).
@@ -30,6 +42,8 @@ caller without either library can crop too.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -46,6 +60,11 @@ from twinvoice_tpu_torch.infer.quant import (
     unet_apply_quantized,
     unet_apply_quantized_pallas_rowcol_max,
     unet_apply_quantized_rowcol_max,
+)
+from twinvoice_tpu_torch.infer.wpack import (
+    unet_apply_quantized_nhwc_rowcol_max,
+    unet_apply_quantized_wpack,
+    unet_apply_quantized_wpack_rowcol_max,
 )
 from twinvoice_tpu_torch.models.unet import fold_unet, unet_apply_folded
 from twinvoice_tpu_torch.ops.bbox_postprocess import bbox_postprocess
@@ -104,13 +123,15 @@ class Segmenter:
         forward to int8, weights quantized per channel and activation scales
         calibrated on these batches; ``int8_scales`` (a scales tree of
         ``infer.quant.calibrate``) gives the scales instead. ``int8_pallas``
-        and ``int8_head`` pick the box-only route (module doc).
-        ``int8_wpack`` (the W-phase-packed trunk) is not ported and raises.
+        and ``int8_head`` pick the box-only route, ``int8_wpack`` (True,
+        ``"full"``, ``"enc"`` or ``"nhwc"``; ignored without int8) the
+        W-phase trunk (module doc).
         """
-        if int8_wpack:
-            raise NotImplementedError(
-                "int8_wpack: the W-phase-packed int8 trunk is not ported yet "
-                "(ROADMAP queue 1 item 3)")
+        if int8_wpack == "nhwc":
+            warnings.warn(
+                "int8_wpack='nhwc' applies only to the box-only "
+                "(return_masks=False) path; mask paths fall back to the "
+                "W-phase trunk (mode='full')", stacklevel=2)
         if int8_head not in INT8_HEADS:
             raise ValueError(f"int8_head must be one of {INT8_HEADS}, got {int8_head!r}")
         self.device = resolve_device(device)
@@ -126,12 +147,17 @@ class Segmenter:
         self.int8_head = int8_head
         self.qparams = None
         self.pallas_params = None
+        self.wpack_mode = None  # "full" or "enc" when the W-phase trunk serves
+        self.wpack_nhwc = False
         if int8_calib is not None or int8_scales is not None:
             folded32 = fold_unet(params, state, cfg=model_cfg, dtype=torch.float32,
                                  device=self.device)
             self.qparams = quantize_unet(folded32, int8_calib, scales=int8_scales)
             if int8_pallas:
                 self.pallas_params = prepack_pallas(self.qparams)
+            if int8_wpack:
+                self.wpack_mode = "enc" if int8_wpack == "enc" else "full"
+                self.wpack_nhwc = int8_wpack == "nhwc"
             out_bias = self.qparams["out"]["bias"].cpu()
             self._thr_eff = (self._logit_thr - out_bias).to(self.device)
 
@@ -151,17 +177,33 @@ class Segmenter:
         q, pq = self.qparams, self.pallas_params
         if not return_masks and (self.int8_head == "pallas" or pq is not None):
             if pq is not None:
-                row_max, col_max = unet_apply_quantized_pallas_rowcol_max(q, pq, u8)
+                maxima = unet_apply_quantized_pallas_rowcol_max(q, pq, u8)
             else:
-                row_max, col_max = unet_apply_quantized_rowcol_max(q, u8)
-            gboxes, valid = bbox_from_rowcol_max(row_max, col_max, self._thr_eff)
-            boxes, ok = scale_and_pad_boxes(gboxes, valid, orig_sizes,
-                                            self.cfg.img_size, self.cfg.pad_frac)
-            return None, boxes, ok
+                maxima = unet_apply_quantized_rowcol_max(q, u8)
+            return self._post_maxima(*maxima, orig_sizes)
+        if not return_masks and self.wpack_mode is not None:
+            if self.wpack_nhwc:
+                maxima = unet_apply_quantized_nhwc_rowcol_max(q, u8)
+            else:
+                maxima = unet_apply_quantized_wpack_rowcol_max(q, u8, self.wpack_mode)
+            return self._post_maxima(*maxima, orig_sizes)
         bf16 = self.int8_head == "xla-bf16" and not return_masks
-        logits = unet_apply_quantized(
-            q, u8, logits_dtype=torch.bfloat16 if bf16 else torch.float32)
-        return self._post(logits, orig_sizes, return_masks)
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        return self._post(self._int8_logits(u8, dtype), orig_sizes, return_masks)
+
+    def _int8_logits(self, u8, dtype=torch.float32):
+        """The int8 logits: the W-phase trunk's when it serves, else the
+        concat trunk's."""
+        if self.wpack_mode is not None:
+            return unet_apply_quantized_wpack(self.qparams, u8, dtype, self.wpack_mode)
+        return unet_apply_quantized(self.qparams, u8, logits_dtype=dtype)
+
+    def _post_maxima(self, row_max, col_max, orig_sizes):
+        """Bias-free row/col logit maxima → boxes, scaled and padded."""
+        gboxes, valid = bbox_from_rowcol_max(row_max, col_max, self._thr_eff)
+        boxes, ok = scale_and_pad_boxes(gboxes, valid, orig_sizes,
+                                        self.cfg.img_size, self.cfg.pad_frac)
+        return None, boxes, ok
 
     def _post(self, logits, orig_sizes, return_masks):
         """(B,S,S,3) logits → K1 boxes, scaled and padded, and the masks."""
@@ -191,8 +233,9 @@ class Segmenter:
             x = normalize_uint8(u8.permute(0, 3, 1, 2), self.dtype)
             return self._forward(x, sizes, return_masks)
 
-    def _run_from_raw(self, raw_u8, orig_sizes, return_masks=True):
-        """Device resize: raw_u8 (B,H,W,3) uint8 at any one H, W."""
+    def _run_from_raw(self, raw_u8, orig_sizes):
+        """Device resize: raw_u8 (B,H,W,3) uint8 at any one H, W. Returns the
+        masks always, as JAX's ``_run_from_raw`` does."""
         size = self.cfg.img_size
         with torch.inference_mode():
             raw = self._to_device(raw_u8, torch.uint8).permute(0, 3, 1, 2)
@@ -200,9 +243,8 @@ class Segmenter:
             sizes = self._to_device(orig_sizes, torch.int32)
             if self.qparams is not None:
                 u8 = torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
-                logits = unet_apply_quantized(self.qparams, u8.permute(0, 2, 3, 1))
-                return self._post(logits, sizes, return_masks)
-            return self._forward((x / 255.0).to(self.dtype), sizes, return_masks)
+                return self._post(self._int8_logits(u8.permute(0, 2, 3, 1)), sizes, True)
+            return self._forward((x / 255.0).to(self.dtype), sizes, True)
 
     # -- batch API (throughput path) ---------------------------------------
 
@@ -214,13 +256,14 @@ class Segmenter:
         H=W=img_size, else any H, W, resized on the device. ``orig_sizes``:
         (B, 2) int32 (ow, oh); defaults to the input size. Returns (mask
         (B,S,S,3) bool or None, boxes (B,3,4) int32, ok (B,3) bool) on the
-        device. ``return_masks=False`` is the throughput path.
+        device. ``return_masks=False`` is the throughput path; the device
+        resize ignores it and returns the masks, as JAX's does.
         """
         if orig_sizes is None:
             b, h, w = imgs_u8.shape[:3]
             orig_sizes = np.tile(np.asarray([[w, h]], np.int32), (b, 1))
         if not pre_resized:
-            return self._run_from_raw(imgs_u8, orig_sizes, return_masks)
+            return self._run_from_raw(imgs_u8, orig_sizes)
         return self._run(imgs_u8, orig_sizes, return_masks)
 
     def segment_pil_batch(self, pil_images, *, return_masks=True,

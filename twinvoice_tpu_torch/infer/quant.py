@@ -233,6 +233,19 @@ def _halves(kernel):
     return kernel[..., :c].contiguous(), kernel[..., c:].contiguous()
 
 
+def _concat_stage(up_q, dec_q, h, s, skip):
+    """One decoder stage of the concat form: K6, then the conv1 as one K4a
+    over the concatenated int8 halves, ``(acc·s_up)·w + b``, then conv2.
+    → (h, s)."""
+    upq = _upsample(up_q, h, s)
+    c1 = dec_q["conv1"]
+    h = qconv3x3_requant(torch.cat([upq, skip], dim=-1), c1["kernel"], c1["w_scale"],
+                         c1["bias"], act_scale(up_q["s_out"]), dec_q["s1"],
+                         scale_first=True)
+    h = _qconv(h, act_scale(dec_q["s1"]), dec_q["conv2"], dec_q["s2"])
+    return h, act_scale(dec_q["s2"])
+
+
 def unet_apply_quantized_features(q, imgs_u8, concat=True):
     """uint8 (N,H,W,3) images → (final decoder activations (N,H,W,C) int8,
     their dequant scale as a float32 host scalar); ``quant.py:196-248``.
@@ -243,16 +256,14 @@ def unet_apply_quantized_features(q, imgs_u8, concat=True):
     """
     h, s, skips = _encoder(q, imgs_u8)
     for up_q, dec_q, (skip, s_skip) in zip(q["up"], q["dec"], reversed(skips)):
-        upq = _upsample(up_q, h, s)
-        s_up = act_scale(up_q["s_out"])
-        c1 = dec_q["conv1"]
         if concat:
-            hcat = torch.cat([upq, skip], dim=-1)
-            h = qconv3x3_requant(hcat, c1["kernel"], c1["w_scale"], c1["bias"], s_up,
-                                 dec_q["s1"], scale_first=True)
-        else:
-            h = qconv3x3_split_requant(upq, skip, *_halves(c1["kernel"]), c1["w_scale"],
-                                       c1["bias"], s_up, dec_q["s1"], s_in2=s_skip)
+            h, s = _concat_stage(up_q, dec_q, h, s, skip)
+            continue
+        upq = _upsample(up_q, h, s)
+        c1 = dec_q["conv1"]
+        h = qconv3x3_split_requant(upq, skip, *_halves(c1["kernel"]), c1["w_scale"],
+                                   c1["bias"], act_scale(up_q["s_out"]), dec_q["s1"],
+                                   s_in2=s_skip)
         h = _qconv(h, act_scale(dec_q["s1"]), dec_q["conv2"], dec_q["s2"])
         s = act_scale(dec_q["s2"])
     return h, s
@@ -263,6 +274,12 @@ def unet_apply_quantized(q, imgs_u8, concat=True, logits_dtype=torch.float32):
     ``logits_dtype`` (``quant.py:251-263``): the activations dequantised in
     that dtype, then the 1×1 out conv and its bias in it."""
     h, s = unet_apply_quantized_features(q, imgs_u8, concat=concat)
+    return logits_head(q, h, s, logits_dtype)
+
+
+def logits_head(q, h, s, logits_dtype=torch.float32):
+    """(N,H,W,C) int8 activations at scale ``s`` → (N,H,W,3) logits: ``h``
+    dequantised in ``logits_dtype``, then the 1×1 out conv and its bias."""
     hf = h.to(logits_dtype) * torch.tensor(s, device=h.device).to(logits_dtype)
     w = q["out"]["weight"].to(logits_dtype)
     return hf @ w + q["out"]["bias"].to(logits_dtype)

@@ -31,12 +31,14 @@ def variant_path(variant: str) -> str:
     return os.path.join(WEIGHTS_DIR, VARIANTS[variant][0])
 
 
-def load_pretrained_segmenter(variant: str = "w16", dtype=torch.bfloat16,
-                              device=None, infer_cfg: InferConfig = None,
+def load_pretrained_segmenter(dtype=torch.bfloat16, infer_cfg: InferConfig = None,
+                              variant: str = "w16", *, device=None,
                               **segmenter_kw):
     """→ a ready :class:`~twinvoice_tpu_torch.infer.pipeline.Segmenter` on
-    bundled trained weights. ``infer_cfg`` defaults to the variant's training
-    grid; ``device=None`` means ``"cuda"``. Extra keywords (``int8_calib``,
+    bundled trained weights. The positional order is the JAX package's
+    (``dtype, infer_cfg, variant``), so a positional call means the same in
+    both. ``infer_cfg`` defaults to the variant's training grid;
+    ``device=None`` means ``"cuda"``. Extra keywords (``int8_calib``,
     ``int8_head``, ...) pass through to the ``Segmenter``."""
     from twinvoice_tpu_torch.infer.pipeline import Segmenter
     from twinvoice_tpu_torch.weights import load_npz
@@ -48,3 +50,8 @@ def load_pretrained_segmenter(variant: str = "w16", dtype=torch.bfloat16,
     params, state = load_npz(variant_path(variant))
     return Segmenter(params, state, mcfg, infer_cfg, dtype=dtype, device=device,
                      **segmenter_kw)
+
+
+def available(variant: str = "w16") -> bool:
+    """Whether the bundled weights of ``variant`` are present."""
+    return os.path.exists(variant_path(variant))

@@ -6,7 +6,10 @@ Replaces ``twinvoice_tpu/ops/pallas_head.py:head_rowcol_max``; the kernel
 ``bbox_from_rowcol_max`` is ``pallas_head.py:bbox_from_rowcol_max``, plain
 torch. The head of the JAX Pallas trunk
 (``qconv_pallas.py:head_rowcol_max_frame``) is an XLA einsum there, so the
-port's Pallas-form trunk uses ``head_rowcol_max_reference`` for it.
+port's Pallas-form trunk uses ``head_rowcol_max_reference`` for it. The
+packed head of the JAX W-phase trunk (``infer/wpack.py``) is a float32 XLA
+conv; the port computes it with K2 and float32 weights
+(``compute_dtype=torch.float32``).
 
 ``head_rowcol_max`` launches the kernel for a CUDA tensor and takes the plain
 version only for a CPU tensor.
@@ -25,17 +28,19 @@ BLOCKS_PER_SM = 4  # bands per image are chosen to give this many blocks
 MAX_BAND_ROWS = 256  # bounds the per-warp row maxima kept in shared memory
 
 
-def head_weight(w, act_scale):
-    """(C,3) float32 out-conv weight → ``bf16(w · act_scale)`` as float32
-    (``pallas_head.py:101``; ``act_scale`` a host float rounded to float32)."""
+def head_weight(w, act_scale, compute_dtype=torch.bfloat16):
+    """(C,3) float32 out-conv weight → ``w · act_scale`` rounded to
+    ``compute_dtype`` (bf16 as ``pallas_head.py:101``, or float32), as
+    float32; ``act_scale`` is a host float rounded to float32."""
     s = torch.tensor(act_scale, dtype=torch.float32, device=w.device)
-    return (w.to(torch.float32) * s).to(torch.bfloat16).to(torch.float32)
+    return (w.to(torch.float32) * s).to(compute_dtype).to(torch.float32)
 
 
-def head_rowcol_max_reference(h_nhwc_s8, w, act_scale):
+def head_rowcol_max_reference(h_nhwc_s8, w, act_scale, compute_dtype=torch.bfloat16):
     """Plain version of :func:`head_rowcol_max`: the bias-free logits in
-    float32 (int8 × bf16 products are exact there), then their maxima."""
-    logits = h_nhwc_s8.to(torch.float32) @ head_weight(w, act_scale)
+    float32 (int8 × bf16 products are exact there; float32 weights round each
+    product once), then their maxima."""
+    logits = h_nhwc_s8.to(torch.float32) @ head_weight(w, act_scale, compute_dtype)
     return logits.amax(dim=2), logits.amax(dim=1)
 
 
@@ -43,7 +48,7 @@ def _library():
     fn = _build.library(NAME).twv_head_rowcol_max
     if fn.argtypes is None:
         ci, cf, vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-        fn.argtypes = [vp, vp, cf, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp]
+        fn.argtypes = [vp, vp, cf, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -57,14 +62,19 @@ def _bands(b, h, device):
     return -(-h // rows), rows
 
 
-def head_rowcol_max(h_nhwc_s8, w, act_scale):
+def head_rowcol_max(h_nhwc_s8, w, act_scale, compute_dtype=torch.bfloat16):
     """K2: (B,H,W,C) int8 NHWC-contiguous final activations, (C,3) float32
     out-conv weight, host float ``act_scale`` → (row_max (B,H,3), col_max
-    (B,W,3)) float32 maxima of the *bias-free* logits ``x · bf16(w·act_scale)``.
+    (B,W,3)) float32 maxima of the *bias-free* logits ``x · wf``, ``wf =
+    w·act_scale`` rounded to ``compute_dtype``: bf16 as the Pallas head, or
+    float32 for the W-phase heads, whose JAX form is a float32 XLA conv.
     Callers fold the out-conv bias into their thresholds."""
     x = h_nhwc_s8
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{NAME}: compute_dtype must be bfloat16 or float32, "
+                         f"got {compute_dtype}")
     if x.device.type == "cpu":
-        return head_rowcol_max_reference(x, w, act_scale)
+        return head_rowcol_max_reference(x, w, act_scale, compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for {x.device}")
     if x.dtype != torch.int8 or x.dim() != 4 or not x.is_contiguous():
@@ -84,7 +94,8 @@ def head_rowcol_max(h_nhwc_s8, w, act_scale):
     fn = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), float(act_scale), b, h, wd, c,
+        err = fn(x.data_ptr(), w.data_ptr(), float(act_scale),
+                 int(compute_dtype == torch.bfloat16), b, h, wd, c,
                  bands, rows, partial.data_ptr(), row_max.data_ptr(),
                  col_max.data_ptr(), stream)
     if err != 0:
