@@ -46,15 +46,31 @@ Phases, each printing one line with its wall time:
     "nhwc" with masks, its "full" fallback) on the fixture pages against the
     JAX package (``tests/data/torch_smoke_wpack.npz``), with JAX's scales
     carried in: ok flags and grid boxes equal, row/col maxima within 1e-5,
-    the trunk's channel sums equal to the port's plain sums stored there
+    the trunk's int8 channel sums equal to JAX's on all four pages
 14. b128 512² box-only img/s on each W-phase route, and K7b's time at its
     three serving shapes against its bound and its plain version's
+15. K3b, K3a (``ops.nhwc_conv.qconv3x3_nhwc_requant``, ``qconv3x3_nhwc_dma``
+    on ``pad_nhwc`` inputs), K4b (``ops.qconv.qconv3x3_requant_dma``) and K7a
+    (``ops.nhwc_conv.qconv3x3_pair_dma``) against their plain versions on the
+    card, exactly equal int8: odd W, H not a multiple of 8, Cin 3, 16, 64 and
+    128, ReLU and none, clips at both ends, live H-pad rows for K3a and K3b,
+    A->B, B->A and the chain A->B->A for K7a; against their siblings (K4a,
+    K7b) at every w64 trunk layer shape their contracts admit at b128 (plain
+    versions held on images 0 and 127); then the slice's path: the bundled w64
+    model quantised with the port's calibration on the fixture pages, enc0
+    conv2 (512², 64->64) on enc0 conv1's int8 output through each of the four
+    entry points, equal to K4a's (K7a to K7b's on the phase-A packing)
+16. the four kernels' times at the flagship shape (b128, 512², 64->64, the
+    shape of JAX's probes; K7a on it packed to phase A) against their bounds,
+    their plain versions' and their siblings'
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
 ran the kernels. Each int8 route of phases 9, 10, 13 and 14 is driven with
 the counts zeroed just before it and read just after; every kernel of the
-route must have launched its expected number of times, and no other.
+route must have launched its expected number of times, and no other (so no
+route runs K3a, K3b, K4b or K7a). Phase 15's w64 enc0 path is driven the same
+way, and each of the four must have launched there.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
 only. Without a CUDA device, or if any phase fails, it exits non-zero and
@@ -431,12 +447,27 @@ def epilogue_operands(g, co):
     return w_scale, bias
 
 
-def check_int8(label, got, ref, lo, need_clips):
-    if not torch.equal(got, ref):
-        d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
-        idx = d.nonzero()[:4].tolist()
-        raise AssertionError(f"{label}: {int((d > 0).sum())} of {d.numel()} outputs "
-                             f"differ (max |d| {int(d.max())}), first at {idx}")
+MAX_ABS_ERR = {}  # int8 kernel → the largest |kernel − plain or sibling| seen
+
+
+def check_same(kind, label, got, want, what="its plain version"):
+    """Hold ``kind``'s int8 output to ``want`` exactly and record the largest
+    difference in MAX_ABS_ERR."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)}, {what} "
+                             f"{tuple(want.shape)}")
+    err = max((int((g.to(torch.int16) - w.to(torch.int16)).abs().max())  # 16 images
+               for g, w in zip(got.split(16), want.split(16)) if g.numel()), default=0)
+    MAX_ABS_ERR[kind] = max(MAX_ABS_ERR.get(kind, 0), err)
+    if err:
+        ne = got != want
+        idx = ne.nonzero()[:4].tolist()
+        raise AssertionError(f"{label}: {int(ne.sum())} of {ne.numel()} outputs differ "
+                             f"from {what} (max |d| {err}), first at {idx}")
+
+
+def check_int8(kind, label, got, ref, lo, need_clips):
+    check_same(kind, label, got, ref)
     top, bottom = int((ref == 127).sum()), int((ref == lo).sum())
     if need_clips and not (top and bottom):
         raise AssertionError(f"{label}: the case does not clip at both ends "
@@ -493,7 +524,7 @@ def case_conv(g, kind, label, n, h, w, cin, co, *, relu=True, scale_first=False,
         ref = qconv.qconv3x3_requant_reference(xs, kern, ws, b, s_in, out_scale,
                                                relu=relu, scale_first=scale_first)
     torch.cuda.synchronize()
-    check_int8(f"{kind} {label} {tuple(x.shape)}->{co}", got[sub], ref,
+    check_int8(kind, f"{kind} {label} {tuple(x.shape)}->{co}", got[sub], ref,
                0 if relu else -127, need_clips)
 
 
@@ -841,7 +872,8 @@ def check_k7b(g, label, x, wp, in_phase, *, relu=True, subset=None, need_clips=T
     ref = nhwc.qconv3x3_pair_requant_reference(x[sub], wp, a2, b2, out_scale,
                                                in_phase=in_phase, relu=relu)
     torch.cuda.synchronize()
-    check_int8(f"{nhwc.K7B} {label} {in_phase}: {tuple(x.shape)}->{co2}", got[sub], ref,
+    check_int8(nhwc.K7B, f"{nhwc.K7B} {label} {in_phase}: {tuple(x.shape)}->{co2}",
+               got[sub], ref,
                0 if relu else -127, need_clips)
     if in_phase == "B":
         half = co2 // 2
@@ -966,17 +998,13 @@ def phase_wpack_routes(fix, fix8, fixw):
                                  f"atol 1e-5")
         d = max(float((row - jrow).abs().max()), float((col - jcol).abs().max()))
         fp = fingerprints(hp, q["out"]["weight"].shape[0])
-        port_fp = fixw["nhwc_port_fingerprint" if mode == "nhwc" else "full_port_fingerprint"]
-        if not np.array_equal(fp, port_fp):
-            raise AssertionError(f"{mode}: trunk channel sums {fp.tolist()} != the port's "
-                                 f"plain sums {port_fp.tolist()}")
-        dj = np.abs(fp - fixw[f"{mode}_fingerprint"])
+        if not np.array_equal(fp, fixw[f"{mode}_fingerprint"]):
+            raise AssertionError(f"{mode}: trunk channel sums {fp.tolist()} != JAX's "
+                                 f"{fixw[f'{mode}_fingerprint'].tolist()}")
         print(f"  {mode} (box-only) vs JAX: ok equal; grid boxes exactly equal "
               f"{exact[0]}/{exact[1]}; pixel boxes exactly equal {px[0]}/{px[1]}; "
               f"maxima within rtol 1e-5, atol 1e-5 (max |d| {d:.3g}); trunk channel "
-              f"sums equal the port's plain sums on all {len(fp)} pages, JAX's on "
-              f"{int((dj == 0).all(1).sum())}/{len(fp)} pages (max |d| {int(dj.max())}, "
-              f"XLA's CPU FMA at requant ties); launches {n}", flush=True)
+              f"sums equal JAX's on all {len(fp)} pages; launches {n}", flush=True)
 
     seg = segs["nhwc"]
     expect = {qconv.K4A: 18, k6.K6: 4, k1.NAME: 1}
@@ -1047,6 +1075,278 @@ def phase_wpack_serving(segs, fix, card):
     return launches, rates, (ms, plain_ms, bound, by)
 
 
+# -- phases 15-16: K3a, K3b, K4b and K7a, the ops/ entry points ------------------
+
+
+DMA_KERNELS = {  # name → (source, the JAX function it replaces)
+    nhwc.K3B: ("qconv3x3_nhwc_requant.cu", "ops/nhwc_conv.py:168"),
+    nhwc.K3A: ("qconv3x3_nhwc_dma.cu", "ops/nhwc_conv.py:52"),
+    qconv.K4B: ("qconv3x3_requant_dma.cu", "ops/qconv_pallas.py:324"),
+    nhwc.K7A: ("qconv3x3_pair_dma.cu", "ops/nhwc_conv.py:299"),
+}
+NHWC_CALLS = {  # K3b, K3a, K4b: (kernel, plain version, takes the padded input)
+    nhwc.K3B: (nhwc.qconv3x3_nhwc_requant, nhwc.qconv3x3_nhwc_requant_reference, True),
+    nhwc.K3A: (nhwc.qconv3x3_nhwc_dma, nhwc.qconv3x3_nhwc_dma_reference, True),
+    qconv.K4B: (qconv.qconv3x3_requant_dma, qconv.qconv3x3_requant_dma_reference, False),
+}
+FLAGSHIP = (SERVE_BATCH, 512, 64, 64)  # the reference's flagship conv: n, side, cin, co
+
+
+def padded_conv_bound_ms(n, hw, cin, co, rows_read):
+    """K3a's and K3b's least time on the H100 SXM: ``rows_read`` rows of the
+    padded input (hw + 2 for K3a; hw for K3b, which skips the two H-pad rows)
+    read once, the output written once, against the int8 operations at the
+    tensor-core rate. → (bound_ms, "bytes" or "operations")."""
+    n_bytes = n * rows_read * (hw + 2) * cin + 9 * cin * co + n * hw * hw * co + 8 * co
+    ops = 2 * 9 * n * hw * hw * cin * co
+    bytes_ms, ops_ms = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * ops / INT8_OPS_PER_S
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def dma_bound_ms(kind, n, hw, cin, co):
+    if kind == qconv.K4B:
+        return conv_bound_ms(qconv.K4A, n, hw, cin, co)
+    if kind == nhwc.K7A:
+        return k7b_bound_ms(n, hw, hw // 2 + 1, 2 * cin, 2 * co, "A")
+    return padded_conv_bound_ms(n, hw, cin, co, hw if kind == nhwc.K3B else hw + 2)
+
+
+def nhwc_case(g, kind, label, n, h, w, cin, co, *, relu=True, live_pad=False,
+              subset=None, need_clips=True, x=None):
+    """K3b, K3a or K4b on a random (or the given) NHWC input, held against its
+    plain version on ``subset`` of the batch and, with zero pads, against K4a
+    (with ``s_in·w_scale`` equal to its ``a``) on the whole batch."""
+    fn, plain, padded = NHWC_CALLS[kind]
+    if x is None:
+        x = rand_s8(g, (n, h, w, cin), 0 if relu else -127, 128)
+    kern = rand_s8(g, (co, 3, 3, cin))
+    ws, b = epilogue_operands(g, co)
+    s_in = 0.5 + float(torch.rand((), generator=g, device="cuda"))
+    a = torch.tensor(np.float32(s_in), device="cuda") * ws
+    xin = nhwc.pad_nhwc(x) if padded else x
+    if live_pad:  # pad rows and columns that are not zero
+        xin[:, 0], xin[:, -1] = rand_s8(g, xin[:, 0].shape), rand_s8(g, xin[:, -1].shape)
+        xin[:, :, 0], xin[:, :, -1] = rand_s8(g, xin[:, :, 0].shape), rand_s8(
+            g, xin[:, :, -1].shape)
+    sub = slice(None) if subset is None else subset
+    acc = qconv.conv3x3_i8(x[sub], kern)
+    out_scale = spread_scale(acc.to(torch.float32) * a + b)
+    del acc
+    got = fn(xin, kern, a, b, out_scale, relu=relu)
+    ref = plain(xin[sub], kern, a, b, out_scale, relu=relu)
+    torch.cuda.synchronize()
+    check_int8(kind, f"{kind} {label} {tuple(xin.shape)}->{co}", got[sub], ref,
+               0 if relu else -127, need_clips)
+    if not live_pad:
+        sib = qconv.qconv3x3_requant(x, kern, ws, b, s_in, out_scale, relu=relu)
+        check_same(kind, f"{kind} {label}", got, sib, "K4a")
+    return got
+
+
+def k7a_case(g, label, x, wp, in_phase, *, relu=True, subset=None, need_clips=True):
+    """K7a held against its plain version on ``subset`` of the batch and
+    against K7b on the whole batch; a B->A output's pad half-pairs must be
+    zero. → the output."""
+    co2 = wp.shape[0]
+    a2, b2 = epilogue_operands(g, co2)
+    sub = slice(None) if subset is None else subset
+    acc = nhwc.pair_conv_i8(x[sub], wp, in_phase)
+    out_scale = spread_scale(acc.to(torch.float32) * a2 + b2)
+    del acc
+    got = nhwc.qconv3x3_pair_dma(x, wp, a2, b2, out_scale, in_phase=in_phase, relu=relu)
+    ref = nhwc.qconv3x3_pair_requant_reference(x[sub], wp, a2, b2, out_scale,
+                                               in_phase=in_phase, relu=relu)
+    torch.cuda.synchronize()
+    check_int8(nhwc.K7A, f"{nhwc.K7A} {label} {in_phase}: {tuple(x.shape)}->{co2}",
+               got[sub], ref,
+               0 if relu else -127, need_clips)
+    sib = nhwc.qconv3x3_pair_requant(x, wp, a2, b2, out_scale, in_phase=in_phase,
+                                     relu=relu)
+    check_same(nhwc.K7A, f"{nhwc.K7A} {label}", got, sib, "K7b")
+    if in_phase == "B":
+        half = co2 // 2
+        if got[:, :, 0, :half].any() or got[:, :, -1, half:].any():
+            raise AssertionError(f"{nhwc.K7A} {label}: pad half-pairs not zero")
+    return got
+
+
+def w64_enc0(fix8):
+    """The bundled w64 model (``segmenter_synth_w64.npz``, base width 64),
+    quantised with the port's calibration on the fixture pages: → (enc0
+    conv1's int8 output on those pages, enc0 conv2's qparams, its input
+    scale, its output scale)."""
+    from twinvoice_tpu_torch.config import UNetConfig
+    from twinvoice_tpu_torch.models.pretrained import variant_path
+    from twinvoice_tpu_torch.models.unet import fold_unet
+    from twinvoice_tpu_torch.weights import load_npz
+
+    rgb = np.repeat(fix8["calib"][..., None], 3, axis=-1)
+    params, state = load_npz(variant_path("w64"))
+    folded = fold_unet(params, state, cfg=UNetConfig(base_width=64), dtype=torch.float32,
+                       device="cuda")
+    q = quant.quantize_unet(folded, [rgb])
+    del folded
+    e0 = q["enc"][0]
+    x = (torch.as_tensor(rgb, device="cuda") >> 1).to(torch.int8).contiguous()
+    with torch.inference_mode():
+        h1 = qconv.qconv3x3_requant(x, e0["conv1"]["kernel"], e0["conv1"]["w_scale"],
+                                    e0["conv1"]["bias"], np.float32(quant.INPUT_SCALE),
+                                    e0["s1"])
+    return h1, e0["conv2"], quant.act_scale(e0["s1"]), e0["s2"]
+
+
+def phase_dma_kernels(fix8):
+    """Phase 15: K3b, K3a, K4b and K7a against their plain versions and their
+    siblings; then the slice's path, each entry point once at the flagship
+    layer of the bundled w64 model, with the launch counts zeroed just before
+    and read just after. → those counts."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    # odd W, H not a multiple of 8, Cin 3, 16, 64, 128, ReLU and none, clips
+    # at both ends; Co off the 16-wide tile at Cin 64
+    for kind in NHWC_CALLS:
+        for cin in (3, 16, 64, 128):
+            for relu in (True, False):
+                nhwc_case(g, kind, f"random relu={relu}", 2, 13, 37, cin,
+                          24 if cin == 64 else 16, relu=relu)
+    for kind in (nhwc.K3B, nhwc.K3A):
+        for relu in (True, False):
+            nhwc_case(g, kind, f"live pad rows relu={relu}", 2, 11, 21, 16, 16, relu=relu,
+                      live_pad=True)
+    nhwc_case(g, qconv.K4B, "Co=5", 1, 9, 33, 12, 5, relu=False)
+    # K7a: A->B and B->A, odd pair counts, no ReLU, H not a multiple of 8, the
+    # chain A->B->A, two packed sources, random packed weights
+    for (n, h, w, c, co), relu in (((2, 32, 24, 16, 8), True), ((1, 13, 16, 8, 8), True),
+                                   ((1, 9, 8, 4, 8), True), ((2, 16, 40, 6, 10), False),
+                                   ((2, 13, 68, 64, 64), True)):
+        x = rand_s8(g, (n, h, w, c), 0 if relu else -127, 127)
+        wp = nhwc.pack_w_pair(rand_s8(g, (co, 3, 3, c)))
+        k7a_case(g, "pack_w_pair", nhwc.to_phase_a(x), wp, "A", relu=relu)
+        k7a_case(g, "pack_w_pair", x.view(n, h, w // 2, 2 * c), wp, "B", relu=relu)
+    x = rand_s8(g, (1, 16, 16, 8), 0, 127)
+    wp1, wp2 = (nhwc.pack_w_pair(rand_s8(g, (8, 3, 3, 8))) for _ in range(2))
+    t1 = k7a_case(g, "chain step 1", nhwc.to_phase_a(x), wp1, "A")
+    k7a_case(g, "chain step 2", t1, wp2, "B")
+    up, skip = rand_s8(g, (2, 16, 24, 8)), rand_s8(g, (2, 16, 24, 8), 0, 127)
+    tcat = torch.cat([up.view(2, 16, 12, 16), skip.view(2, 16, 12, 16)], -1).contiguous()
+    wp = nhwc.pack_w_pair_multi([rand_s8(g, (8, 3, 3, 8)), rand_s8(g, (8, 3, 3, 8))])
+    k7a_case(g, "two sources", tcat, wp, "B")
+    for in_phase, p in (("A", 7), ("B", 6)):
+        k7a_case(g, "random wp", rand_s8(g, (2, 16, p, 12)), rand_s8(g, (10, 3, 2, 12)),
+                 in_phase, relu=False)
+
+    # every w64 trunk layer shape each contract admits at b128: K3b and K3a
+    # at every conv (the decoder conv1 on its concatenated halves), K4b where
+    # Cin <= 128, K7a at the three calls of the "nhwc" trunk; held against
+    # the plain versions on images 0 and 127 and the siblings on all 128
+    sub = torch.tensor([0, SERVE_BATCH - 1], device="cuda")
+    shapes = trunk_shapes(base=64)[qconv.K4A]
+    for hw, cin, co in shapes:
+        x = rand_s8(g, (SERVE_BATCH, hw, hw, cin), 0, 128)
+        for kind in NHWC_CALLS:
+            if kind == qconv.K4B and cin > qconv.K4B_MAX_CIN:
+                continue
+            nhwc_case(g, kind, f"w64 trunk {hw}^2", SERVE_BATCH, hw, hw, cin, co, x=x,
+                      subset=sub)
+        del x
+    for label, (n, h, p, cpk, co2), in_phase in k7b_serving_calls(base=64):
+        x = rand_s8(g, (n, h, p, cpk), 0, 128)
+        if in_phase == "A":
+            x[:, :, 0, : cpk // 2] = 0  # the baked-in W pad of a phase-A input
+            x[:, :, -1, cpk // 2:] = 0
+        k7a_case(g, f"w64 {label}", x, rand_s8(g, (co2, 3, 2, cpk)), in_phase, subset=sub)
+        del x
+    torch.cuda.empty_cache()
+
+    # the slice's path: the flagship layer of the real w64 model, enc0 conv2
+    # (512^2, 64 -> 64) on enc0 conv1's int8 output for the fixture pages
+    h1, c2, s, s2 = w64_enc0(fix8)
+    a = torch.tensor(np.float32(s), device="cuda") * c2["w_scale"]
+    args = (c2["kernel"], a, c2["bias"], s2)
+    _build.launches.clear()
+    ref = qconv.qconv3x3_requant(h1, c2["kernel"], c2["w_scale"], c2["bias"], s, s2)
+    x_pad = nhwc.pad_nhwc(h1)
+    outs = {nhwc.K3B: nhwc.qconv3x3_nhwc_requant(x_pad, *args),
+            nhwc.K3A: nhwc.qconv3x3_nhwc_dma(x_pad, *args),
+            qconv.K4B: qconv.qconv3x3_requant_dma(h1, *args)}
+    wp = nhwc.pack_w_pair(c2["kernel"])
+    a2, b2 = torch.cat([a, a]), torch.cat([c2["bias"], c2["bias"]])
+    xa = nhwc.to_phase_a(h1)
+    outs[nhwc.K7A] = nhwc.qconv3x3_pair_dma(xa, wp, a2, b2, s2, in_phase="A")
+    k7b = nhwc.qconv3x3_pair_requant(xa, wp, a2, b2, s2, in_phase="A")
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    for kind in DMA_KERNELS:
+        if launches.get(kind, 0) < 1:
+            raise AssertionError(f"{kind} did not launch on the w64 enc0 path: {launches}")
+    for kind, out in outs.items():
+        k7 = kind == nhwc.K7A
+        check_same(kind, f"w64 enc0 conv2: {kind}", out, k7b if k7 else ref,
+                   "K7b" if k7 else "K4a")
+    if not torch.equal(nhwc.from_phase_b(k7b), ref):
+        raise AssertionError("w64 enc0 conv2: K7b's phase-B output is not K4a's")
+    print(f"  w64 enc0 conv2 on the fixture pages {tuple(h1.shape)}->64 (the port's "
+          f"calibration): K3b, K3a and K4b equal K4a, K7a equals K7b, and K7b's "
+          f"phase-B output is K4a's ({ref.numel()} outputs, {int((ref == 127).sum())} "
+          f"at 127, {int((ref == 0).sum())} at 0); launches {launches}", flush=True)
+    return launches
+
+
+def chunked(plain, x, *rest, chunk=16, **kw):
+    """The plain version over the batch in chunks of ``chunk`` images (its
+    float64 sums of the whole b128 batch would not fit the card)."""
+    return [plain(x[i:i + chunk], *rest, **kw) for i in range(0, x.shape[0], chunk)]
+
+
+def time_dma_kernels(card):
+    """Phase 16: each new kernel and its sibling at the flagship shape (b128,
+    512^2, 64 -> 64; K7a on it packed to phase A). → {kernel: (ms, plain ms,
+    bound ms, bound by, sibling ms)}."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    n, hw, cin, co = FLAGSHIP
+    x = rand_s8(g, (n, hw, hw, cin), 0, 128)
+    kern = rand_s8(g, (co, 3, 3, cin))
+    ws, b = epilogue_operands(g, co)
+    s_in, out_scale = 0.01, 3.0
+    a = torch.tensor(np.float32(s_in), device="cuda") * ws
+    x_pad = nhwc.pad_nhwc(x)
+    k4a_ms = cuda_ms(lambda: qconv.qconv3x3_requant(x, kern, ws, b, s_in, out_scale),
+                     iters=5, warmup=1)
+    print(f"  {qconv.K4A} (sibling) b{n} {hw}^2 {cin}->{co}: {k4a_ms:.4f} ms [{card}]",
+          flush=True)
+    rows = {}
+    for kind, (fn, plain, padded) in NHWC_CALLS.items():
+        xin = x_pad if padded else x
+        ms = cuda_ms(lambda: fn(xin, kern, a, b, out_scale), iters=5, warmup=1)
+        plain_ms = cuda_ms(lambda: chunked(plain, xin, kern, a, b, out_scale), iters=1,
+                           warmup=1)
+        bound, by = dma_bound_ms(kind, n, hw, cin, co)
+        rows[kind] = (ms, plain_ms, bound, by, k4a_ms)
+        print(f"  {kind} b{n} {hw}^2 {cin}->{co}: {ms:.4f} ms vs bound {bound:.4f} ms "
+              f"({by}; {100 * bound / ms:.1f}% of bound); sibling K4a {k4a_ms:.4f} ms; "
+              f"plain PyTorch (float64 sums, 16 images a call) {plain_ms:.4f} ms; no "
+              f"single PyTorch call computes it [{card}]", flush=True)
+    del x_pad
+    xa = nhwc.to_phase_a(x)
+    del x
+    wp = rand_s8(g, (2 * co, 3, 2, 2 * cin))
+    a2, b2 = epilogue_operands(g, 2 * co)
+    k7b_ms = cuda_ms(lambda: nhwc.qconv3x3_pair_requant(xa, wp, a2, b2, out_scale),
+                     iters=5, warmup=1)
+    ms = cuda_ms(lambda: nhwc.qconv3x3_pair_dma(xa, wp, a2, b2, out_scale), iters=5,
+                 warmup=1)
+    plain_ms = cuda_ms(lambda: chunked(nhwc.qconv3x3_pair_requant_reference, xa, wp, a2,
+                                       b2, out_scale), iters=1, warmup=1)
+    bound, by = dma_bound_ms(nhwc.K7A, n, hw, cin, co)
+    rows[nhwc.K7A] = (ms, plain_ms, bound, by, k7b_ms)
+    print(f"  {nhwc.K7A} A->B b{n} {tuple(xa.shape[1:])}->{2 * co}: {ms:.4f} ms vs bound "
+          f"{bound:.4f} ms ({by}; {100 * bound / ms:.1f}% of bound); sibling K7b "
+          f"{k7b_ms:.4f} ms; plain PyTorch (float64 sums, 16 images a call) "
+          f"{plain_ms:.4f} ms; no single PyTorch call computes it [{card}]", flush=True)
+    return rows
+
+
 def main():
     ph = Phases()
     name, card = ph.run(1, "device", phase_device)
@@ -1101,15 +1401,24 @@ def main():
           flush=True)
     times[nhwc.K7B] = k7b_time
 
+    dma_launches = ph.run(15, "K3b, K3a, K4b and K7a vs plain PyTorch and their "
+                              "siblings on the card; the w64 enc0 path",
+                          phase_dma_kernels, fix8)
+    dma_times = ph.run(16, "K3b, K3a, K4b and K7a timing at the flagship shape",
+                       time_dma_kernels, card)
+
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
              launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]
-    rows += [(name, src, where, int8_launches[name], err, times[name])
-             for name, src, where, err in (
-                 (k2.NAME, "head_rowcol_max.cu", "ops/pallas_head.py:87", k2_err),
-                 (qconv.K4A, "qconv3x3.cu", "ops/qconv_pallas.py:229", 0),
-                 (qconv.K5, "qconv3x3.cu", "ops/qconv_pallas.py:275", 0),
-                 (k6.K6, "qupsample2x2.cu", "ops/qconv_pallas.py:495", 0),
-                 (nhwc.K7B, "qconv3x3_pair.cu", "ops/nhwc_conv.py:474", 0))]
+    MAX_ABS_ERR[k2.NAME] = k2_err
+    rows += [(name, src, where, int8_launches[name], MAX_ABS_ERR[name], times[name])
+             for name, src, where in (
+                 (k2.NAME, "head_rowcol_max.cu", "ops/pallas_head.py:87"),
+                 (qconv.K4A, "qconv3x3.cu", "ops/qconv_pallas.py:229"),
+                 (qconv.K5, "qconv3x3.cu", "ops/qconv_pallas.py:275"),
+                 (k6.K6, "qupsample2x2.cu", "ops/qconv_pallas.py:495"),
+                 (nhwc.K7B, "qconv3x3_pair.cu", "ops/nhwc_conv.py:474"))]
+    rows += [(kind, src, where, dma_launches[kind], MAX_ABS_ERR[kind], dma_times[kind][:4])
+             for kind, (src, where) in DMA_KERNELS.items()]
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": name,

@@ -20,12 +20,9 @@ replicated to three channels, with the pages' original size (440×640) as
 - ``nhwc_masks_boxes`` / ``nhwc_masks_ok``: ``int8_wpack="nhwc"`` with
   ``return_masks=True``, which falls back to the "full" logits.
 
-Beside JAX's outputs it stores the port's own, from its plain versions on the
-CPU with JAX's scales carried in: ``full_port_fingerprint`` and
-``nhwc_port_fingerprint`` (4, 16) int64. The port rounds every epilogue step
-once where XLA on the CPU fuses a multiply and an add into an FMA (ROADMAP
-queue 3), so on pages 1 and 3 a few channel sums differ from JAX's by a few
-units; the card's trunks are held to the port's sums exactly.
+The port's trunks equal JAX's channel sums on all four pages (its epilogues
+fuse a multiply and an add where XLA does, ``tests/test_torch_epilogue.py``),
+so the card's trunks are held to JAX's sums exactly.
 
 The "nhwc" trunk runs its Pallas kernel (``ops.nhwc_conv.qconv3x3_pair_requant``)
 in interpret mode off the TPU, at the JAX package's default row tile
@@ -107,35 +104,13 @@ def jax_reference(calib: np.ndarray, orig_hw) -> dict:
             for k, v in out.items()}
 
 
-def port_fingerprints(calib: np.ndarray, scales: np.ndarray) -> dict:
-    """The port's "full" and "nhwc" trunk fingerprints on the CPU, page by
-    page, with the scales ``scales`` (``infer.quant.scales_to_array`` order)."""
-    import torch
-
-    from twinvoice_tpu_torch.infer import quant, wpack
-    from twinvoice_tpu_torch.models.pretrained import load_pretrained_segmenter
-
-    seg = load_pretrained_segmenter(torch.float32, variant="w16", device="cpu",
-                                    int8_scales=quant.scales_from_array(scales))
-    rgb = torch.from_numpy(np.repeat(calib[..., None], 3, axis=-1))
-    out = {"full": [], "nhwc": []}
-    with torch.inference_mode():
-        for page in rgb.split(1):
-            hp, _ = wpack.unet_apply_quantized_features_wpack(seg.qparams, page)
-            out["full"].append(fingerprint(wpack.unpack(hp)))
-            hp, _ = wpack.unet_apply_quantized_features_nhwc(seg.qparams, page)
-            out["nhwc"].append(fingerprint(wpack.unpack(hp)))
-    return {f"{m}_port_fingerprint": np.concatenate(v) for m, v in out.items()}
-
-
 def main():
     sys.path.insert(0, ROOT)
     with np.load(INT8) as z:
-        calib, scales = z["calib"], z["scales"]
+        calib = z["calib"]
     with np.load(os.path.join(ROOT, "tests", "data", "torch_smoke_pages.npz")) as z:
         orig_hw = z["pages"].shape[1:]
     ref = jax_reference(calib, orig_hw)
-    ref.update(port_fingerprints(calib, scales))
     np.savez_compressed(OUT, **ref)
     print(f"wrote {OUT} ({os.path.getsize(OUT)} bytes)")
     for k, v in ref.items():

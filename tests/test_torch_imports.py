@@ -22,6 +22,9 @@ mods = [m.name for m in pkgutil.walk_packages(twinvoice_tpu_torch.__path__,
                                               "twinvoice_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+from twinvoice_tpu_torch.ops.nhwc_conv import (pad_nhwc, qconv3x3_nhwc_dma,
+    qconv3x3_nhwc_requant, qconv3x3_pair_dma)
+from twinvoice_tpu_torch.ops.qconv import qconv3x3_requant_dma
 import chip_smoke
 loaded = [m for m, v in sys.modules.items()
           if v is not None and m.split(".")[0] in {BLOCKED!r}]
@@ -71,7 +74,8 @@ def test_build_compiles_each_source_once_for_sm90a(monkeypatch, tmp_path):
     built = _build.build()
     assert set(built) == set(_build.sources()) >= {
         "bbox_postprocess", "head_rowcol_max", "qconv3x3", "qconv3x3_pair",
-        "qupsample2x2"}
+        "qupsample2x2", "qconv3x3_nhwc_requant", "qconv3x3_nhwc_dma",
+        "qconv3x3_pair_dma", "qconv3x3_requant_dma"}
     for name, path in built.items():
         assert path.exists() and path.parent == tmp_path / "out"
         assert path.name.startswith(name + "-") and path.suffix == ".so"
@@ -90,3 +94,21 @@ def test_build_failure_raises_with_compiler_output(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="bad kernel"):
         _build.build(["bbox_postprocess"])
     assert not list((tmp_path / "out").glob("*.so"))
+
+
+def test_an_edited_shared_header_rebuilds_every_kernel(monkeypatch, tmp_path):
+    """The headers K3a, K3b, K4b and K7a include (``csrc/*.cuh``) are hashed
+    with the sources: editing one gives every library a new path, so nothing
+    stale is loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in _build.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    assert {"int8_conv_common.cuh", "int8_conv_slab_ring.cuh"} <= {
+        p.name for p in csrc.glob("*.cuh")}
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.library_path(n) for n in _build.sources()}
+    header = csrc / "int8_conv_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.sources()}
+    assert all(before[n] != after[n] for n in before)

@@ -3,6 +3,7 @@
 import numpy as np
 
 from twinvoice_tpu.config import UNetConfig as JaxUNetConfig
+from twinvoice_tpu_torch.ops import qconv
 
 
 def random_unet(seed, base_width=8):
@@ -78,3 +79,71 @@ def int8_unet(seed=3, grid=32):
     jq = jquant.quantize_unet(jfolded, calib)
     return {"jcfg": jcfg, "params": params, "state": state, "tp": tp, "ts": ts,
             "calib": calib, "jq": jq, "q": from_jax_qparams(jq)}
+
+
+# -- requant ties between a fused and an unfused float32 epilogue -----------------
+
+
+def fma_f32(x, y, z):
+    """numpy float32 ``x·y + z`` rounded once: the port's ``ops.qconv.fma32``
+    (held to exact rationals in ``tests/test_torch_epilogue.py``) on numpy
+    values."""
+    return qconv.fma32(*(np.asarray(t, np.float32) for t in (x, y, z))).numpy()
+
+
+def requant_np(y, inv, relu):
+    """``quant._requant`` (and its symmetric form) on float32 numpy values."""
+    y = np.asarray(y, np.float32)
+    if relu:
+        y = np.maximum(y, np.float32(0))
+    q = np.round((y * np.float32(inv)).astype(np.float32))
+    return np.clip(q, 0 if relu else -127, 127).astype(np.int8)
+
+
+def tie_bias(forms, b0, inv, relu, steps=4096):
+    """The float32 bias nearest ``b0`` (in steps of one float32 ulp) at which
+    the epilogues ``forms`` (each ``bias array → float32 y``) requantise
+    apart, or None. ``b0`` is chosen by the caller so that ``y`` sits near a
+    rounding boundary of the requant."""
+    bits = np.float32(b0).view(np.int32).astype(np.int64)
+    order = np.argsort(np.abs(np.arange(-steps, steps)), kind="stable") - steps
+    cand = (bits + order).astype(np.int32).view(np.float32)
+    qs = [requant_np(f(cand), inv, relu) for f in forms]
+    apart = np.zeros(cand.shape, bool)
+    for q in qs[1:]:
+        apart |= q != qs[0]
+    idx = np.flatnonzero(apart)
+    return None if idx.size == 0 else np.float32(cand[idx[0]])
+
+
+def tie_biases(forms_at, mag, inv, relu, target):
+    """One float32 bias per output channel (the last axis of ``mag``), each on
+    a requant tie: ``forms_at(c, idx)`` gives channel ``c``'s epilogues (bias
+    → y) at output ``idx``; the search (:func:`tie_bias`) starts where the
+    first form puts ``y`` on the boundary ``target + 0.5``, at the channel's
+    largest ``mag`` (or the next largest, where a product happens to round
+    too little to split the forms)."""
+    bias = np.zeros(mag.shape[-1], np.float32)
+    y0 = np.float32((target + 0.5) / np.float32(inv))
+    for c in range(mag.shape[-1]):
+        m = mag[..., c]
+        for flat in np.argsort(-m, axis=None, kind="stable")[:32]:
+            forms = forms_at(c, np.unravel_index(flat, m.shape))
+            b = tie_bias(forms, y0 - forms[0](np.float32(0)), inv, relu)
+            if b is not None:
+                bias[c] = b
+                break
+        else:
+            raise AssertionError(f"no tie found for channel {c}")
+    return bias
+
+
+def product_tie_biases(acc, a, inv, relu):
+    """:func:`tie_biases` for the product epilogue: ``fma(acc, a, b)``
+    against the unfused ``acc·a + b``, ``acc`` (…, Co) float32 sums."""
+    def forms_at(c, idx):
+        v = np.float32(acc[idx + (c,)])
+        return [lambda b: fma_f32(v, a[c], b),
+                lambda b: (np.float32(v * a[c]) + b).astype(np.float32)]
+
+    return tie_biases(forms_at, np.abs(acc), inv, relu, 60 if relu else -21)

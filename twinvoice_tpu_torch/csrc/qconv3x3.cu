@@ -13,14 +13,17 @@
 // int8. SAME padding is done by bounds checks while a tile is staged: the
 // TPU's zero-bordered (H+8, C, W+64, N) frame is not carried over.
 //
-// Epilogue, with acc the s32 sum, w = w_scale[co], b = bias[co] and every
-// step one correctly rounded float32 operation (no FMA contraction, so it is
-// bit-equal to XLA on the CPU), in the association of the JAX call site:
-//   kProd     acc * (s0 * w) + b             quant._qconv, the Pallas kernels
-//   kChain    (acc * s0) * w + b             the concat decoder, quant.py:237
-//   kSeparate (acc1 * s0 + acc2 * s1) * w + b  the split decoder, quant.py:242
-// then ReLU when asked, q = rint(y * inv) clipped to [0, 127] after a ReLU
-// and to [-127, 127] without one (round half to even, as jnp.round).
+// Epilogue, with acc the s32 sum, w = w_scale[co] and b = bias[co], in the
+// association of the JAX call site and rounded where JAX rounds: under jit,
+// XLA fuses a multiply and the add that consumes it into one fused
+// multiply-add (FMA, __fmaf_rn, one rounding), and every other step is one
+// correctly rounded float32 operation (__fmul_rn, __fadd_rn):
+//   kProd     fma(acc, s0 * w, b)                  quant._qconv, the Pallas kernels
+//   kChain    fma(acc * s0, w, b)                  the concat decoder, quant.py:237
+//   kSeparate fma(fma(acc1, s0, acc2 * s1), w, b)  the split decoder, quant.py:242
+// (tests/test_torch_epilogue.py finds each form in JAX at searched ties), then
+// ReLU when asked, q = rint(y * inv) clipped to [0, 127] after a ReLU and to
+// [-127, 127] without one (round half to even, as jnp.round).
 //
 // Bound: at w16, b128, 512^2 the level-0 16->16 conv reads 537 MB and writes
 // 537 MB (0.32 ms at 3.35 TB/s) for 155 GOP (0.08 ms at 1,979 TOP/s int8 on
@@ -179,13 +182,12 @@ qconv3x3_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ x2,
     const float b = co < Co ? bias[co] : 0.0f;
     float y;
     if (SPLIT && ep.mode == kSeparate) {
-      const float p1 = __fmul_rn(__int2float_rn(acc[j]), ep.s0);
       const float p2 = __fmul_rn(__int2float_rn(acc2[j]), ep.s1);
-      y = __fadd_rn(__fmul_rn(__fadd_rn(p1, p2), ws), b);
+      y = __fmaf_rn(__fmaf_rn(__int2float_rn(acc[j]), ep.s0, p2), ws, b);
     } else {
       const float f = __int2float_rn(SPLIT ? acc[j] + acc2[j] : acc[j]);
-      y = ep.mode == kChain ? __fadd_rn(__fmul_rn(__fmul_rn(f, ep.s0), ws), b)
-                            : __fadd_rn(__fmul_rn(f, __fmul_rn(ep.s0, ws)), b);
+      y = ep.mode == kChain ? __fmaf_rn(__fmul_rn(f, ep.s0), ws, b)
+                            : __fmaf_rn(f, __fmul_rn(ep.s0, ws), b);
     }
     if (ep.relu) y = fmaxf(y, 0.0f);
     const float r = fminf(fmaxf(rintf(__fmul_rn(y, ep.inv)), lo), 127.0f);

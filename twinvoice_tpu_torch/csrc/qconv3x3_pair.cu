@@ -18,9 +18,9 @@
 // Math, with delta = 0 for an A input and -1 for a B input:
 //   acc[n,h,q,o] = sum_{dy<3, v<2, c<Cpk} x[n, h+dy-1, q+v+delta, c] * wp[o,dy,v,c]
 // (rows and pairs outside x read zero; P_out = P - 1 from A, P + 1 from B),
-//   y = acc * a2[o] + bias2[o]
-// each step one correctly rounded float32 operation (__fmul_rn, __fadd_rn, no
-// FMA contraction), then ReLU when asked and q = rint(y * inv) clipped to
+//   y = fma(acc, a2[o], bias2[o])
+// one fused multiply-add (__fmaf_rn, one rounding), as XLA computes the JAX
+// kernel's acc * a + b under jit, then ReLU when asked and q = rint(y * inv) clipped to
 // [0, 127] after a ReLU and to [-127, 127] without one (half to even, as
 // jnp.round). A B->A output is phase A: the lower half of pair 0 and the
 // upper half of pair P_out - 1 are the baked-in W pad and are written as
@@ -163,7 +163,7 @@ qconv3x3_pair_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const int co = co0 + j;
     const float a = co < Co ? a2[co] : 0.0f;
     const float b = co < Co ? bias2[co] : 0.0f;
-    float y = __fadd_rn(__fmul_rn(__int2float_rn(acc[j]), a), b);
+    float y = __fmaf_rn(__int2float_rn(acc[j]), a, b);
     if (relu) y = fmaxf(y, 0.0f);
     float r = fminf(fmaxf(rintf(__fmul_rn(y, inv)), lo), 127.0f);
     if (to_a && ((qo == 0 && co < half) || (qo == P_out - 1 && co >= half))) r = 0.0f;

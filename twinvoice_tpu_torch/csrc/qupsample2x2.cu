@@ -5,9 +5,10 @@
 // contract: the taps do not overlap, so each output pixel is one Cin-long dot
 //   y[n, 2h+dy, 2w+dx, co] = sum_ci K[co, dy, dx, ci] * x[n, h, w, ci]
 // (the orientation of pack_wup: quant._conv_transpose2x2_i8's explicit flip
-// cancels conv_transpose's own rotation), then, every step one correctly
-// rounded float32 operation (no FMA contraction),
-//   q = clip(rint((acc * (s0 * w_scale[co]) + bias[co]) * inv), -127, 127).
+// cancels conv_transpose's own rotation), then, with the multiply and the
+// bias add fused into one rounding (__fmaf_rn) as XLA fuses them under jit and
+// every other step one correctly rounded float32 operation,
+//   q = clip(rint(fma(acc, s0 * w_scale[co], bias[co]) * inv), -127, 127).
 // Activations are NHWC-contiguous int8, the weight is (Co, 2, 2, Cin) int8.
 //
 // Bound: at w16, b128 the level-0 upsample reads 268 MB (128 x 256^2 x 32) and
@@ -100,7 +101,7 @@ qupsample2x2_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     unsigned packed[kCoT / 4] = {};
 #pragma unroll
     for (int j = 0; j < kCoT; ++j) {
-      const float y = __fadd_rn(__fmul_rn(__int2float_rn(acc[t][j]), a[j]), b[j]);
+      const float y = __fmaf_rn(__int2float_rn(acc[t][j]), a[j], b[j]);
       const float r = fminf(fmaxf(rintf(__fmul_rn(y, inv)), -127.0f), 127.0f);
       packed[j / 4] |= static_cast<unsigned>(static_cast<uint8_t>(__float2int_rn(r)))
                        << (8 * (j % 4));

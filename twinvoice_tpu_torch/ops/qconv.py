@@ -4,7 +4,7 @@ Ports of the int8 pieces of ``twinvoice_tpu.infer.quant`` (``_conv3x3_i8``,
 ``_conv_transpose2x2_i8``, ``_requant``, the int8 ``max_pool2``) and of the
 Pallas kernels ``ops/qconv_pallas.py:qconv3x3_requant`` (K4a) and
 ``:qconv3x3_split_requant`` (K5), which one CUDA source
-(``csrc/qconv3x3.cu``) replaces; its design note is there.
+(``csrc/qconv3x3.cu``) replaces; its design note is there. Also K4b (below).
 
 Layout: activations are NHWC-contiguous int8 tensors; a 3×3 kernel is
 ``(Co, 3, 3, Ci)`` int8 and a 2×2 transpose-conv kernel ``(Co, 2, 2, Ci)``
@@ -13,21 +13,30 @@ carried over: SAME padding is the conv's own.
 
 The plain convs sum in float64, where every s32 sum of int8 products is exact
 (127·127·9·Cin < 2^53); float32 is not once Cin > 115. The float32 epilogue
-then rounds each step once, in the order of the JAX call site it mirrors:
+then computes what JAX computes under ``jit``, where XLA fuses a multiply and
+the add that consumes it into one fused multiply-add (FMA, a single rounding)
+and rounds every other step once:
 
-- ``scale_first=False``: ``acc · (s_in · w_scale) + bias`` (``quant._qconv``,
+- ``scale_first=False``: ``fma(acc, s_in · w_scale, bias)`` (``quant._qconv``,
   the Pallas kernels);
-- ``scale_first=True``: ``(acc · s_in) · w_scale + bias`` (the concat decoder,
-  ``quant.py:237``);
-- split with ``s_in2``: ``(acc₁ · s_in + acc₂ · s_in2) · w_scale + bias`` (the
-  split decoder, ``quant.py:242``).
+- ``scale_first=True``: ``fma(acc · s_in, w_scale, bias)`` (the concat
+  decoder, ``quant.py:237``);
+- split with ``s_in2``: ``fma(fma(acc₁, s_in, acc₂ · s_in2), w_scale, bias)``
+  (the split decoder, ``quant.py:242``: XLA fuses the first product).
 
+``fma32`` is that exactly rounded float32 FMA on any device (through float64,
+``tests/test_torch_epilogue.py`` holds each formula to JAX at searched ties).
 Then ReLU where asked and ``clip(round(y · inv))`` to [0, 127] after a ReLU,
 [−127, 127] without, with ``inv = float32(127) / float32(out_scale)`` as JAX
 computes it inside ``jit``. Scalars are host floats, rounded to float32 once.
 
-``qconv3x3_requant`` and ``qconv3x3_split_requant`` launch the kernel for
-CUDA tensors and take their plain versions only for CPU tensors.
+``qconv3x3_requant_dma`` (K4b, ``ops/qconv_pallas.py:qconv3x3_requant_dma``)
+is K4a's product mode with one Cin chunk (Cin ≤ 128), on the int8 tensor
+cores (``csrc/qconv3x3_requant_dma.cu``, its design note there).
+
+``qconv3x3_requant``, ``qconv3x3_split_requant`` and ``qconv3x3_requant_dma``
+launch their kernels for CUDA tensors and take their plain versions only for
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ from twinvoice_tpu_torch import _build
 NAME = "qconv3x3"
 K4A = "qconv3x3_requant"        # launch-count keys
 K5 = "qconv3x3_split_requant"
+K4B = "qconv3x3_requant_dma"    # also the name of K4b's library
+K4B_MAX_CIN = 128
 _PROD, _CHAIN, _SEPARATE = 0, 1, 2  # epilogue modes of the source
 
 
@@ -95,13 +106,43 @@ def _scalar(v, device):
     return torch.tensor(v, dtype=torch.float32, device=device)
 
 
+def fma32(x, y, z):
+    """The float32 fused multiply-add ``x·y + z`` rounded once, half to even,
+    of float32 tensors (or scalars) broadcast together.
+
+    The product of two float32 values is exact in float64; their float64 sum
+    with ``z`` is rounded once more, so the sum is taken with its exact error
+    (TwoSum) and rounded to odd: where the error is not zero and the sum's last
+    bit is even, the sum steps one float64 ulp toward the error. A float64
+    rounded to odd then rounds to float32 exactly as the exact value would
+    (53 ≥ 24 + 2 bits)."""
+    x, y, z = (torch.as_tensor(t).to(torch.float64) for t in (x, y, z))
+    p = x * y
+    s = p + z
+    zz = s - p
+    e = (p - (s - zz)) + (z - zz)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.full_like(s, np.inf), torch.full_like(s, -np.inf))
+    s = torch.where((e != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
 def dequant(acc, w_scale, bias, s_in, *, scale_first=False):
     """Exact sums (float64) → float32 ``y`` by the formula ``scale_first``
-    names (module doc); one rounding per step, no fused multiply-add."""
+    names (module doc), its last multiply fused with the bias add."""
     s = _scalar(s_in, acc.device)
     f = acc.to(torch.float32)
-    y = (f * s) * w_scale if scale_first else f * (s * w_scale)
-    return y + bias
+    if scale_first:
+        return fma32(f * s, w_scale, bias)
+    return fma32(f, s * w_scale, bias)
+
+
+def dequant_split(acc, acc2, w_scale, bias, s_in, s_in2):
+    """The split XLA form (``quant.py:242``): ``fma(fma(acc₁, s_in, acc₂·s_in2),
+    w_scale, bias)``."""
+    s, s2 = _scalar(s_in, acc.device), _scalar(s_in2, acc.device)
+    t = fma32(acc.to(torch.float32), s, acc2.to(torch.float32) * s2)
+    return fma32(t, w_scale, bias)
 
 
 # -- K4a / K5 --------------------------------------------------------------------
@@ -121,8 +162,7 @@ def qconv3x3_split_requant_reference(x, x2, kernel, kernel2, w_scale, bias, s_in
     if s_in2 is None:
         y = dequant(acc + acc2, w_scale, bias, s_in)
     else:
-        s, s2 = _scalar(s_in, acc.device), _scalar(s_in2, acc.device)
-        y = (acc.to(torch.float32) * s + acc2.to(torch.float32) * s2) * w_scale + bias
+        y = dequant_split(acc, acc2, w_scale, bias, s_in, s_in2)
     return requant(y, out_scale, relu).contiguous()
 
 
@@ -136,11 +176,11 @@ def _library():
     return fn
 
 
-def check_operands(name, x, kernel, w_scale, bias, taps):
+def check_operands(name, x, kernel, w_scale, bias, taps, scale_name="w_scale"):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x.device}")
     for t, what, dtype in ((x, "x", torch.int8), (kernel, "kernel", torch.int8),
-                           (w_scale, "w_scale", torch.float32),
+                           (w_scale, scale_name, torch.float32),
                            (bias, "bias", torch.float32)):
         if t.device != x.device:
             raise ValueError(f"{name}: {what} on {t.device}, x on {x.device}")
@@ -155,7 +195,7 @@ def check_operands(name, x, kernel, w_scale, bias, taps):
         raise ValueError(f"{name}: kernel {tuple(kernel.shape)} for x "
                          f"{tuple(x.shape)}; expected (Co,{taps},{taps},Ci)")
     if w_scale.shape != (co,) or bias.shape != (co,):
-        raise ValueError(f"{name}: w_scale {tuple(w_scale.shape)} and bias "
+        raise ValueError(f"{name}: {scale_name} {tuple(w_scale.shape)} and bias "
                          f"{tuple(bias.shape)} for {co} output channels")
     if min(x.shape) == 0 or co == 0:
         raise ValueError(f"{name}: empty shape {tuple(x.shape)} → {co}")
@@ -187,8 +227,8 @@ def qconv3x3_requant(x, kernel, w_scale, bias, s_in, out_scale, *, relu=True,
 
     ``x``: (N,H,W,Ci) int8 NHWC-contiguous; ``kernel``: (Co,3,3,Ci) int8;
     ``w_scale``, ``bias``: (Co,) float32; ``s_in``, ``out_scale``: host
-    floats. → (N,H,W,Co) int8. The epilogue is ``acc·(s_in·w_scale) + bias``,
-    or ``(acc·s_in)·w_scale + bias`` with ``scale_first``; then ReLU where
+    floats. → (N,H,W,Co) int8. The epilogue is ``fma(acc, s_in·w_scale, bias)``,
+    or ``fma(acc·s_in, w_scale, bias)`` with ``scale_first``; then ReLU where
     asked and the requant of ``quant._requant``.
     """
     if x.device.type == "cpu":
@@ -205,10 +245,10 @@ def qconv3x3_split_requant(x, x2, kernel, kernel2, w_scale, bias, s_in, out_scal
     ``x2``, equal shapes) with their two kernels, then K4a's epilogue.
 
     With ``s_in2=None`` both halves share one s32 sum and one dequant factor,
-    ``(acc₁+acc₂)·(s_in·w_scale) + bias`` (the Pallas K5; valid because
+    ``fma(acc₁+acc₂, s_in·w_scale, bias)`` (the Pallas K5; valid because
     ``quantize_unet`` harmonises the two scales); with ``s_in2`` each half
-    keeps its scale, ``(acc₁·s_in + acc₂·s_in2)·w_scale + bias`` (the split
-    XLA form, ``quant.py:242``).
+    keeps its scale, ``fma(fma(acc₁, s_in, acc₂·s_in2), w_scale, bias)`` (the
+    split XLA form, ``quant.py:242``).
     """
     if x.device.type == "cpu":
         return qconv3x3_split_requant_reference(
@@ -224,3 +264,60 @@ def qconv3x3_split_requant(x, x2, kernel, kernel2, w_scale, bias, s_in, out_scal
                        out_scale, _PROD, relu)
     return _launch(K5, x, x2, kernel, kernel2, w_scale, bias, s_in, s_in2, out_scale,
                    _SEPARATE, relu)
+
+
+# -- K4b ---------------------------------------------------------------------------
+
+
+def qconv3x3_requant_dma_reference(x, kernel, a, bias, out_scale, *, relu=True):
+    """Plain version of :func:`qconv3x3_requant_dma`."""
+    y = fma32(conv3x3_i8(x, kernel).to(torch.float32), a, bias)
+    return requant(y, out_scale, relu).contiguous()
+
+
+def _k4b_fn():
+    fn = _build.library(K4B).twv_qconv3x3_requant_dma
+    if fn.argtypes is None:
+        ci, cf, vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+        fn.argtypes = [vp] * 4 + [ci] * 7 + [cf, ci, vp, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def qconv3x3_requant_dma(x, kernel, a, bias, out_scale, *, relu=True, mxu_bf16=False):
+    """K4b: K4a's product mode with the dequant factor given, one Cin chunk.
+
+    ``x``: (N,H,W,Ci) int8 NHWC-contiguous with Ci ≤ 128 (``ValueError``
+    otherwise, as JAX asserts one chunk); ``kernel``: (Co,3,3,Ci) int8;
+    ``a``: (Co,) float32 ``s_in·w_scale``, as JAX's kernel takes it; ``bias``:
+    (Co,) float32; ``out_scale``: a host float. → (N,H,W,Co) int8,
+    ``clip(round(relu(fma(acc, a, bias))·127/out_scale))`` with the SAME conv's
+    s32 sum ``acc``, equal to K4a's.
+
+    ``mxu_bf16`` is accepted and changes nothing: JAX's bf16 mode sums in
+    float32, exact only while every partial sum stays under 2^24
+    (127·127·9·Ci < 2^24 holds for Ci ≤ 115; at Ci 116–128 it is exact only
+    for inputs that are not extreme); the kernel's sum is s32, exact at any Ci.
+    """
+    del mxu_bf16
+    if x.dim() == 4 and x.shape[3] > K4B_MAX_CIN:
+        raise ValueError(f"{K4B}: Cin {x.shape[3]} > {K4B_MAX_CIN} (one Cin chunk)")
+    if x.device.type == "cpu":
+        return qconv3x3_requant_dma_reference(x, kernel, a, bias, out_scale, relu=relu)
+    co = check_operands(K4B, x, kernel, a, bias, 3, scale_name="a")
+    n, h, w, cin = x.shape
+    cp = -(-cin // 32) * 32
+    tile = 8 if co <= 8 else 16 if co <= 16 else 32 if co <= 32 else 64
+    cop = -(-co // tile) * tile
+    wpk = F.pad(kernel.reshape(co, 9, cin), (0, cp - cin, 0, 0, 0, cop - co)).contiguous()
+    out = torch.empty((n, h, w, co), dtype=torch.int8, device=x.device)
+    fn = _k4b_fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), wpk.data_ptr(), a.data_ptr(), bias.data_ptr(), n, h, w, cin,
+                 co, cp, cop, float(out_inv(out_scale)), int(bool(relu)), out.data_ptr(),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"{K4B}: kernel launch failed, cudaError {err}")
+    _build.launches[K4B] += 1
+    return out

@@ -45,7 +45,7 @@ def _library():
 def qupsample2x2_requant(x, kernel, w_scale, bias, s_in, out_scale):
     """K6: (N,H,W,Ci) int8 NHWC-contiguous, (Co,2,2,Ci) int8 kernel, (Co,)
     float32 ``w_scale`` and ``bias``, host floats ``s_in`` and ``out_scale``
-    → (N,2H,2W,Co) int8 ``clip(round((acc·(s_in·w_scale) + bias)·127/out_scale),
+    → (N,2H,2W,Co) int8 ``clip(round(fma(acc, s_in·w_scale, bias)·127/out_scale),
     −127, 127)``, with ``acc[2h+a, 2w+b, o] = Σ_c K[o,a,b,c]·x[h,w,c]``. No ReLU:
     the reference graph applies none after the upsample."""
     if x.device.type == "cpu":
