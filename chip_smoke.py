@@ -25,7 +25,11 @@ Phases, each printing one line with its wall time:
    (``ops.qupsample``) against their plain versions on the card: exactly
    equal int8 outputs (K2 within a stated float32 summation bound) on planted
    and random inputs, H≠W, odd W, Cin 3, 5, 16, 48 and 256, ReLU and none,
-   scales that clip at both ends, and every layer shape of the w16 int8 trunk
+   scales that clip at both ends; K4a and K5's tensor-core contract: Cin 1,
+   2, 4, 8, 17, 31, 33, 64, 129 and 1024, Co 1, 8, 40, 72, 128 and 256, each
+   epilogue form at a narrow and a wide Cin, K5's shared-sum and two-scale
+   forms at Cin 3, 16, 33 and 129, H and W off the output tile, inputs and
+   outputs 1 byte off alignment; and every layer shape of the w16 int8 trunk
    at b128 (held on a subset of the batch)
 9. the int8 routes on the fixture pages against the JAX package
    (``tests/data/torch_smoke_int8.npz``): the port's calibration scales
@@ -36,7 +40,10 @@ Phases, each printing one line with its wall time:
 10. b128 512² box-only int8 serving, one img/s line per route, boxes read
     back after every batch, as phase 6
 11. the int8 kernels' times at the serving shapes against their bounds and
-    their plain versions'
+    their plain versions'; K4a and K5 beside their earlier CUDA-core times,
+    K4a beside cuDNN's bf16 conv of the same shape (context, not a library
+    time: another function), and the summed K4a and K5 time of a route batch
+    against its summed bound
 12. K7b (``ops.nhwc_conv``) against its plain version on the card: exactly
     equal int8 outputs A->B and B->A, odd pair counts, no ReLU, the chain
     A->B->A, two packed sources, packed weights ``pack_w_pair`` could not
@@ -379,11 +386,12 @@ def time_k1(seg, imgs, thr, card):
 # -- phase 8: the int8 kernels against their plain versions -------------------
 
 
-def trunk_shapes(base=16, size=512, depth=4):
-    """The w16 int8 trunk's launches at a ``size``² grid, each shape once:
-    → {kernel: [(hw, cin, cout)]} with ``hw`` the input's side (K5's ``cin``
-    is each half's; K4a's decoder conv1 takes both halves concatenated)."""
-    convs, splits, ups = [], [], []
+def trunk_launches(base=16, size=512, depth=4):
+    """The int8 trunk's launches at a ``size``² grid, in order, repeats kept:
+    → (convs, decoder conv1s, upsamples), each [(hw, cin, cout)] with ``hw``
+    the input's side; a decoder conv1's ``cin`` is one half's (K4a takes both
+    halves concatenated, 2·cin; K5 takes them apart)."""
+    convs, conv1s, ups = [], [], []
     cin, hw = 3, size
     widths = [base * 2 ** i for i in range(depth)]
     for w in widths:
@@ -394,10 +402,32 @@ def trunk_shapes(base=16, size=512, depth=4):
     for w in reversed(widths):
         ups.append((hw, c, w))
         hw *= 2
-        convs += [(hw, 2 * w, w), (hw, w, w)]
-        splits.append((hw, w, w))
+        conv1s.append((hw, w, w))
+        convs.append((hw, w, w))
         c = w
-    return {qconv.K4A: list(dict.fromkeys(convs)), qconv.K5: splits, k6.K6: ups}
+    return convs, conv1s, ups
+
+
+def trunk_shapes(base=16, size=512, depth=4):
+    """The int8 trunk's launches at a ``size``² grid, each shape once:
+    → {kernel: [(hw, cin, cout)]} (K5's ``cin`` is each half's; K4a's
+    decoder conv1 takes both halves concatenated)."""
+    convs, conv1s, ups = trunk_launches(base, size, depth)
+    k4a = convs[:2 * depth + 2]
+    for (hw, c, co), conv2 in zip(conv1s, convs[2 * depth + 2:]):
+        k4a += [(hw, 2 * c, co), conv2]
+    return {qconv.K4A: list(dict.fromkeys(k4a)), qconv.K5: conv1s, k6.K6: ups}
+
+
+def route_conv_launches(base=16):
+    """K4a's and K5's launches in one box-only batch of the concat routes
+    ("pallas", "xla", the W-phase "full") and of the split "pallas trunk":
+    → {route: [(kernel, (hw, cin, cout))]}."""
+    convs, conv1s, _ = trunk_launches(base)
+    concat = [(qconv.K4A, s) for s in convs] + [
+        (qconv.K4A, (hw, 2 * c, co)) for hw, c, co in conv1s]
+    split = [(qconv.K4A, s) for s in convs] + [(qconv.K5, s) for s in conv1s]
+    return {"concat": concat, "pallas trunk": split}
 
 
 def conv_bound_ms(kind, n, hw, cin, co):
@@ -481,14 +511,25 @@ def spread_scale(y):
     return float(0.5 * y.abs().max().clamp_min(1e-6))
 
 
+def misaligned(t):
+    """A contiguous copy of ``t`` whose storage starts 1 byte into its buffer."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def case_conv(g, kind, label, n, h, w, cin, co, *, relu=True, scale_first=False,
-              s_in2=None, planted=False, subset=None, need_clips=True):
+              s_in2=None, planted=False, subset=None, need_clips=True, misalign=False):
     """One K4a/K5/K6 launch held against its plain version on ``subset`` of
-    the batch (all of it by default)."""
+    the batch (all of it by default). ``misalign``: K4a/K5 read inputs and
+    write an output that start 1 byte into their buffers."""
     taps = 2 if kind == k6.K6 else 3
     make = planted_s8 if planted else rand_s8
     x = make(g, (n, h, w, cin))
     x2 = make(g, (n, h, w, cin)) if kind == qconv.K5 else None
+    if misalign:
+        x, x2 = misaligned(x), None if x2 is None else misaligned(x2)
     kern = rand_s8(g, (co, taps, taps, cin))
     kern2 = rand_s8(g, (co, taps, taps, cin)) if kind == qconv.K5 else None
     ws, b = epilogue_operands(g, co)
@@ -510,7 +551,18 @@ def case_conv(g, kind, label, n, h, w, cin, co, *, relu=True, scale_first=False,
         y = qconv.dequant(acc, ws, b, s_in, scale_first=scale_first)
     out_scale = spread_scale(y)
     del acc, y
-    if kind == k6.K6:
+    if misalign:  # the wrappers allocate aligned outputs: launch into a view
+        out = misaligned(torch.zeros((n, h, w, co), dtype=torch.int8, device="cuda"))
+        sep = s_in2 is not None
+        mode = qconv._SEPARATE if sep else qconv._CHAIN if scale_first else qconv._PROD
+        got = qconv._launch(kind, x, x2, kern, kern2, ws, b, s_in, s_in2 if sep else 0.0,
+                            out_scale, mode, relu, out=out)
+        ref = (qconv.qconv3x3_split_requant_reference(
+            xs, x2[sub], kern, kern2, ws, b, s_in, out_scale, s_in2=s_in2, relu=relu)
+            if kind == qconv.K5 else qconv.qconv3x3_requant_reference(
+                xs, kern, ws, b, s_in, out_scale, relu=relu, scale_first=scale_first))
+        label += " (in and out 1 byte off alignment)"
+    elif kind == k6.K6:
         got = k6.qupsample2x2_requant(x, kern, ws, b, s_in, out_scale)
         ref = k6.qupsample2x2_requant_reference(xs, kern, ws, b, s_in, out_scale)
     elif kind == qconv.K5:
@@ -572,6 +624,28 @@ def phase_int8_kernels():
         case_conv(g, qconv.K5, "shared sum", 2, 13, 37, cin, 16)
         case_conv(g, qconv.K5, "two scales", 2, 13, 37, cin, 16, s_in2=0.7)
     case_conv(g, qconv.K5, "planted", 1, 10, 19, 16, 16, need_clips=False)
+    # the tensor-core kernel's contract: every k layout (stem Cin <= 4, tap
+    # pairs Cin <= 16, 32-channel steps) and its edges, the Cin chunk carry,
+    # Co off the block's tile and past one block, each epilogue mode at a
+    # narrow and a wide Cin, K5's two forms, H and W off the output tile, and
+    # inputs and outputs 1 byte off alignment
+    for cin in (1, 2, 4, 8, 17, 31, 33, 64, 129):
+        case_conv(g, qconv.K4A, "Cin edge", 2, 11, 35, cin, 16, relu=cin % 2 == 0)
+    case_conv(g, qconv.K4A, "Cin 1024", 1, 9, 33, 1024, 24)
+    for cin, co in ((5, 1), (16, 8), (33, 40), (64, 72), (48, 128), (129, 256)):
+        case_conv(g, qconv.K4A, "Co edge", 1, 10, 34, cin, co, need_clips=co > 1)
+    for cin in (3, 129):
+        case_conv(g, qconv.K4A, "chain form", 2, 9, 40, cin, 24, scale_first=True)
+        case_conv(g, qconv.K4A, "product form, no ReLU", 2, 9, 40, cin, 24, relu=False)
+        case_conv(g, qconv.K5, "two scales", 1, 9, 40, cin, 40, s_in2=0.7)
+    for cin in (3, 16, 33, 129):
+        case_conv(g, qconv.K5, "shared sum", 2, 12, 36, cin, 24)
+        case_conv(g, qconv.K5, "two scales", 2, 12, 36, cin, 24, s_in2=0.45, relu=False)
+    for cin, co in ((3, 16), (16, 16), (17, 32), (129, 48)):
+        case_conv(g, qconv.K4A, "misaligned", 2, 9, 35, cin, co, misalign=True)
+        case_conv(g, qconv.K5, "misaligned", 1, 9, 35, cin, co, misalign=True,
+                  s_in2=0.6 if cin > 16 else None)
+    case_conv(g, qconv.K4A, "one pixel", 1, 1, 1, 16, 16, need_clips=False)
     for cin, co in ((3, 16), (5, 3), (16, 16), (48, 24), (256, 128)):
         case_conv(g, k6.K6, "random", 2, 9, 13, cin, co)
     case_conv(g, k6.K6, "planted", 1, 6, 7, 32, 16, need_clips=False)
@@ -784,10 +858,40 @@ def phase_int8_serving(segs, fix, card, bf16_ips):
 # -- phase 11: int8 kernel times ------------------------------------------------
 
 
+# K4a's and K5's times before the tensor-core redesign, when they ran on the
+# CUDA cores (__dp4a), at the w16 serving shapes at b128: this script's phase
+# 11 on an NVIDIA H100 80GB HBM3 at 700.00 W
+DP4A_MS = {
+    (qconv.K4A, (512, 3, 16)): 1.2044, (qconv.K4A, (512, 16, 16)): 2.4522,
+    (qconv.K4A, (256, 16, 32)): 1.2178, (qconv.K4A, (256, 32, 32)): 2.0120,
+    (qconv.K4A, (128, 32, 64)): 0.9919, (qconv.K4A, (128, 64, 64)): 1.8397,
+    (qconv.K4A, (64, 64, 128)): 0.9434, (qconv.K4A, (64, 128, 128)): 1.9055,
+    (qconv.K4A, (32, 128, 256)): 0.9640, (qconv.K4A, (32, 256, 256)): 1.8378,
+    (qconv.K4A, (64, 256, 128)): 3.6391, (qconv.K4A, (128, 128, 64)): 3.8027,
+    (qconv.K4A, (256, 64, 32)): 3.6855, (qconv.K4A, (512, 32, 16)): 3.9748,
+    (qconv.K5, (64, 128, 128)): 4.2706, (qconv.K5, (128, 64, 64)): 4.0704,
+    (qconv.K5, (256, 32, 32)): 4.4499, (qconv.K5, (512, 16, 16)): 5.1803,
+}
+
+
+def cudnn_bf16_ms(g, hw, cin, co):
+    """cuDNN's bf16 channels-last 3x3 conv (no bias) at one K4a shape: context
+    for K4a's time, not its library time (it computes another function)."""
+    x = torch.randn((SERVE_BATCH, cin, hw, hw), generator=g, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wt = torch.randn((co, cin, 3, 3), generator=g, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        return cuda_ms(lambda: torch.nn.functional.conv2d(x, wt, padding=1), iters=10,
+                       warmup=2)
+
+
 def time_int8_kernels(card):
-    """Each int8 kernel at every serving shape of the w16 trunk (b128); the
-    plain version at the kernel's heaviest shape. → {kernel: (ms, plain ms,
-    bound ms, bound by)} at that shape."""
+    """Each int8 kernel at every serving shape of the w16 trunk (b128), K4a
+    and K5 beside their bound and their CUDA-core times, K4a beside cuDNN's
+    bf16 conv; the summed K4a and K5 time of a route batch against its summed
+    bound; the plain version at the kernel's heaviest shape. → {kernel: (ms,
+    plain ms, bound ms, bound by)} at that shape."""
     g = torch.Generator(device="cuda")
     g.manual_seed(2)
     calls = {
@@ -796,7 +900,7 @@ def time_int8_kernels(card):
                    qconv.qconv3x3_split_requant_reference),
         k6.K6: (k6.qupsample2x2_requant, k6.qupsample2x2_requant_reference),
     }
-    rows = {}
+    rows, shape_ms = {}, {}
     for kind, shapes in trunk_shapes().items():
         kernel_fn, plain_fn = calls[kind]
         best = None
@@ -809,10 +913,27 @@ def time_int8_kernels(card):
                     else (x, kern)) + (ws, b, 0.01, 3.0)
             ms = cuda_ms(lambda: kernel_fn(*args), iters=10, warmup=2)
             bound, by = conv_bound_ms(kind, SERVE_BATCH, hw, cin, co)
+            shape_ms[kind, (hw, cin, co)] = (ms, bound)
+            extra = ""
+            if (kind, (hw, cin, co)) in DP4A_MS:
+                extra = f"; CUDA-core (dp4a) kernel {DP4A_MS[kind, (hw, cin, co)]:.4f} ms"
+            if kind == qconv.K4A:
+                extra += f"; cuDNN bf16 conv {cudnn_bf16_ms(g, hw, cin, co):.4f} ms"
             print(f"  {kind} b{SERVE_BATCH} {hw}^2 {cin}->{co}: {ms:.4f} ms vs bound "
-                  f"{bound:.4f} ms ({by}; {100 * bound / ms:.1f}% of bound)", flush=True)
+                  f"{bound:.4f} ms ({by}; {100 * bound / ms:.1f}% of bound){extra}",
+                  flush=True)
             if best is None or ms > best[0]:
                 best = (ms, bound, by, (hw, cin, co), args)
+            del x, args
+        if kind == qconv.K5:
+            for route, launches in route_conv_launches().items():
+                ms = sum(shape_ms[k, sh][0] for k, sh in launches)
+                bound = sum(shape_ms[k, sh][1] for k, sh in launches)
+                before = sum(DP4A_MS[k, sh] for k, sh in launches)
+                print(f"  K4a+K5 per {route} batch ({len(launches)} launches, b"
+                      f"{SERVE_BATCH}): {ms:.4f} ms vs summed bound {bound:.4f} ms "
+                      f"({100 * bound / ms:.1f}% of bound); CUDA-core (dp4a) kernels "
+                      f"{before:.4f} ms [{card}]", flush=True)
         ms, bound, by, shape, args = best
         plain_ms = cuda_ms(lambda: plain_fn(*args), iters=2, warmup=1)
         rows[kind] = (ms, plain_ms, bound, by)

@@ -49,6 +49,7 @@
 #include <cuda_runtime.h>
 
 #include "int8_conv_common.cuh"
+#include "int8_mma_conv.cuh"
 
 namespace {
 
@@ -71,14 +72,6 @@ struct Args {
   bool vec_in, vec_out;
   int8_t* out;  // (N, H, W, Co) int8 contiguous
 };
-
-__device__ __forceinline__ void mma_s8(int* d, const int* a, int b0, int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The halo slab of tile t (input rows h0-1..h0+8, columns w0-1..w0+32, the
 // channels up to Cp) into dst, zeros outside the image and past Cin.
@@ -191,8 +184,8 @@ __global__ void __launch_bounds__(kThreads) qconv3x3_requant_dma_kernel(Args p) 
           const uint8_t* q = wsm + (nt * 8 + g) * swb + tap * p.Cp + k0 + 4 * tq;
           const int b0 = *reinterpret_cast<const int*>(q);
           const int b1 = *reinterpret_cast<const int*>(q + 16);
-          mma_s8(acc[0][nt], af8[0], b0, b1);
-          mma_s8(acc[1][nt], af8[1], b0, b1);
+          twv::mma_s8(acc[0][nt], af8[0], b0, b1);
+          twv::mma_s8(acc[1][nt], af8[1], b0, b1);
         }
       }
     }

@@ -4,7 +4,10 @@ Ports of the int8 pieces of ``twinvoice_tpu.infer.quant`` (``_conv3x3_i8``,
 ``_conv_transpose2x2_i8``, ``_requant``, the int8 ``max_pool2``) and of the
 Pallas kernels ``ops/qconv_pallas.py:qconv3x3_requant`` (K4a) and
 ``:qconv3x3_split_requant`` (K5), which one CUDA source
-(``csrc/qconv3x3.cu``) replaces; its design note is there. Also K4b (below).
+(``csrc/qconv3x3.cu``, on the int8 tensor cores) replaces; its design note is
+there. :func:`conv_plan` computes the launch plan the kernel is given (k
+layout, Cin chunk, output-channel tile, shared memory, grid) and
+:func:`k_slots` the k order that plan walks. Also K4b (below).
 
 Layout: activations are NHWC-contiguous int8 tensors; a 3×3 kernel is
 ``(Co, 3, 3, Ci)`` int8 and a 2×2 transpose-conv kernel ``(Co, 2, 2, Ci)``
@@ -42,6 +45,8 @@ CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -55,6 +60,7 @@ K5 = "qconv3x3_split_requant"
 K4B = "qconv3x3_requant_dma"    # also the name of K4b's library
 K4B_MAX_CIN = 128
 _PROD, _CHAIN, _SEPARATE = 0, 1, 2  # epilogue modes of the source
+STEM, PAIR, WIDE = 0, 1, 2  # k layouts of csrc/qconv3x3.cu
 
 
 def out_inv(out_scale) -> np.float32:
@@ -166,12 +172,132 @@ def qconv3x3_split_requant_reference(x, x2, kernel, kernel2, w_scale, bias, s_in
     return requant(y, out_scale, relu).contiguous()
 
 
+# -- K4a / K5 launch plan -----------------------------------------------------------
+
+TILE_W = 32                # output columns of a tile
+SMEM_LIMIT = 232_448       # dynamic shared memory one block may use (H100)
+SM_SMEM = 233_472          # shared memory of one SM, 1 KiB of it reserved a block
+H100_SMS = 132
+
+
+def tile_rows(nt: int) -> int:
+    """Output rows of a tile: 8 warps of 4 m tiles (two rows) each up to 32
+    output channels a block (nt ≤ 4), else of 2 (one row)."""
+    return 16 if nt <= 4 else 8
+
+
+def blocks_per_sm(nt: int, separate: bool = False) -> int:
+    """Blocks an SM the kernel's registers allow (its ``__launch_bounds__``)."""
+    return 3 if nt <= 2 and not separate else 2
+
+
+class ConvPlan(NamedTuple):
+    layout: int       # STEM (Cin ≤ 4), PAIR (Cin ≤ 16) or WIDE
+    cc: int           # channels of one Cin chunk (4, 16, or 32/64/128)
+    n_chunks: int     # chunks of one input
+    items: int        # chunks a tile walks (both inputs for K5)
+    nt: int           # n tiles of 8 output channels a block
+    k_steps: int      # 32-byte k steps of one chunk
+    stages: int       # slots of the shared-memory ring (items in flight + 1)
+    resident: bool    # the block's weights stay in shared memory
+    smem: int         # bytes of dynamic shared memory a block
+    tiles: int        # output tiles of the batch, tile_rows(nt) × 32 pixels
+    grid: tuple       # (blocks along the tiles, blocks along the output channels)
+
+    @property
+    def co_tile(self) -> int:
+        return 8 * self.nt
+
+
+def _pixel_bytes(c: int) -> int:
+    """``c`` rounded up to 16 bytes, then to an odd number of 16-byte granules
+    (``csrc/int8_conv_common.cuh:pixel_bytes``)."""
+    g = -(-c // 16)
+    return 16 * (g if g % 2 else g + 1)
+
+
+def _smem(layout, cc, nt, items, stages) -> int:
+    """Bytes of ``stages`` slab slots, the weights (all ``items`` chunks when
+    they fit in as many slots, else one a slot) and the output staging."""
+    sa = 4 if layout == STEM else 16 if layout == PAIR else _pixel_bytes(cc)
+    wb = _pixel_bytes(64 if layout == STEM else 160 if layout == PAIR else 9 * cc)
+    slab = (tile_rows(nt) + 2) * (TILE_W + 2) * sa
+    return (stages * slab + min(items, stages) * 8 * nt * wb
+            + tile_rows(nt) * TILE_W * _pixel_bytes(8 * nt))
+
+
+def _fits(smem: int, nt: int, separate: bool) -> bool:
+    """Shared memory lets as many blocks share an SM as the registers do."""
+    return blocks_per_sm(nt, separate) * (smem + 1024) <= SM_SMEM
+
+
+def conv_plan(n, h, w, cin, co, *, halves=1, separate=False, sms=H100_SMS) -> ConvPlan:
+    """The launch plan of ``csrc/qconv3x3.cu`` for an (n,h,w,cin) → co conv
+    (``halves=2``: K5's two inputs; ``separate``: its two-sum form).
+
+    The k layout packs narrow inputs: eight taps a 32-byte k step for Cin ≤ 4,
+    two for Cin ≤ 16, else 32 channels of one tap, in chunks of the widest
+    ``cc`` of 128, 64, 32 (not past Cin) for which the most ring slots of 4, 3,
+    2 let as many blocks share an SM as the registers do (32 channels and 2
+    slots always do). The stem keeps 2 slots (its slabs come through registers two
+    items ahead). A block takes up to 64 output channels (16 in the two-sum
+    form, whose two register tiles must not spill) and tiles of
+    ``tile_rows(nt)`` × 32 output pixels. The grid is persistent: as many
+    blocks as fit on ``sms`` SMs, no more than tiles."""
+    nt = 1 if co <= 8 else 2 if co <= 16 or separate else 4 if co <= 32 else 8
+    if cin <= 4:
+        layout, cc, stages = STEM, 4, 2
+    else:
+        layout = PAIR if cin <= 16 else WIDE
+        ccs = (16,) if layout == PAIR else [c for c in (128, 64, 32)
+                                            if c <= -(-cin // 32) * 32]
+        cc, stages = next((c, st) for c in ccs for st in (4, 3, 2) if _fits(
+            _smem(layout, c, nt, halves * -(-cin // c), st), nt, separate))
+    n_chunks = -(-cin // cc)
+    items = halves * n_chunks
+    smem = _smem(layout, cc, nt, items, stages)
+    n_co = -(-co // (8 * nt))
+    tiles = n * -(-h // tile_rows(nt)) * -(-w // TILE_W)
+    per_sm = max(1, min(blocks_per_sm(nt, separate), SM_SMEM // (smem + 1024)))
+    blocks = max(1, min(tiles, -(-sms * per_sm // n_co)))
+    k_steps = 2 if layout == STEM else 5 if layout == PAIR else 9 * cc // 32
+    return ConvPlan(layout, cc, n_chunks, items, nt, k_steps, stages, items <= stages,
+                    smem, tiles, (blocks, n_co))
+
+
+def k_slots(plan: ConvPlan, cin: int) -> np.ndarray:
+    """The k order ``plan`` walks in one input: (n_chunks, k_steps, 32, 2) of
+    (tap, input channel) per k byte, (−1, −1) where the slot is padding (its
+    weight staged as zero). Taps are ``3·dy + dx``."""
+    out = np.full((plan.n_chunks, plan.k_steps, 32, 2), -1, np.int64)
+    j = np.arange(32)
+    for chunk in range(plan.n_chunks):
+        for s in range(plan.k_steps):
+            if plan.layout == STEM:
+                tap, ch = 8 * s + j // 4, j % 4
+            elif plan.layout == PAIR:
+                tap, ch = 2 * s + j // 16, j % 16
+            else:
+                per_tap = plan.cc // 32
+                tap = np.full(32, s // per_tap)
+                ch = chunk * plan.cc + 32 * (s % per_tap) + j
+            ok = (tap < 9) & (ch < cin)
+            out[chunk, s, ok, 0] = tap[ok]
+            out[chunk, s, ok, 1] = ch[ok]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _library():
     fn = _build.library(NAME).twv_qconv3x3_requant
     if fn.argtypes is None:
         ci, cf, vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
         fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, cf, cf,
-                       ci, ci, vp, vp]
+                       ci, ci, ci, ci, ci, ci, ci, ci, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -203,10 +329,13 @@ def check_operands(name, x, kernel, w_scale, bias, taps, scale_name="w_scale"):
 
 
 def _launch(name, x, x2, kernel, kernel2, w_scale, bias, s0, s1, out_scale, mode,
-            relu):
+            relu, out=None):
     n, h, w, cin = x.shape
     co = kernel.shape[0]
-    out = torch.empty((n, h, w, co), dtype=torch.int8, device=x.device)
+    if out is None:
+        out = torch.empty((n, h, w, co), dtype=torch.int8, device=x.device)
+    plan = conv_plan(n, h, w, cin, co, halves=1 if x2 is None else 2,
+                     separate=mode == _SEPARATE, sms=_sm_count(x.device.index or 0))
     fn = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -214,7 +343,8 @@ def _launch(name, x, x2, kernel, kernel2, w_scale, bias, s0, s1, out_scale, mode
                  kernel.data_ptr(), kernel2.data_ptr() if kernel2 is not None else None,
                  w_scale.data_ptr(), bias.data_ptr(), n, h, w, cin, co,
                  float(s0), float(s1), float(out_inv(out_scale)), mode,
-                 int(bool(relu)), out.data_ptr(), stream)
+                 int(bool(relu)), plan.layout, plan.cc, plan.nt, plan.stages,
+                 plan.smem, plan.grid[0], out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
     _build.launches[name] += 1
