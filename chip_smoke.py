@@ -29,8 +29,10 @@ Phases, each printing one line with its wall time:
    2, 4, 8, 17, 31, 33, 64, 129 and 1024, Co 1, 8, 40, 72, 128 and 256, each
    epilogue form at a narrow and a wide Cin, K5's shared-sum and two-scale
    forms at Cin 3, 16, 33 and 129, H and W off the output tile, inputs and
-   outputs 1 byte off alignment; and every layer shape of the w16 int8 trunk
-   at b128 (held on a subset of the batch)
+   outputs 1 byte off alignment; K6's tensor-core contract: Cin 1, 2, 4, 17,
+   31, 33, 64, 129 and 1024, Co 1, 8, 40, 72 and 256, inputs, weights and
+   outputs 1 byte off alignment, a 1x1 image, H != W and odd W; and every
+   layer shape of the w16 int8 trunk at b128 (held on a subset of the batch)
 9. the int8 routes on the fixture pages against the JAX package
    (``tests/data/torch_smoke_int8.npz``): the port's calibration scales
    within 1e-5 of JAX's; then, with JAX's scales carried in, each route's ok
@@ -40,22 +42,27 @@ Phases, each printing one line with its wall time:
 10. b128 512² box-only int8 serving, one img/s line per route, boxes read
     back after every batch, as phase 6
 11. the int8 kernels' times at the serving shapes against their bounds and
-    their plain versions'; K4a and K5 beside their earlier CUDA-core times,
-    K4a beside cuDNN's bf16 conv of the same shape (context, not a library
-    time: another function), and the summed K4a and K5 time of a route batch
-    against its summed bound
+    their plain versions'; K4a, K5 and K6 beside their earlier CUDA-core
+    times, K4a beside cuDNN's bf16 conv of the same shape and K6 beside
+    ``torch._int_mm``'s [px, Cin] x [Cin, 4 Co] product (context, not library
+    times: other functions), and the summed K4a and K5 time of a route batch
+    and K6's four launches against their summed bounds
 12. K7b (``ops.nhwc_conv``) against its plain version on the card: exactly
     equal int8 outputs A->B and B->A, odd pair counts, no ReLU, the chain
     A->B->A, two packed sources, packed weights ``pack_w_pair`` could not
-    produce, zero pad half-pairs of every B->A output, and the three K7b
-    calls of the w16 "nhwc" trunk at b128 (held on a subset of the batch)
+    produce, zero pad half-pairs of every B->A output; its tensor-core
+    contract in both phases: Cpk 1, 2, 4, 17, 31, 33, 64, 129 and 1024, Co2 2,
+    8, 40, 72 and 256, P = 3 (A) and P = 2 (B) at H = 1, H off the tile,
+    inputs, weights and outputs 1 byte off alignment; and the three K7b calls
+    of the w16 "nhwc" trunk at b128 (held on a subset of the batch)
 13. the W-phase routes (``int8_wpack`` "full", "enc", "nhwc" box-only, and
     "nhwc" with masks, its "full" fallback) on the fixture pages against the
     JAX package (``tests/data/torch_smoke_wpack.npz``), with JAX's scales
     carried in: ok flags and grid boxes equal, row/col maxima within 1e-5,
     the trunk's int8 channel sums equal to JAX's on all four pages
 14. b128 512² box-only img/s on each W-phase route, and K7b's time at its
-    three serving shapes against its bound and its plain version's
+    three serving shapes against its bound, its earlier CUDA-core time and
+    its plain version's, summed over an "nhwc" batch
 15. K3b, K3a (``ops.nhwc_conv.qconv3x3_nhwc_requant``, ``qconv3x3_nhwc_dma``
     on ``pad_nhwc`` inputs), K4b (``ops.qconv.qconv3x3_requant_dma``) and K7a
     (``ops.nhwc_conv.qconv3x3_pair_dma``) against their plain versions on the
@@ -522,15 +529,17 @@ def misaligned(t):
 def case_conv(g, kind, label, n, h, w, cin, co, *, relu=True, scale_first=False,
               s_in2=None, planted=False, subset=None, need_clips=True, misalign=False):
     """One K4a/K5/K6 launch held against its plain version on ``subset`` of
-    the batch (all of it by default). ``misalign``: K4a/K5 read inputs and
-    write an output that start 1 byte into their buffers."""
+    the batch (all of it by default). ``misalign``: K4a/K5/K6 read inputs
+    (K6 its weights too) and write an output that start 1 byte into their
+    buffers."""
     taps = 2 if kind == k6.K6 else 3
     make = planted_s8 if planted else rand_s8
     x = make(g, (n, h, w, cin))
     x2 = make(g, (n, h, w, cin)) if kind == qconv.K5 else None
+    kern = rand_s8(g, (co, taps, taps, cin))
     if misalign:
         x, x2 = misaligned(x), None if x2 is None else misaligned(x2)
-    kern = rand_s8(g, (co, taps, taps, cin))
+        kern = misaligned(kern) if kind == k6.K6 else kern
     kern2 = rand_s8(g, (co, taps, taps, cin)) if kind == qconv.K5 else None
     ws, b = epilogue_operands(g, co)
     s_in = 0.5 + float(torch.rand((), generator=g, device="cuda"))
@@ -551,7 +560,13 @@ def case_conv(g, kind, label, n, h, w, cin, co, *, relu=True, scale_first=False,
         y = qconv.dequant(acc, ws, b, s_in, scale_first=scale_first)
     out_scale = spread_scale(y)
     del acc, y
-    if misalign:  # the wrappers allocate aligned outputs: launch into a view
+    if misalign and kind == k6.K6:  # the wrappers allocate aligned outputs
+        out = misaligned(torch.zeros((n, 2 * h, 2 * w, co), dtype=torch.int8,
+                                     device="cuda"))
+        got = k6._launch(x, kern, ws, b, s_in, out_scale, out=out)
+        ref = k6.qupsample2x2_requant_reference(xs, kern, ws, b, s_in, out_scale)
+        label += " (in and out 1 byte off alignment)"
+    elif misalign:  # the wrappers allocate aligned outputs: launch into a view
         out = misaligned(torch.zeros((n, h, w, co), dtype=torch.int8, device="cuda"))
         sep = s_in2 is not None
         mode = qconv._SEPARATE if sep else qconv._CHAIN if scale_first else qconv._PROD
@@ -649,6 +664,19 @@ def phase_int8_kernels():
     for cin, co in ((3, 16), (5, 3), (16, 16), (48, 24), (256, 128)):
         case_conv(g, k6.K6, "random", 2, 9, 13, cin, co)
     case_conv(g, k6.K6, "planted", 1, 6, 7, 32, 16, need_clips=False)
+    # K6's tensor-core contract: Cin over the 32-byte k step and the chunk
+    # carry, Co off the 8-, 16- and 32-channel block and past one block,
+    # inputs, weights and outputs 1 byte off alignment, a 1x1 image, H != W
+    # and odd W, pixels off the 256- and 128-pixel tiles
+    for cin in (1, 2, 4, 17, 31, 33, 64, 129):
+        case_conv(g, k6.K6, "Cin edge", 2, 7, 19, cin, 16)
+    case_conv(g, k6.K6, "Cin 1024", 1, 5, 9, 1024, 24)
+    for cin, co in ((5, 1), (16, 8), (33, 40), (64, 72), (129, 256)):
+        case_conv(g, k6.K6, "Co edge", 1, 6, 11, cin, co, need_clips=co > 1)
+    for cin, co in ((3, 16), (16, 16), (17, 32), (129, 48), (64, 64)):
+        case_conv(g, k6.K6, "misaligned", 2, 5, 13, cin, co, misalign=True)
+    case_conv(g, k6.K6, "one pixel", 1, 1, 1, 16, 16, need_clips=False)
+    case_conv(g, k6.K6, "H != W, odd W", 3, 17, 29, 32, 32)
 
     err = 0.0
     for b, h, w, c in ((2, 16, 24, 8), (3, 9, 13, 16), (8, 16, 256, 32),
@@ -858,9 +886,11 @@ def phase_int8_serving(segs, fix, card, bf16_ips):
 # -- phase 11: int8 kernel times ------------------------------------------------
 
 
-# K4a's and K5's times before the tensor-core redesign, when they ran on the
-# CUDA cores (__dp4a), at the w16 serving shapes at b128: this script's phase
-# 11 on an NVIDIA H100 80GB HBM3 at 700.00 W
+# The int8 kernels' times before their tensor-core redesigns, when they ran on
+# the CUDA cores (__dp4a), at the w16 serving shapes at b128, on an NVIDIA H100
+# 80GB HBM3 at 700.00 W: K4a's and K5's from this script's phase 11 before
+# their redesign; K6's (phase 11) and K7b's (phase 14, by call) from the run of
+# the tree before theirs
 DP4A_MS = {
     (qconv.K4A, (512, 3, 16)): 1.2044, (qconv.K4A, (512, 16, 16)): 2.4522,
     (qconv.K4A, (256, 16, 32)): 1.2178, (qconv.K4A, (256, 32, 32)): 2.0120,
@@ -871,6 +901,10 @@ DP4A_MS = {
     (qconv.K4A, (256, 64, 32)): 3.6855, (qconv.K4A, (512, 32, 16)): 3.9748,
     (qconv.K5, (64, 128, 128)): 4.2706, (qconv.K5, (128, 64, 64)): 4.0704,
     (qconv.K5, (256, 32, 32)): 4.4499, (qconv.K5, (512, 16, 16)): 5.1803,
+    (k6.K6, (32, 256, 128)): 0.6555, (k6.K6, (64, 128, 64)): 0.6626,
+    (k6.K6, (128, 64, 32)): 0.5988, (k6.K6, (256, 32, 16)): 0.7111,
+    (nhwc.K7B, "enc0 conv2 A->B"): 3.5447, (nhwc.K7B, "dec0 conv1 B->A"): 6.7482,
+    (nhwc.K7B, "dec0 conv2 A->B"): 3.5964,
 }
 
 
@@ -886,12 +920,29 @@ def cudnn_bf16_ms(g, hw, cin, co):
                        warmup=2)
 
 
+def int_mm_ms(x, kern):
+    """``torch._int_mm`` on K6's [pixels, Cin] × [Cin, 4·Co] product, the
+    weight rows read as the columns (context for K6's design, not its library
+    time: it computes neither the requant nor the output layout). → ms, or
+    None where ``_int_mm`` does not accept the shape."""
+    a = x.reshape(-1, x.shape[-1])
+    b = kern.reshape(-1, x.shape[-1]).t()
+    for bb in (b, b.contiguous()):
+        try:
+            torch._int_mm(a, bb)
+        except RuntimeError:
+            continue
+        return cuda_ms(lambda: torch._int_mm(a, bb), iters=10, warmup=2)
+    return None
+
+
 def time_int8_kernels(card):
-    """Each int8 kernel at every serving shape of the w16 trunk (b128), K4a
-    and K5 beside their bound and their CUDA-core times, K4a beside cuDNN's
-    bf16 conv; the summed K4a and K5 time of a route batch against its summed
-    bound; the plain version at the kernel's heaviest shape. → {kernel: (ms,
-    plain ms, bound ms, bound by)} at that shape."""
+    """Each int8 kernel at every serving shape of the w16 trunk (b128), K4a,
+    K5 and K6 beside their bound and their CUDA-core times, K4a beside cuDNN's
+    bf16 conv and K6 beside ``torch._int_mm``'s product; the summed K4a and K5
+    time of a route batch and K6's four launches against their summed bound;
+    the plain version at the kernel's heaviest shape. → {kernel: (ms, plain
+    ms, bound ms, bound by)} at that shape."""
     g = torch.Generator(device="cuda")
     g.manual_seed(2)
     calls = {
@@ -919,6 +970,11 @@ def time_int8_kernels(card):
                 extra = f"; CUDA-core (dp4a) kernel {DP4A_MS[kind, (hw, cin, co)]:.4f} ms"
             if kind == qconv.K4A:
                 extra += f"; cuDNN bf16 conv {cudnn_bf16_ms(g, hw, cin, co):.4f} ms"
+            if kind == k6.K6:
+                mm = int_mm_ms(x, kern)
+                extra += ("; torch._int_mm does not take the product" if mm is None else
+                          f"; torch._int_mm of the [px, Cin] x [Cin, 4 Co] product "
+                          f"{mm:.4f} ms")
             print(f"  {kind} b{SERVE_BATCH} {hw}^2 {cin}->{co}: {ms:.4f} ms vs bound "
                   f"{bound:.4f} ms ({by}; {100 * bound / ms:.1f}% of bound){extra}",
                   flush=True)
@@ -934,6 +990,13 @@ def time_int8_kernels(card):
                       f"{SERVE_BATCH}): {ms:.4f} ms vs summed bound {bound:.4f} ms "
                       f"({100 * bound / ms:.1f}% of bound); CUDA-core (dp4a) kernels "
                       f"{before:.4f} ms [{card}]", flush=True)
+        if kind == k6.K6:
+            ms = sum(shape_ms[kind, sh][0] for sh in shapes)
+            bound = sum(shape_ms[kind, sh][1] for sh in shapes)
+            before = sum(DP4A_MS[kind, sh] for sh in shapes)
+            print(f"  K6 per route batch ({len(shapes)} launches, b{SERVE_BATCH}): "
+                  f"{ms:.4f} ms vs summed bound {bound:.4f} ms ({100 * bound / ms:.1f}% "
+                  f"of bound); CUDA-core (dp4a) kernel {before:.4f} ms [{card}]", flush=True)
         ms, bound, by, shape, args = best
         plain_ms = cuda_ms(lambda: plain_fn(*args), iters=2, warmup=1)
         rows[kind] = (ms, plain_ms, bound, by)
@@ -979,17 +1042,28 @@ def k7b_serving_calls(base=16, size=512, n=SERVE_BATCH):
             ("dec0 conv2 A->B", (n, size, p + 1, 2 * base, 2 * base), "A")]
 
 
-def check_k7b(g, label, x, wp, in_phase, *, relu=True, subset=None, need_clips=True):
+def check_k7b(g, label, x, wp, in_phase, *, relu=True, subset=None, need_clips=True,
+              misalign=False):
     """One K7b launch held against its plain version on ``subset`` of the
-    batch; a B->A output's pad half-pairs must be zero. → the output."""
+    batch; a B->A output's pad half-pairs must be zero. ``misalign``: the
+    input, the weights and the output start 1 byte into their buffers.
+    → the output."""
     co2 = wp.shape[0]
     a2, b2 = epilogue_operands(g, co2)
     sub = slice(None) if subset is None else subset
     acc = nhwc.pair_conv_i8(x[sub], wp, in_phase)
     out_scale = spread_scale(acc.to(torch.float32) * a2 + b2)
     del acc
-    got = nhwc.qconv3x3_pair_requant(x, wp, a2, b2, out_scale, in_phase=in_phase,
-                                     relu=relu)
+    if misalign:  # the wrapper allocates an aligned output: launch into a view
+        x, wp = misaligned(x), misaligned(wp)
+        n, h, p_in = x.shape[:3]
+        out = misaligned(torch.zeros((n, h, p_in - 1 if in_phase == "A" else p_in + 1,
+                                      co2), dtype=torch.int8, device="cuda"))
+        got = nhwc._launch_pair(x, wp, a2, b2, out_scale, in_phase, relu, out=out)
+        label += " (in and out 1 byte off alignment)"
+    else:
+        got = nhwc.qconv3x3_pair_requant(x, wp, a2, b2, out_scale, in_phase=in_phase,
+                                         relu=relu)
     ref = nhwc.qconv3x3_pair_requant_reference(x[sub], wp, a2, b2, out_scale,
                                                in_phase=in_phase, relu=relu)
     torch.cuda.synchronize()
@@ -1031,6 +1105,27 @@ def phase_k7b():
     for in_phase, p in (("A", 7), ("B", 6)):
         check_k7b(g, "random wp", rand_s8(g, (2, 16, p, 12)), rand_s8(g, (10, 3, 2, 12)),
                   in_phase, relu=False)
+    # the tensor-core contract, in both phases: every k layout (six taps a k
+    # step at Cpk <= 4, two at Cpk <= 16, 32-channel steps) and its edges, the
+    # Cpk chunk carry, Co2 off the block's tile and past one block, the
+    # narrowest inputs (P = 3 in phase A, P = 2 in phase B) and H = 1, inputs,
+    # weights and outputs 1 byte off alignment
+    for in_phase, p in (("A", 7), ("B", 6)):
+        for cpk in (1, 2, 4, 17, 31, 33, 64, 129):
+            check_k7b(g, "Cpk edge", rand_s8(g, (2, 5, p, cpk)),
+                      rand_s8(g, (16, 3, 2, cpk)), in_phase, relu=cpk % 2 == 0)
+        check_k7b(g, "Cpk 1024", rand_s8(g, (1, 4, p + 2, 1024)),
+                  rand_s8(g, (24, 3, 2, 1024)), in_phase)
+        for cpk, co2 in ((5, 2), (16, 8), (33, 40), (64, 72), (129, 256)):
+            check_k7b(g, "Co2 edge", rand_s8(g, (1, 6, p + 4, cpk)),
+                      rand_s8(g, (co2, 3, 2, cpk)), in_phase, need_clips=co2 > 2)
+        for cpk, co2 in ((3, 16), (16, 16), (17, 32), (64, 48)):
+            check_k7b(g, "misaligned", rand_s8(g, (2, 5, p, cpk)),
+                      rand_s8(g, (co2, 3, 2, cpk)), in_phase, misalign=True)
+        check_k7b(g, "narrowest, H = 1", rand_s8(g, (2, 1, 3 if in_phase == "A" else 2, 32)),
+                  rand_s8(g, (16, 3, 2, 32)), in_phase, need_clips=False)
+        check_k7b(g, "H off the tile", rand_s8(g, (2, 37, 2 * 33 + (in_phase == "A"), 32)),
+                  rand_s8(g, (64, 3, 2, 32)), in_phase, relu=False)
     # the three serving calls of the w16 "nhwc" trunk at b128, held on images
     # 0 and 127
     sub = torch.tensor([0, SERVE_BATCH - 1], device="cuda")
@@ -1174,19 +1269,26 @@ def phase_wpack_serving(segs, fix, card):
 
     g = torch.Generator(device="cuda")
     g.manual_seed(4)
-    worst = None
+    worst, total = None, [0.0, 0.0, 0.0]
     for label, (n, hh, p, cpk, co2), in_phase in k7b_serving_calls():
         x = rand_s8(g, (n, hh, p, cpk), 0, 128)
         args = (x, rand_s8(g, (co2, 3, 2, cpk))) + epilogue_operands(g, co2) + (3.0,)
         ms = cuda_ms(lambda: nhwc.qconv3x3_pair_requant(*args, in_phase=in_phase),
                      iters=10, warmup=2)
         bound, by = k7b_bound_ms(n, hh, p, cpk, co2, in_phase)
+        before = DP4A_MS[nhwc.K7B, label]
+        for i, v in enumerate((ms, bound, before)):
+            total[i] += v
         print(f"  {nhwc.K7B} {label} b{n} {(hh, p, cpk)}->{co2}: {ms:.4f} ms vs bound "
-              f"{bound:.4f} ms ({by}; {100 * bound / ms:.1f}% of bound) [{card}]",
-              flush=True)
+              f"{bound:.4f} ms ({by}; {100 * bound / ms:.1f}% of bound); CUDA-core "
+              f"(dp4a) kernel {before:.4f} ms [{card}]", flush=True)
         if worst is None or ms > worst[0]:
             worst = (ms, bound, by, label, args, in_phase)
         del x, args
+    ms, bound, before = total
+    print(f"  K7b per nhwc batch (3 launches, b{SERVE_BATCH}): {ms:.4f} ms vs summed bound "
+          f"{bound:.4f} ms ({100 * bound / ms:.1f}% of bound); CUDA-core (dp4a) kernel "
+          f"{before:.4f} ms [{card}]", flush=True)
     ms, bound, by, label, args, in_phase = worst
     plain_ms = cuda_ms(lambda: nhwc.qconv3x3_pair_requant_reference(
         *args, in_phase=in_phase), iters=2, warmup=1)

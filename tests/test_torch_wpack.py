@@ -8,6 +8,8 @@ as ``tests/test_torch_quant.py`` does. The int8 features are bit-equal; the
 float32 logits and maxima differ only in the order of the 1×1 head's sum
 (within 1e-5, the bound of ``test_wpack.py``'s maxima)."""
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -211,3 +213,64 @@ def test_each_route_keeps_its_epilogue_association(model):
     assert (np.asarray(jn) != np.asarray(jf)).sum() == 2
     np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+
+
+def _segmenter(model, **kw):
+    from twinvoice_tpu_torch.config import InferConfig, UNetConfig
+    from twinvoice_tpu_torch.infer.pipeline import Segmenter
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the "nhwc" fallback note
+        return Segmenter(model["tp"], model["ts"], UNetConfig(base_width=8),
+                         InferConfig(img_size=GRID), dtype=torch.float32, device="cpu",
+                         int8_calib=model["calib"], **kw)
+
+
+def test_prepacked_nhwc_trunk_equals_on_the_fly(model, monkeypatch):
+    """The "nhwc" trunk on ``prepack_nhwc``'s operands, made once, equals the
+    trunk that packs them on every call; the Segmenter's "nhwc" route packs
+    nothing per batch."""
+    q, imgs = model["q"], _t(_imgs(3))
+    pn = tw.prepack_nhwc(q)
+    h0, s0 = tw.unet_apply_quantized_features_nhwc(q, imgs)
+    h1, s1 = tw.unet_apply_quantized_features_nhwc(q, imgs, pn)
+    assert torch.equal(h0, h1) and s0 == s1
+    for a, b in zip(tw.unet_apply_quantized_nhwc_rowcol_max(q, imgs),
+                    tw.unet_apply_quantized_nhwc_rowcol_max(q, imgs, pn)):
+        assert torch.equal(a, b)
+    seg = _segmenter(model, int8_wpack="nhwc")
+    want = seg.segment_batch(_imgs(3), return_masks=False)
+
+    def no_packing(*args, **kw):
+        raise AssertionError("packed per batch")
+
+    for name in ("pack_w_pair_multi", "tile2", "_scaled"):
+        monkeypatch.setattr(tw, name, no_packing)
+    got = seg.segment_batch(_imgs(3), return_masks=False)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prepacked_logits_head_equals_on_the_fly(model, dtype, monkeypatch):
+    """``logits_head`` on ``prepack_head``'s tensors, made once, equals the
+    head that makes them on every call, at float32 and bf16; the Segmenter's
+    logits routes make none per batch."""
+    from twinvoice_tpu_torch.infer import quant as tq
+
+    q, imgs = model["q"], _t(_imgs(4))
+    h, s = tq.unet_apply_quantized_features(q, imgs)
+    head = tq.prepack_head(q)
+    assert torch.equal(tq.logits_head(q, h, s, dtype), tq.logits_head(q, h, s, dtype, head))
+    want = tw.unet_apply_quantized_wpack(q, imgs, dtype, "full")
+    assert torch.equal(want, tw.unet_apply_quantized_wpack(q, imgs, dtype, "full", head))
+    segs = [_segmenter(model), _segmenter(model, int8_wpack="full")]
+    wants = [seg.segment_batch(_imgs(4)) for seg in segs]
+
+    def no_head(*args, **kw):
+        raise AssertionError("head tensors made per batch")
+
+    monkeypatch.setattr(tq, "_head_tensors", no_head)
+    for seg, want in zip(segs, wants):
+        for a, b in zip(seg.segment_batch(_imgs(4)), want):
+            assert torch.equal(a, b)

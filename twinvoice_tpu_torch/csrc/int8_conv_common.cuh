@@ -1,6 +1,6 @@
-// Pieces shared by the int8 3x3 convolutions K3a, K3b, K4b and K7a: cp.async
-// copies into shared memory, the shared-memory pixel stride, word loads that
-// zero what lies past the channels, and the requantising epilogue.
+// Pieces shared by the int8 convolutions: cp.async copies into shared memory
+// and the wait on a ring of them, the shared-memory pixel stride, word loads
+// that zero what lies past the channels, and the requantising epilogue.
 #pragma once
 
 #include <cstdint>
@@ -38,6 +38,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Waits until at most stages - 1 of this thread's cp.async groups are in
+// flight (stages 2 to 4): of the items i .. i + stages - 1 in flight, item i
+// has landed.
+__device__ __forceinline__ void wait_oldest(int stages) {
+  if (stages == 2) {
+    cp_async_wait<1>();
+  } else if (stages == 3) {
+    cp_async_wait<2>();
+  } else {
+    cp_async_wait<3>();
+  }
+}
+
 // Channels c..c+3 of the pixel at p as one little-endian word, zero past C.
 __device__ __forceinline__ int load_word(const int8_t* p, int c, int C) {
   unsigned v = 0;
@@ -58,6 +71,14 @@ __device__ __forceinline__ unsigned requant_fma(int acc, float a, float b, float
   if (relu) y = fmaxf(y, 0.0f);
   const float r = fminf(fmaxf(rintf(__fmul_rn(y, inv)), relu ? 0.0f : -127.0f), 127.0f);
   return static_cast<unsigned>(static_cast<uint8_t>(static_cast<int8_t>(__float2int_rn(r))));
+}
+
+// lo and hi saturated to int8 and packed into the low 16 bits (lo in bits
+// 0-7), one cvt.pack.sat a pair.
+__device__ __forceinline__ unsigned pack2_s8(int lo, int hi) {
+  unsigned d;
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(hi), "r"(lo), "r"(0));
+  return d;
 }
 
 __host__ __device__ inline bool aligned(const void* p, int bytes) {

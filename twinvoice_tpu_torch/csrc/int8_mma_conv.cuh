@@ -1,6 +1,7 @@
-// The int8 tensor-core pieces shared by K4a/K5 (csrc/qconv3x3.cu) and K4b
-// (csrc/qconv3x3_requant_dma.cu): one mma.sync m16n8k32 s8 x s8 -> s32 and the
-// ldmatrix loads that feed it from shared memory.
+// The int8 tensor-core pieces shared by K4a/K5 and K7b (int8_window_conv.cuh),
+// K6 (csrc/qupsample2x2.cu) and K4b (csrc/qconv3x3_requant_dma.cu): one
+// mma.sync m16n8k32 s8 x s8 -> s32 and the ldmatrix loads that feed it from
+// shared memory.
 //
 // Fragments of mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, with
 // g = lane / 4 and q = lane % 4:
@@ -47,6 +48,20 @@ __device__ __forceinline__ void ldsm_x2(int* r, unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"(addr));
+}
+
+// B fragments of n tiles j and j + 1 (or j alone when NT == 1) at k byte kb of
+// weight rows of wb bytes in shared memory at wsm, one row an output column:
+// b[0], b[1] for tile j, b[2], b[3] for tile j + 1.
+template <int NT>
+__device__ __forceinline__ void load_b(int* b, unsigned wsm, int wb, int j, int kb, int lane) {
+  const int row = j * 8 + (NT == 1 ? 0 : (lane >> 4) * 8) + (lane & 7);
+  const unsigned addr = wsm + row * wb + kb + 16 * ((lane >> 3) & 1);
+  if (NT == 1) {
+    ldsm_x2(b, addr);
+  } else {
+    ldsm_x4(b, addr);
+  }
 }
 
 }  // namespace twv

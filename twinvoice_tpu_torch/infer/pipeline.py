@@ -55,6 +55,7 @@ from twinvoice_tpu_torch.infer.postprocess import (
     scale_and_pad_boxes,
 )
 from twinvoice_tpu_torch.infer.quant import (
+    prepack_head,
     prepack_pallas,
     quantize_unet,
     unet_apply_quantized,
@@ -62,6 +63,7 @@ from twinvoice_tpu_torch.infer.quant import (
     unet_apply_quantized_rowcol_max,
 )
 from twinvoice_tpu_torch.infer.wpack import (
+    prepack_nhwc,
     unet_apply_quantized_nhwc_rowcol_max,
     unet_apply_quantized_wpack,
     unet_apply_quantized_wpack_rowcol_max,
@@ -147,17 +149,20 @@ class Segmenter:
         self.int8_head = int8_head
         self.qparams = None
         self.pallas_params = None
+        self.head_params = None  # the logits head's tensors, made once
         self.wpack_mode = None  # "full" or "enc" when the W-phase trunk serves
-        self.wpack_nhwc = False
+        self.nhwc_params = None  # the "nhwc" trunk's K7b operands when it serves
         if int8_calib is not None or int8_scales is not None:
             folded32 = fold_unet(params, state, cfg=model_cfg, dtype=torch.float32,
                                  device=self.device)
             self.qparams = quantize_unet(folded32, int8_calib, scales=int8_scales)
+            self.head_params = prepack_head(self.qparams)
             if int8_pallas:
                 self.pallas_params = prepack_pallas(self.qparams)
             if int8_wpack:
                 self.wpack_mode = "enc" if int8_wpack == "enc" else "full"
-                self.wpack_nhwc = int8_wpack == "nhwc"
+                if int8_wpack == "nhwc":
+                    self.nhwc_params = prepack_nhwc(self.qparams)
             out_bias = self.qparams["out"]["bias"].cpu()
             self._thr_eff = (self._logit_thr - out_bias).to(self.device)
 
@@ -182,8 +187,8 @@ class Segmenter:
                 maxima = unet_apply_quantized_rowcol_max(q, u8)
             return self._post_maxima(*maxima, orig_sizes)
         if not return_masks and self.wpack_mode is not None:
-            if self.wpack_nhwc:
-                maxima = unet_apply_quantized_nhwc_rowcol_max(q, u8)
+            if self.nhwc_params is not None:
+                maxima = unet_apply_quantized_nhwc_rowcol_max(q, u8, self.nhwc_params)
             else:
                 maxima = unet_apply_quantized_wpack_rowcol_max(q, u8, self.wpack_mode)
             return self._post_maxima(*maxima, orig_sizes)
@@ -195,8 +200,10 @@ class Segmenter:
         """The int8 logits: the W-phase trunk's when it serves, else the
         concat trunk's."""
         if self.wpack_mode is not None:
-            return unet_apply_quantized_wpack(self.qparams, u8, dtype, self.wpack_mode)
-        return unet_apply_quantized(self.qparams, u8, logits_dtype=dtype)
+            return unet_apply_quantized_wpack(self.qparams, u8, dtype, self.wpack_mode,
+                                              head=self.head_params)
+        return unet_apply_quantized(self.qparams, u8, logits_dtype=dtype,
+                                    head=self.head_params)
 
     def _post_maxima(self, row_max, col_max, orig_sizes):
         """Bias-free row/col logit maxima → boxes, scaled and padded."""

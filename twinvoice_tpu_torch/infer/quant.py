@@ -269,20 +269,41 @@ def unet_apply_quantized_features(q, imgs_u8, concat=True):
     return h, s
 
 
-def unet_apply_quantized(q, imgs_u8, concat=True, logits_dtype=torch.float32):
+def unet_apply_quantized(q, imgs_u8, concat=True, logits_dtype=torch.float32, head=None):
     """uint8 (N,H,W,3) images → (N,H,W,3) NHWC-contiguous logits in
     ``logits_dtype`` (``quant.py:251-263``): the activations dequantised in
-    that dtype, then the 1×1 out conv and its bias in it."""
+    that dtype, then the 1×1 out conv and its bias in it (``head``: the
+    tensors :func:`prepack_head` made once)."""
     h, s = unet_apply_quantized_features(q, imgs_u8, concat=concat)
-    return logits_head(q, h, s, logits_dtype)
+    return logits_head(q, h, s, logits_dtype, head)
 
 
-def logits_head(q, h, s, logits_dtype=torch.float32):
+HEAD_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _head_tensors(q, s, dtype):
+    return (torch.tensor(s, device=q["out"]["weight"].device).to(dtype),
+            q["out"]["weight"].to(dtype), q["out"]["bias"].to(dtype))
+
+
+def prepack_head(q):
+    """qparams → the logits head's tensors in each of ``HEAD_DTYPES``, made
+    once: the final activations' dequant scale ``act_scale(q["dec"][-1]["s2"])``
+    on the device, the 1×1 weight and the bias → {dtype: (scale, weight,
+    bias)}. Made per batch, the scale is a host-to-device copy that the
+    stream waits for."""
+    s = act_scale(q["dec"][-1]["s2"])
+    return {dt: _head_tensors(q, s, dt) for dt in HEAD_DTYPES}
+
+
+def logits_head(q, h, s, logits_dtype=torch.float32, head=None):
     """(N,H,W,C) int8 activations at scale ``s`` → (N,H,W,3) logits: ``h``
-    dequantised in ``logits_dtype``, then the 1×1 out conv and its bias."""
-    hf = h.to(logits_dtype) * torch.tensor(s, device=h.device).to(logits_dtype)
-    w = q["out"]["weight"].to(logits_dtype)
-    return hf @ w + q["out"]["bias"].to(logits_dtype)
+    dequantised in ``logits_dtype``, then the 1×1 out conv and its bias.
+    ``head`` (:func:`prepack_head`) gives the tensors made once, its scale
+    the final activations' ``s``; without it they are made here."""
+    scale, w, b = head[logits_dtype] if head is not None else _head_tensors(
+        q, s, logits_dtype)
+    return h.to(logits_dtype) * scale @ w + b
 
 
 def unet_apply_quantized_rowcol_max(q, imgs_u8, concat=True):

@@ -52,7 +52,6 @@ from twinvoice_tpu_torch.infer.quant import (
 from twinvoice_tpu_torch.ops.head import head_rowcol_max
 from twinvoice_tpu_torch.ops.nhwc_conv import (
     from_phase_b,
-    pack_w_pair,
     pack_w_pair_multi,
     qconv3x3_pair_requant,
     to_phase_a,
@@ -167,12 +166,13 @@ def _head_input(hp, mode):
     return hp if mode == "enc" else unpack(hp)
 
 
-def unet_apply_quantized_wpack(q, imgs_u8, logits_dtype=torch.float32, mode="full"):
+def unet_apply_quantized_wpack(q, imgs_u8, logits_dtype=torch.float32, mode="full",
+                               head=None):
     """uint8 images → (B,H,W,3) logits in ``logits_dtype`` (``wpack.py:270``):
     the activations unpacked (a view), dequantised in that dtype, then the 1×1
-    out conv and its bias."""
+    out conv and its bias (``head``: ``quant.prepack_head``'s tensors)."""
     hp, s = unet_apply_quantized_features_wpack(q, imgs_u8, mode=mode)
-    return logits_head(q, _head_input(hp, mode), s, logits_dtype)
+    return logits_head(q, _head_input(hp, mode), s, logits_dtype, head)
 
 
 def unet_apply_quantized_wpack_rowcol_max(q, imgs_u8, mode="full"):
@@ -189,18 +189,40 @@ def _scaled(s, w_scale):
     return tile2(torch.tensor(np.float32(s), device=w_scale.device) * w_scale)
 
 
-def unet_apply_quantized_features_nhwc(q, imgs_u8):
+def _pair_call(qp, blocks, s):
+    return {"wp": pack_w_pair_multi(blocks), "a2": _scaled(s, qp["w_scale"]),
+            "bias2": tile2(qp["bias"])}
+
+
+def prepack_nhwc(q):
+    """qparams → the operands of the "nhwc" trunk's three K7b calls, made
+    once (as ``quant.prepack_pallas`` makes the Pallas trunk's): for enc0
+    conv2, dec0 conv1 and dec0 conv2, the packed weights ``wp``, ``a2 =
+    tile2(f32(s_in)·w_scale)`` (one float32 product, as JAX's) and ``bias2 =
+    tile2(bias)``. Made per batch, the packing is a dozen small kernels a
+    call and each ``a2`` a host-to-device copy that the stream waits for."""
+    e0, up_q, dec_q = q["enc"][0], q["up"][-1], q["dec"][-1]
+    return {
+        "enc0_conv2": _pair_call(e0["conv2"], [e0["conv2"]["kernel"]], act_scale(e0["s1"])),
+        # per pair: [up(2p) | up(2p+1) | skip(2p) | skip(2p+1)], not one NHWC pixel
+        "dec0_conv1": _pair_call(dec_q["conv1"], list(_halves(dec_q["conv1"]["kernel"])),
+                                 act_scale(up_q["s_out"])),
+        "dec0_conv2": _pair_call(dec_q["conv2"], [dec_q["conv2"]["kernel"]],
+                                 act_scale(dec_q["s1"])),
+    }
+
+
+def unet_apply_quantized_features_nhwc(q, imgs_u8, pn=None):
     """uint8 images → (phase-B packed final activations int8 (B,H,W/2,2C),
     their dequant scale) of ``wpack.py:320``: the full-resolution convs are
-    K7b, A→B, B→A, A→B; everything else is the concat trunk's kernels."""
+    K7b, A→B, B→A, A→B; everything else is the concat trunk's kernels.
+    ``pn``: :func:`prepack_nhwc`'s operands, made here when not given."""
+    pn = prepack_nhwc(q) if pn is None else pn
     xq = (imgs_u8 >> 1).to(torch.int8).contiguous()
     e0 = q["enc"][0]
     h = _qconv(xq, np.float32(INPUT_SCALE), e0["conv1"], e0["s1"])
-    s = act_scale(e0["s1"])
-    c2 = e0["conv2"]
-    hp = qconv3x3_pair_requant(to_phase_a(h), pack_w_pair(c2["kernel"]),
-                               _scaled(s, c2["w_scale"]), tile2(c2["bias"]),
-                               e0["s2"], in_phase="A")  # phase B
+    hp = qconv3x3_pair_requant(to_phase_a(h), **pn["enc0_conv2"], out_scale=e0["s2"],
+                               in_phase="A")  # phase B
     skips = [hp]
     s = act_scale(e0["s2"])
     h = max_pool2_packed(hp)
@@ -214,23 +236,18 @@ def unet_apply_quantized_features_nhwc(q, imgs_u8):
         h, s = _concat_stage(up_q, dec_q, h, s, skip)
     up_q, dec_q = q["up"][-1], q["dec"][-1]
     upq = pack(_upsample(up_q, h, s))  # K6's NHWC output read as phase B
-    c1 = dec_q["conv1"]
-    # per pair: [up(2p) | up(2p+1) | skip(2p) | skip(2p+1)], not one NHWC pixel
     tcat = torch.cat([upq, skips[0]], dim=-1)
-    wp1 = pack_w_pair_multi(list(_halves(c1["kernel"])))
-    ha = qconv3x3_pair_requant(tcat, wp1, _scaled(act_scale(up_q["s_out"]), c1["w_scale"]),
-                               tile2(c1["bias"]), dec_q["s1"], in_phase="B")  # phase A
-    c2 = dec_q["conv2"]
-    hp = qconv3x3_pair_requant(ha, pack_w_pair(c2["kernel"]),
-                               _scaled(act_scale(dec_q["s1"]), c2["w_scale"]),
-                               tile2(c2["bias"]), dec_q["s2"], in_phase="A")  # phase B
+    ha = qconv3x3_pair_requant(tcat, **pn["dec0_conv1"], out_scale=dec_q["s1"],
+                               in_phase="B")  # phase A
+    hp = qconv3x3_pair_requant(ha, **pn["dec0_conv2"], out_scale=dec_q["s2"],
+                               in_phase="A")  # phase B
     return hp, act_scale(dec_q["s2"])
 
 
-def unet_apply_quantized_nhwc_rowcol_max(q, imgs_u8):
+def unet_apply_quantized_nhwc_rowcol_max(q, imgs_u8, pn=None):
     """Box-only head on the K7b trunk (``wpack.py:419``): (row_max (B,H,3),
     col_max (B,W,3)) of the *bias-free* float32 logits, through K2 on the
-    phase-B view with float32 weights."""
-    hp, s = unet_apply_quantized_features_nhwc(q, imgs_u8)
+    phase-B view with float32 weights (``pn``: :func:`prepack_nhwc`'s)."""
+    hp, s = unet_apply_quantized_features_nhwc(q, imgs_u8, pn)
     return head_rowcol_max(from_phase_b(hp), q["out"]["weight"], s,
                            compute_dtype=torch.float32)

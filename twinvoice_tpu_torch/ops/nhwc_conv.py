@@ -11,9 +11,10 @@ a CUDA source of its own whose design note is at its head:
   input the caller padded with :func:`pad_nhwc`. K3b drops the two H-pad rows
   and convolves zero rows in their place; K3a reads every row of the padded
   input. Both read the W-pad columns as they lie;
-- ``qconv3x3_pair_requant`` (K7b, ``csrc/qconv3x3_pair.cu``) and
-  ``qconv3x3_pair_dma`` (K7a, ``csrc/qconv3x3_pair_dma.cu``): the pair-packed
-  conv, A→B or B→A.
+- ``qconv3x3_pair_requant`` (K7b, ``csrc/qconv3x3_pair.cu``, on the int8
+  tensor cores: K4a's implicit GEMM over a 3×2 window, its launch plan from
+  :func:`pair_plan`) and ``qconv3x3_pair_dma`` (K7a,
+  ``csrc/qconv3x3_pair_dma.cu``): the pair-packed conv, A→B or B→A.
 
 Phases. A packed tensor ``(B,H,P,2C)`` holds two neighbouring columns of an
 NHWC tensor in its channels. Phase B: pair p holds columns (2p, 2p+1), P =
@@ -42,7 +43,16 @@ import torch
 import torch.nn.functional as F
 
 from twinvoice_tpu_torch import _build
-from twinvoice_tpu_torch.ops.qconv import check_operands, fma32, out_inv, requant
+from twinvoice_tpu_torch.ops.qconv import (
+    H100_SMS,
+    ConvPlan,
+    _sm_count,
+    check_operands,
+    conv_plan,
+    fma32,
+    out_inv,
+    requant,
+)
 
 NAME = "qconv3x3_pair"  # K7b's library
 # launch-count keys; K3a's, K3b's and K7a's are also their libraries' names
@@ -137,11 +147,21 @@ def qconv3x3_pair_requant_reference(x, wp, a2, bias2, out_scale, *, in_phase="A"
     return _zero_pad_pairs(requant(y, out_scale, relu).contiguous(), in_phase)
 
 
+def pair_plan(n, h, p_in, cpk, co2, in_phase="A", *, sms=H100_SMS) -> ConvPlan:
+    """The launch plan of ``csrc/qconv3x3_pair.cu`` for a (n,h,p_in,cpk) →
+    co2 pair conv: K4a's plan (``ops/qconv.py:conv_plan``) for the 3×2 window
+    over the pair tensor, whose output is ``p_in ∓ 1`` pairs wide. Cpk ≤ 4 puts
+    all six taps in one 32-byte k step, Cpk ≤ 16 two a step (3 steps); its k
+    order is ``qconv.k_slots(plan, cpk, kw=2)``, taps ``2·dy + v``."""
+    return conv_plan(n, h, _p_out(p_in, in_phase), cpk, co2, sms=sms, kw=2)
+
+
 def _library():
     fn = _build.library(NAME).twv_qconv3x3_pair_requant
     if fn.argtypes is None:
         ci, cf, vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, ci, vp, vp]
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, ci,
+                       ci, ci, ci, ci, ci, ci, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -186,17 +206,26 @@ def qconv3x3_pair_requant(x, wp, a2, bias2, out_scale, *, in_phase="A", relu=Tru
     if x.device.type == "cpu":
         return qconv3x3_pair_requant_reference(x, wp, a2, bias2, out_scale,
                                                in_phase=in_phase, relu=relu)
-    p_out = _p_out(x.shape[2], in_phase)
+    _p_out(x.shape[2], in_phase)
     _check(K7B, x, wp, a2, bias2)
+    return _launch_pair(x, wp, a2, bias2, out_scale, in_phase, relu)
+
+
+def _launch_pair(x, wp, a2, bias2, out_scale, in_phase, relu, out=None):
+    """Launch K7b on checked operands into ``out`` (a new tensor by default)."""
     n, h, p_in, cpk = x.shape
     co2 = wp.shape[0]
-    out = torch.empty((n, h, p_out, co2), dtype=torch.int8, device=x.device)
+    if out is None:
+        out = torch.empty((n, h, _p_out(p_in, in_phase), co2), dtype=torch.int8,
+                          device=x.device)
+    plan = pair_plan(n, h, p_in, cpk, co2, in_phase, sms=_sm_count(x.device.index or 0))
     fn = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), wp.data_ptr(), a2.data_ptr(), bias2.data_ptr(), n, h,
                  p_in, cpk, co2, int(in_phase == "A"), float(out_inv(out_scale)),
-                 int(bool(relu)), out.data_ptr(), stream)
+                 int(bool(relu)), plan.layout, plan.cc, plan.nt, plan.stages, plan.smem,
+                 plan.grid[0], out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{K7B}: kernel launch failed, cudaError {err}")
     _build.launches[K7B] += 1

@@ -216,11 +216,19 @@ def _pixel_bytes(c: int) -> int:
     return 16 * (g if g % 2 else g + 1)
 
 
-def _smem(layout, cc, nt, items, stages) -> int:
+def _k_steps(layout, cc, kw) -> int:
+    """32-byte k steps of one chunk over the 3 × ``kw`` window's taps: 8 taps
+    a step (STEM), 2 (PAIR), or ``cc``/32 a tap (WIDE)."""
+    taps = 3 * kw
+    return -(-taps // 8) if layout == STEM else -(-taps // 2) if layout == PAIR \
+        else taps * cc // 32
+
+
+def _smem(layout, cc, nt, items, stages, kw=3) -> int:
     """Bytes of ``stages`` slab slots, the weights (all ``items`` chunks when
     they fit in as many slots, else one a slot) and the output staging."""
     sa = 4 if layout == STEM else 16 if layout == PAIR else _pixel_bytes(cc)
-    wb = _pixel_bytes(64 if layout == STEM else 160 if layout == PAIR else 9 * cc)
+    wb = _pixel_bytes(32 * _k_steps(layout, cc, kw))
     slab = (tile_rows(nt) + 2) * (TILE_W + 2) * sa
     return (stages * slab + min(items, stages) * 8 * nt * wb
             + tile_rows(nt) * TILE_W * _pixel_bytes(8 * nt))
@@ -231,9 +239,12 @@ def _fits(smem: int, nt: int, separate: bool) -> bool:
     return blocks_per_sm(nt, separate) * (smem + 1024) <= SM_SMEM
 
 
-def conv_plan(n, h, w, cin, co, *, halves=1, separate=False, sms=H100_SMS) -> ConvPlan:
+def conv_plan(n, h, w, cin, co, *, halves=1, separate=False, sms=H100_SMS,
+              kw=3) -> ConvPlan:
     """The launch plan of ``csrc/qconv3x3.cu`` for an (n,h,w,cin) → co conv
-    (``halves=2``: K5's two inputs; ``separate``: its two-sum form).
+    (``halves=2``: K5's two inputs; ``separate``: its two-sum form), or, with
+    ``kw=2``, of K7b's 3×2 window over pairs (``csrc/qconv3x3_pair.cu``,
+    ``ops/nhwc_conv.py:pair_plan``); ``w`` is the output's width.
 
     The k layout packs narrow inputs: eight taps a 32-byte k step for Cin ≤ 4,
     two for Cin ≤ 16, else 32 channels of one tap, in chunks of the widest
@@ -252,23 +263,23 @@ def conv_plan(n, h, w, cin, co, *, halves=1, separate=False, sms=H100_SMS) -> Co
         ccs = (16,) if layout == PAIR else [c for c in (128, 64, 32)
                                             if c <= -(-cin // 32) * 32]
         cc, stages = next((c, st) for c in ccs for st in (4, 3, 2) if _fits(
-            _smem(layout, c, nt, halves * -(-cin // c), st), nt, separate))
+            _smem(layout, c, nt, halves * -(-cin // c), st, kw), nt, separate))
     n_chunks = -(-cin // cc)
     items = halves * n_chunks
-    smem = _smem(layout, cc, nt, items, stages)
+    smem = _smem(layout, cc, nt, items, stages, kw)
     n_co = -(-co // (8 * nt))
     tiles = n * -(-h // tile_rows(nt)) * -(-w // TILE_W)
     per_sm = max(1, min(blocks_per_sm(nt, separate), SM_SMEM // (smem + 1024)))
     blocks = max(1, min(tiles, -(-sms * per_sm // n_co)))
-    k_steps = 2 if layout == STEM else 5 if layout == PAIR else 9 * cc // 32
-    return ConvPlan(layout, cc, n_chunks, items, nt, k_steps, stages, items <= stages,
-                    smem, tiles, (blocks, n_co))
+    return ConvPlan(layout, cc, n_chunks, items, nt, _k_steps(layout, cc, kw), stages,
+                    items <= stages, smem, tiles, (blocks, n_co))
 
 
-def k_slots(plan: ConvPlan, cin: int) -> np.ndarray:
+def k_slots(plan: ConvPlan, cin: int, kw: int = 3) -> np.ndarray:
     """The k order ``plan`` walks in one input: (n_chunks, k_steps, 32, 2) of
     (tap, input channel) per k byte, (−1, −1) where the slot is padding (its
-    weight staged as zero). Taps are ``3·dy + dx``."""
+    weight staged as zero). Taps are ``kw·dy + dx`` of the 3 × ``kw`` window."""
+    taps = 3 * kw
     out = np.full((plan.n_chunks, plan.k_steps, 32, 2), -1, np.int64)
     j = np.arange(32)
     for chunk in range(plan.n_chunks):
@@ -281,7 +292,7 @@ def k_slots(plan: ConvPlan, cin: int) -> np.ndarray:
                 per_tap = plan.cc // 32
                 tap = np.full(32, s // per_tap)
                 ch = chunk * plan.cc + 32 * (s % per_tap) + j
-            ok = (tap < 9) & (ch < cin)
+            ok = (tap < taps) & (ch < cin)
             out[chunk, s, ok, 0] = tap[ok]
             out[chunk, s, ok, 1] = ch[ok]
     return out
