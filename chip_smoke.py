@@ -68,15 +68,23 @@ Phases, each printing one line with its wall time:
     (``ops.nhwc_conv.qconv3x3_pair_dma``) against their plain versions on the
     card, exactly equal int8: odd W, H not a multiple of 8, Cin 3, 16, 64 and
     128, ReLU and none, clips at both ends, live H-pad rows for K3a and K3b,
-    A->B, B->A and the chain A->B->A for K7a; against their siblings (K4a,
+    A->B, B->A and the chain A->B->A for K7a; K3a's and K7a's TMA-fed
+    tensor-core contract: C and Cpk 1, 2, 4, 17, 31, 33, 64, 129 and 1024, Co
+    and Co2 2, 8, 40, 72 and 256, inputs, weights and outputs 1 byte off
+    alignment, H = 1, H off the tile, odd W, live H-pad rows (K3a), P = 3 (A)
+    and P = 2 (B) and zero pad half-pairs (K7a); against their siblings (K4a,
     K7b) at every w64 trunk layer shape their contracts admit at b128 (plain
-    versions held on images 0 and 127); then the slice's path: the bundled w64
-    model quantised with the port's calibration on the fixture pages, enc0
-    conv2 (512², 64->64) on enc0 conv1's int8 output through each of the four
-    entry points, equal to K4a's (K7a to K7b's on the phase-A packing)
+    versions held on images 0 and 127), K3a and K7a loading their slabs by TMA
+    at every one whose channels are a multiple of 16; then the slice's path:
+    the bundled w64 model quantised with the port's calibration on the
+    fixture pages, enc0 conv2 (512², 64->64) on enc0 conv1's int8 output
+    through each of the four entry points, equal to K4a's (K7a to K7b's on
+    the phase-A packing), K3a and K7a by TMA
 16. the four kernels' times at the flagship shape (b128, 512², 64->64, the
     shape of JAX's probes; K7a on it packed to phase A) against their bounds,
-    their plain versions' and their siblings'
+    their plain versions' and their siblings', K3a and K7a beside their dp4a
+    predecessors' times; K3a at every w64 trunk shape and K7a at the w64
+    "nhwc" trunk's three pair calls, beside their bounds and siblings
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -1313,6 +1321,11 @@ NHWC_CALLS = {  # K3b, K3a, K4b: (kernel, plain version, takes the padded input)
     qconv.K4B: (qconv.qconv3x3_requant_dma, qconv.qconv3x3_requant_dma_reference, False),
 }
 FLAGSHIP = (SERVE_BATCH, 512, 64, 64)  # the reference's flagship conv: n, side, cin, co
+# K3a's and K7a's times before their redesign on TMA and the tensor cores (the
+# dp4a slab-ring kernels) at the flagship shape (K7a on it packed to phase A),
+# b128: this script's phase 16 in the final run of the tree before it, on an
+# NVIDIA H100 80GB HBM3 at 700.00 W
+DMA_DP4A_MS = {nhwc.K3A: 46.8506, nhwc.K7A: 63.6082}
 
 
 def padded_conv_bound_ms(n, hw, cin, co, rows_read):
@@ -1393,6 +1406,96 @@ def k7a_case(g, label, x, wp, in_phase, *, relu=True, subset=None, need_clips=Tr
     return got
 
 
+def dma_contract_case(g, kind, label, x, wts, *, in_phase=None, relu=True, misalign=False,
+                      need_clips=True):
+    """K3a (``x`` a padded (N,H+2,W+2,C) input, every row of it read; ``wts``
+    (Co,3,3,C)) or K7a (``x`` a pair tensor in ``in_phase``; ``wts``
+    (Co2,3,2,Cpk)) held against its plain version on the whole batch.
+    ``misalign``: the input, the weights and the output start 1 byte into
+    their buffers (no tensor map: the producer copies, the tile leaves by
+    bytes). → the output."""
+    co = wts.shape[0]
+    a, b = epilogue_operands(g, co)
+    if kind == nhwc.K3A:
+        acc = nhwc.nhwc_conv_i8(x, wts, drop_h_pad=False)
+        plain = nhwc.qconv3x3_nhwc_dma_reference
+        fn, kw, extra = nhwc.qconv3x3_nhwc_dma, 3, {}
+    else:
+        acc = nhwc.pair_conv_i8(x, wts, in_phase)
+        plain = nhwc.qconv3x3_pair_requant_reference
+        fn, kw, extra = nhwc.qconv3x3_pair_dma, 2, {"in_phase": in_phase}
+    out_scale = spread_scale(acc.to(torch.float32) * a + b)
+    if misalign:  # the wrapper allocates an aligned output: launch into a view
+        x, wts = misaligned(x), misaligned(wts)
+        out = misaligned(torch.zeros(acc.shape, dtype=torch.int8, device="cuda"))
+        got = nhwc._launch_dma(kind, x, wts, a, b, out_scale, relu, out, kw=kw,
+                               in_phase=in_phase)
+        label += " (in, weights and out 1 byte off alignment)"
+    else:
+        got = fn(x, wts, a, b, out_scale, relu=relu, **extra)
+    del acc
+    ref = plain(x, wts, a, b, out_scale, relu=relu, **extra)
+    torch.cuda.synchronize()
+    phase = f" {in_phase}" if in_phase else ""
+    check_int8(kind, f"{kind} {label}{phase}: {tuple(x.shape)}->{co}", got, ref,
+               0 if relu else -127, need_clips)
+    if in_phase == "B":
+        half = co // 2
+        if got[:, :, 0, :half].any() or got[:, :, -1, half:].any():
+            raise AssertionError(f"{kind} {label}: pad half-pairs not zero")
+    return got
+
+
+def phase_dma_contract(g):
+    """K3a's and K7a's contract on the TMA-fed tensor-core kernel: C and Cpk
+    over the 16-channel chunk (half a k step), the 32- to 128-channel chunks
+    and the streamed weights (1024); Co and Co2 off and past the 32-, 64- and
+    128-channel blocks; inputs, weights and outputs 1 byte off alignment; H =
+    1, H off the tile, odd W; every K3a case with live H-pad rows; K7a in both
+    phases, P = 3 (A) and P = 2 (B), the pad half-pairs of a B->A output."""
+    k3a, k7a = nhwc.K3A, nhwc.K7A
+    for c in (1, 2, 4, 17, 31, 33, 64, 129):
+        dma_contract_case(g, k3a, "C edge", rand_s8(g, (2, 7, 39, c)),
+                          rand_s8(g, (16, 3, 3, c)), relu=c % 2 == 0)
+    dma_contract_case(g, k3a, "C 1024", rand_s8(g, (1, 5, 23, 1024)),
+                      rand_s8(g, (24, 3, 3, 1024)))
+    for c, co in ((5, 2), (16, 8), (33, 40), (64, 72), (129, 256)):
+        dma_contract_case(g, k3a, "Co edge", rand_s8(g, (1, 8, 43, c)),
+                          rand_s8(g, (co, 3, 3, c)), need_clips=co > 2)
+    for c, co in ((3, 16), (16, 16), (17, 32), (64, 48), (64, 64)):
+        dma_contract_case(g, k3a, "misaligned", rand_s8(g, (2, 7, 39, c)),
+                          rand_s8(g, (co, 3, 3, c)), misalign=True)
+    dma_contract_case(g, k3a, "H = 1", rand_s8(g, (2, 3, 35, 32)),
+                      rand_s8(g, (16, 3, 3, 32)), need_clips=False)
+    dma_contract_case(g, k3a, "H off the tile, odd W", rand_s8(g, (2, 39, 69, 32)),
+                      rand_s8(g, (64, 3, 3, 32)), relu=False)
+    for in_phase, p in (("A", 7), ("B", 6)):
+        for cpk in (1, 2, 4, 17, 31, 33, 64, 129):
+            dma_contract_case(g, k7a, "Cpk edge", rand_s8(g, (2, 5, p, cpk)),
+                              rand_s8(g, (16, 3, 2, cpk)), in_phase=in_phase,
+                              relu=cpk % 2 == 0)
+        dma_contract_case(g, k7a, "Cpk 1024", rand_s8(g, (1, 4, p + 2, 1024)),
+                          rand_s8(g, (24, 3, 2, 1024)), in_phase=in_phase)
+        for cpk, co2 in ((5, 2), (16, 8), (33, 40), (64, 72), (129, 256)):
+            dma_contract_case(g, k7a, "Co2 edge", rand_s8(g, (1, 6, p + 4, cpk)),
+                              rand_s8(g, (co2, 3, 2, cpk)), in_phase=in_phase,
+                              need_clips=co2 > 2)
+        for cpk, co2 in ((3, 16), (16, 16), (17, 32), (64, 48), (64, 64)):
+            dma_contract_case(g, k7a, "misaligned", rand_s8(g, (2, 5, p, cpk)),
+                              rand_s8(g, (co2, 3, 2, cpk)), in_phase=in_phase, misalign=True)
+        dma_contract_case(g, k7a, "narrowest, H = 1",
+                          rand_s8(g, (2, 1, 3 if in_phase == "A" else 2, 32)),
+                          rand_s8(g, (16, 3, 2, 32)), in_phase=in_phase, need_clips=False)
+        dma_contract_case(g, k7a, "H off the tile",
+                          rand_s8(g, (2, 37, 2 * 33 + (in_phase == "A"), 32)),
+                          rand_s8(g, (64, 3, 2, 32)), in_phase=in_phase, relu=False)
+
+
+def tma_count(kind):
+    """K3a's or K7a's launches whose slabs came by TMA so far."""
+    return _build.launches[f"{kind}:tma"]
+
+
 def w64_enc0(fix8):
     """The bundled w64 model (``segmenter_synth_w64.npz``, base width 64),
     quantised with the port's calibration on the fixture pages: → (enc0
@@ -1457,28 +1560,46 @@ def phase_dma_kernels(fix8):
     for in_phase, p in (("A", 7), ("B", 6)):
         k7a_case(g, "random wp", rand_s8(g, (2, 16, p, 12)), rand_s8(g, (10, 3, 2, 12)),
                  in_phase, relu=False)
+    phase_dma_contract(g)
 
     # every w64 trunk layer shape each contract admits at b128: K3b and K3a
     # at every conv (the decoder conv1 on its concatenated halves), K4b where
     # Cin <= 128, K7a at the three calls of the "nhwc" trunk; held against
     # the plain versions on images 0 and 127 and the siblings on all 128
+    # (K3a and K7a must load their slabs by TMA wherever C or Cpk is a
+    # multiple of 16: every shape but enc0 conv1, Cin 3)
     sub = torch.tensor([0, SERVE_BATCH - 1], device="cuda")
     shapes = trunk_shapes(base=64)[qconv.K4A]
+    by_tma = {nhwc.K3A: [], nhwc.K7A: []}
     for hw, cin, co in shapes:
         x = rand_s8(g, (SERVE_BATCH, hw, hw, cin), 0, 128)
         for kind in NHWC_CALLS:
             if kind == qconv.K4B and cin > qconv.K4B_MAX_CIN:
                 continue
+            before = tma_count(nhwc.K3A)
             nhwc_case(g, kind, f"w64 trunk {hw}^2", SERVE_BATCH, hw, hw, cin, co, x=x,
                       subset=sub)
+            if kind == nhwc.K3A:
+                by_tma[kind].append((cin, tma_count(nhwc.K3A) - before))
         del x
     for label, (n, h, p, cpk, co2), in_phase in k7b_serving_calls(base=64):
         x = rand_s8(g, (n, h, p, cpk), 0, 128)
         if in_phase == "A":
             x[:, :, 0, : cpk // 2] = 0  # the baked-in W pad of a phase-A input
             x[:, :, -1, cpk // 2:] = 0
+        before = tma_count(nhwc.K7A)
         k7a_case(g, f"w64 {label}", x, rand_s8(g, (co2, 3, 2, cpk)), in_phase, subset=sub)
+        by_tma[nhwc.K7A].append((cpk, tma_count(nhwc.K7A) - before))
         del x
+    for kind, cases in by_tma.items():
+        if any(n_tma != (c % 16 == 0) for c, n_tma in cases):
+            raise AssertionError(f"{kind}: TMA loads at the w64 shapes (channels, TMA "
+                                 f"launches) {cases}; expected one wherever the channels "
+                                 f"are a multiple of 16")
+    print(f"  TMA loads: K3a at {sum(n for _, n in by_tma[nhwc.K3A])} of "
+          f"{len(by_tma[nhwc.K3A])} w64 shapes (all but Cin "
+          f"{[c for c, n in by_tma[nhwc.K3A] if not n]}), K7a at "
+          f"{sum(n for _, n in by_tma[nhwc.K7A])} of {len(by_tma[nhwc.K7A])}", flush=True)
     torch.cuda.empty_cache()
 
     # the slice's path: the flagship layer of the real w64 model, enc0 conv2
@@ -1502,6 +1623,10 @@ def phase_dma_kernels(fix8):
     for kind in DMA_KERNELS:
         if launches.get(kind, 0) < 1:
             raise AssertionError(f"{kind} did not launch on the w64 enc0 path: {launches}")
+    for kind in (nhwc.K3A, nhwc.K7A):
+        if launches.get(f"{kind}:tma", 0) != launches[kind]:
+            raise AssertionError(f"{kind} did not load by TMA on the w64 enc0 path: "
+                                 f"{launches}")
     for kind, out in outs.items():
         k7 = kind == nhwc.K7A
         check_same(kind, f"w64 enc0 conv2: {kind}", out, k7b if k7 else ref,
@@ -1546,10 +1671,12 @@ def time_dma_kernels(card):
                            warmup=1)
         bound, by = dma_bound_ms(kind, n, hw, cin, co)
         rows[kind] = (ms, plain_ms, bound, by, k4a_ms)
+        dp4a = (f"; dp4a kernel {DMA_DP4A_MS[kind]:.4f} ms (the tree before)"
+                if kind in DMA_DP4A_MS else "")
         print(f"  {kind} b{n} {hw}^2 {cin}->{co}: {ms:.4f} ms vs bound {bound:.4f} ms "
-              f"({by}; {100 * bound / ms:.1f}% of bound); sibling K4a {k4a_ms:.4f} ms; "
-              f"plain PyTorch (float64 sums, 16 images a call) {plain_ms:.4f} ms; no "
-              f"single PyTorch call computes it [{card}]", flush=True)
+              f"({by}; {100 * bound / ms:.1f}% of bound); sibling K4a {k4a_ms:.4f} ms"
+              f"{dp4a}; plain PyTorch (float64 sums, 16 images a call) {plain_ms:.4f} ms; "
+              f"no single PyTorch call computes it [{card}]", flush=True)
     del x_pad
     xa = nhwc.to_phase_a(x)
     del x
@@ -1565,9 +1692,49 @@ def time_dma_kernels(card):
     rows[nhwc.K7A] = (ms, plain_ms, bound, by, k7b_ms)
     print(f"  {nhwc.K7A} A->B b{n} {tuple(xa.shape[1:])}->{2 * co}: {ms:.4f} ms vs bound "
           f"{bound:.4f} ms ({by}; {100 * bound / ms:.1f}% of bound); sibling K7b "
-          f"{k7b_ms:.4f} ms; plain PyTorch (float64 sums, 16 images a call) "
-          f"{plain_ms:.4f} ms; no single PyTorch call computes it [{card}]", flush=True)
+          f"{k7b_ms:.4f} ms; dp4a kernel {DMA_DP4A_MS[nhwc.K7A]:.4f} ms (the tree before); "
+          f"plain PyTorch (float64 sums, 16 images a call) {plain_ms:.4f} ms; no single "
+          f"PyTorch call computes it [{card}]", flush=True)
+    del xa
+    time_dma_w64(g, card)
     return rows
+
+
+def time_dma_w64(g, card):
+    """K3a at every w64 trunk layer shape and K7a at the w64 "nhwc" trunk's
+    three pair calls, b128, each beside its bound and its sibling (K4a, K7b)
+    on the same inputs."""
+    print(f"  K3a and K7a at the w64 shapes, b{SERVE_BATCH} [{card}]:", flush=True)
+    for hw, cin, co in trunk_shapes(base=64)[qconv.K4A]:
+        x = rand_s8(g, (SERVE_BATCH, hw, hw, cin), 0, 128)
+        kern = rand_s8(g, (co, 3, 3, cin))
+        ws, b = epilogue_operands(g, co)
+        a = torch.tensor(np.float32(0.01), device="cuda") * ws
+        x_pad = nhwc.pad_nhwc(x)
+        ms = cuda_ms(lambda: nhwc.qconv3x3_nhwc_dma(x_pad, kern, a, b, 3.0), iters=3,
+                     warmup=1)
+        sib = cuda_ms(lambda: qconv.qconv3x3_requant(x, kern, ws, b, 0.01, 3.0), iters=3,
+                      warmup=1)
+        bound, by = dma_bound_ms(nhwc.K3A, SERVE_BATCH, hw, cin, co)
+        print(f"    {nhwc.K3A} {hw}^2 {cin}->{co}: {ms:.4f} ms vs bound {bound:.4f} ms "
+              f"({by}; {100 * bound / ms:.1f}% of bound); sibling K4a {sib:.4f} ms",
+              flush=True)
+        del x, x_pad
+    for label, (n, h, p, cpk, co2), in_phase in k7b_serving_calls(base=64):
+        x = rand_s8(g, (n, h, p, cpk), 0, 128)
+        wp = rand_s8(g, (co2, 3, 2, cpk))
+        a2, b2 = epilogue_operands(g, co2)
+        ms = cuda_ms(lambda: nhwc.qconv3x3_pair_dma(x, wp, a2, b2, 3.0, in_phase=in_phase),
+                     iters=3, warmup=1)
+        sib = cuda_ms(lambda: nhwc.qconv3x3_pair_requant(x, wp, a2, b2, 3.0,
+                                                         in_phase=in_phase),
+                      iters=3, warmup=1)
+        bound, by = k7b_bound_ms(n, h, p, cpk, co2, in_phase)
+        print(f"    {nhwc.K7A} {label} ({h}, {p}, {cpk} -> {co2}): {ms:.4f} ms vs bound "
+              f"{bound:.4f} ms ({by}; {100 * bound / ms:.1f}% of bound); sibling K7b "
+              f"{sib:.4f} ms", flush=True)
+        del x
+    torch.cuda.empty_cache()
 
 
 def main():

@@ -104,7 +104,7 @@ def test_an_edited_shared_header_rebuilds_every_kernel(monkeypatch, tmp_path):
     csrc.mkdir()
     for p in _build.CSRC.iterdir():
         (csrc / p.name).write_bytes(p.read_bytes())
-    assert {"int8_conv_common.cuh", "int8_conv_slab_ring.cuh"} <= {
+    assert {"int8_conv_common.cuh", "int8_tma_conv.cuh"} <= {
         p.name for p in csrc.glob("*.cuh")}
     monkeypatch.setattr(_build, "CSRC", csrc)
     before = {n: _build.library_path(n) for n in _build.sources()}

@@ -18,53 +18,54 @@
 // Bound: at the reference's flagship shape (the w64 model's enc0 conv2, b128,
 // 512^2, 64 -> 64) the call reads 2.164 GB and writes 2.147 GB, 1.29 ms at
 // 3.35 TB/s, against 2.47 T int8 operations, 1.25 ms at 1,979 TOP/s on the
-// tensor cores: bound by bytes. This kernel multiplies on the CUDA cores
-// (__dp4a), which sets its own ceiling well above both.
+// tensor cores: bound by bytes, with the operations close behind, so the
+// products have to run on the tensor cores at near their peak.
 //
-// Design, the counterpart of the DMA ring: a block owns one image and 16
-// output channels and walks the image's 8 x 32 output tiles in order; each
-// tile's (8 + 2) x (32 + 2) input slab, 64 channels at a time, streams through
-// a two-slot cp.async ring in shared memory, so the copy of slab t + 1
-// overlaps the multiply-adds on slab t (csrc/int8_conv_slab_ring.cuh). The
-// JAX kernel's output ring has no counterpart: each thread stores its own
-// pixel's 16 channels as one 16-byte write.
+// Design: the DMA ring becomes a TMA ring (int8_tma_conv.cuh): a producer
+// warp asks TMA for each tile's (tile_rows + 2) x 66 slab of the padded input,
+// a chunk of channels at a time, into an mbarrier ring; two consumer
+// warpgroups run the 9 taps as wgmma products straight from the slab (each
+// tap is another start address of the operand descriptor), with the weights
+// resident in shared memory, and the int8 tile leaves through a TMA store
+// while the next tile's slabs land. No zero halo is written: the caller's
+// padding is read as it lies, and TMA reads zeros only past the padded
+// input's edge, for the ragged last tile's outputs that are not stored.
 //
-// C interface for ctypes: twv_qconv3x3_nhwc_dma launches on the given stream
-// and returns cudaGetLastError() as an int (0 = launched).
+// C interface for ctypes: twv_qconv3x3_nhwc_dma checks the plan it is given,
+// launches on the given stream and returns 0, a cudaError_t, or an error of
+// the tensor-map encoder (int8_tma_conv.cuh).
 
-#include "int8_conv_slab_ring.cuh"
+#include "int8_tma_conv.cuh"
 
-// x: (N, H+2, W+2, C) int8 contiguous; w: [9][CW][CoP] int32 words (channels
-// 4q..4q+3 of tap dy*3+dx for output channel o at [tap][q][o]; zero past C and
-// Co; 4*CW a multiple of chunk, CoP a multiple of 64 >= Co); chunk: channels
-// of a ring unit, a multiple of 16; a, bias: (Co,) float32; out: (N, H, W, Co)
-// int8 contiguous; all on the device. out_inv = float32(127) /
-// float32(out_scale); relu != 0 applies a ReLU. in_phase_a must be 0 (K7a's
-// argument, kept so that K3b, K3a and K7a share one C signature).
+// x: (N, H+2, W+2, C) int8 contiguous; w: the packed weights of
+// ops/nhwc_conv.py:pack_dma_weights for the plan; a, bias: (Co,) float32;
+// out: (N, H, W, Co) int8 contiguous; all on the device. out_inv =
+// float32(127) / float32(out_scale); relu != 0 applies a ReLU. The plan:
+// cot, chunk, stages, resident, tma_in, tma_out, smem, blocks
+// (ops/nhwc_conv.py:dma_plan).
 extern "C" int twv_qconv3x3_nhwc_dma(const void* x, const void* w, const void* a,
                                      const void* bias, int N, int H, int W, int C, int Co,
-                                     int chunk, int CW, int CoP, int in_phase_a,
-                                     float out_inv, int relu, void* out, void* stream) {
-  if (in_phase_a != 0) return static_cast<int>(cudaErrorInvalidValue);
-  twv::SlabArgs p{};
+                                     int cot, int chunk, int stages, int resident, int tma_in,
+                                     int tma_out, int smem, int blocks, float out_inv, int relu,
+                                     void* out, void* stream) {
+  twv_tma::Args p{};
   p.x = static_cast<const int8_t*>(x);
-  p.w = static_cast<const int4*>(w);
+  p.w = static_cast<const int8_t*>(w);
   p.a = static_cast<const float*>(a);
   p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<int8_t*>(out);
+  p.N = N;
   p.Hin = H + 2;
   p.Win = W + 2;
   p.C = C;
   p.H = H;
   p.W = W;
   p.Co = Co;
-  p.chunk = chunk;
-  p.CW = CW;
-  p.CoP = CoP;
   p.row_off = 0;
   p.col_off = 0;
+  p.zero_pad = false;
   p.inv = out_inv;
   p.relu = relu;
-  p.zero_pad_pairs = false;
-  p.out = static_cast<int8_t*>(out);
-  return twv::launch_slab_ring<3>(p, N, static_cast<cudaStream_t>(stream));
+  return twv_tma::launch<3>(p, cot, chunk, stages, resident, tma_in, tma_out, smem, blocks,
+                            static_cast<cudaStream_t>(stream));
 }

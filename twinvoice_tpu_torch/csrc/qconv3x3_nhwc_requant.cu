@@ -185,19 +185,16 @@ qconv3x3_nhwc_requant_kernel(Args p) {
 // 4q..4q+3 of tap dy*3+dx for output channel o at [tap][q][o]; zero past C and
 // Co; CW = C rounded up to 16, over 4; CoP a multiple of 64 >= Co); a, bias: (Co,) float32;
 // out: (N, H, W, Co) int8 contiguous; all on the device. out_inv =
-// float32(127) / float32(out_scale); relu != 0 applies a ReLU. chunk and
-// in_phase_a must be 0: they are there so that K3b, K3a and K7a share one
-// C signature.
+// float32(127) / float32(out_scale); relu != 0 applies a ReLU.
 extern "C" int twv_qconv3x3_nhwc_requant(const void* x, const void* w, const void* a,
                                          const void* bias, int N, int H, int W, int C,
-                                         int Co, int chunk, int CW, int CoP,
-                                         int in_phase_a, float out_inv, int relu,
+                                         int Co, int CW, int CoP, float out_inv, int relu,
                                          void* out, void* stream) {
   const int warps = Co >= 4 * kCoT ? 4 : (Co + kCoT - 1) / kCoT;
   const int n_co = (Co + warps * kCoT - 1) / (warps * kCoT);
   const int n_seg = (H + kSeg - 1) / kSeg;
   const size_t smem = static_cast<size_t>(kRing) * (kTW + 2) * twv::pixel_bytes(C);
-  if (chunk != 0 || in_phase_a != 0 || N < 1 || H < 1 || W < 1 || C < 1 || Co < 1 ||
+  if (N < 1 || H < 1 || W < 1 || C < 1 || Co < 1 ||
       CW != (C + 15) / 16 * 4 || CoP % 64 ||
       CoP < Co || static_cast<long long>(N) * n_seg > 65535 || n_co > 65535 ||
       smem > 227 * 1024) {

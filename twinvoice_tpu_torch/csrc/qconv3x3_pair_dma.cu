@@ -22,56 +22,55 @@
 // 257 pairs of 128 channels -> 256 pairs of 128) the call does 3.30 T int8
 // operations, 1.67 ms at 1,979 TOP/s on the tensor cores, against 4.3 GB
 // moved, 1.28 ms at 3.35 TB/s: bound by operations (the packing does 12
-// multiply-adds for a 3x3 conv's 9). This kernel multiplies on the CUDA cores
-// (__dp4a), which sets its own ceiling well above both.
+// multiply-adds for a 3x3 conv's 9).
 //
-// Design: K7b's pair arithmetic (6 taps: 3 rows by 2 pair views of all Cpk
-// channels), fed as K3a is fed: a block owns one image and 16 output
-// channels and walks its 8 x 32 output-pair tiles in order, each tile's
-// (8 + 2) x (32 + 1) slab of input pairs, 64 channels at a time, streaming
-// through a two-slot cp.async ring in shared memory while the block multiplies
-// the slab before it (csrc/int8_conv_slab_ring.cuh). The zero H halo and slab
-// edges are written into the slot, not read.
+// Design: K3a's TMA ring (int8_tma_conv.cuh) over a 3 x 2 window of pairs: the
+// producer's box starts at row h0 - 1 and pair q0 + delta, and TMA writes the
+// zero H halo and a B input's zero slab edges itself (coordinates past the
+// tensor read zero), which the JAX kernel zeroes by hand in its slots. The
+// 6 taps are wgmma products at shifted descriptor addresses; a B->A output's
+// pad half-pairs are zeroed in the shared-memory tile before its TMA store.
 //
-// C interface for ctypes: twv_qconv3x3_pair_dma launches on the given stream
-// and returns cudaGetLastError() as an int (0 = launched).
+// C interface for ctypes: twv_qconv3x3_pair_dma checks the plan it is given,
+// launches on the given stream and returns 0, a cudaError_t, or an error of
+// the tensor-map encoder (int8_tma_conv.cuh).
 
-#include "int8_conv_slab_ring.cuh"
+#include "int8_tma_conv.cuh"
 
-// x: (N, H, P, Cpk) int8 contiguous, phase A when in_phase_a != 0 (P odd) and
-// phase B otherwise (P even); w: [6][CW][CoP] int32 words (channels 4q..4q+3
-// of tap dy*2+v for output channel o at [tap][q][o]; zero past Cpk and Co2;
-// 4*CW a multiple of chunk, CoP a multiple of 64 >= Co2); chunk: channels of a
-// ring unit, a multiple of 16; a2, bias2: (Co2,) float32; out: (N, H, P_out,
-// Co2) int8 contiguous with P_out = P - 1 from A and P + 1 from B; all on the
-// device. out_inv = float32(127) / float32(out_scale); relu != 0 applies a
-// ReLU.
+// x: (N, H, P, Cpk) int8 contiguous, phase A when in_phase_a != 0 (P odd, at
+// least 3) and phase B otherwise (P even); w: the packed weights of
+// ops/nhwc_conv.py:pack_dma_weights for the plan; a2, bias2: (Co2,) float32
+// with Co2 even; out: (N, H, P_out, Co2) int8 contiguous with P_out = P - 1
+// from A and P + 1 from B; all on the device. out_inv = float32(127) /
+// float32(out_scale); relu != 0 applies a ReLU. The plan: cot, chunk,
+// stages, resident, tma_in, tma_out, smem, blocks (ops/nhwc_conv.py:dma_plan).
 extern "C" int twv_qconv3x3_pair_dma(const void* x, const void* w, const void* a2,
                                      const void* bias2, int N, int H, int P, int Cpk,
-                                     int Co2, int chunk, int CW, int CoP, int in_phase_a,
-                                     float out_inv, int relu, void* out, void* stream) {
+                                     int Co2, int in_phase_a, int cot, int chunk, int stages,
+                                     int resident, int tma_in, int tma_out, int smem,
+                                     int blocks, float out_inv, int relu, void* out,
+                                     void* stream) {
   if (P < 1 || Co2 < 2 || Co2 % 2 || P % 2 != (in_phase_a ? 1 : 0) || (in_phase_a && P < 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  twv::SlabArgs p{};
+  twv_tma::Args p{};
   p.x = static_cast<const int8_t*>(x);
-  p.w = static_cast<const int4*>(w);
+  p.w = static_cast<const int8_t*>(w);
   p.a = static_cast<const float*>(a2);
   p.bias = static_cast<const float*>(bias2);
+  p.out = static_cast<int8_t*>(out);
+  p.N = N;
   p.Hin = H;
   p.Win = P;
   p.C = Cpk;
   p.H = H;
   p.W = in_phase_a ? P - 1 : P + 1;
   p.Co = Co2;
-  p.chunk = chunk;
-  p.CW = CW;
-  p.CoP = CoP;
   p.row_off = -1;
   p.col_off = in_phase_a ? 0 : -1;
+  p.zero_pad = !in_phase_a;
   p.inv = out_inv;
   p.relu = relu;
-  p.zero_pad_pairs = !in_phase_a;
-  p.out = static_cast<int8_t*>(out);
-  return twv::launch_slab_ring<2>(p, N, static_cast<cudaStream_t>(stream));
+  return twv_tma::launch<2>(p, cot, chunk, stages, resident, tma_in, tma_out, smem, blocks,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -10,11 +10,14 @@ a CUDA source of its own whose design note is at its head:
   ``qconv3x3_nhwc_dma`` (K3a, ``csrc/qconv3x3_nhwc_dma.cu``): K4a's conv on an
   input the caller padded with :func:`pad_nhwc`. K3b drops the two H-pad rows
   and convolves zero rows in their place; K3a reads every row of the padded
-  input. Both read the W-pad columns as they lie;
+  input. Both read the W-pad columns as they lie. K3a runs on the int8 tensor
+  cores fed by TMA (``csrc/int8_tma_conv.cuh``, its launch plan from
+  :func:`dma_plan`);
 - ``qconv3x3_pair_requant`` (K7b, ``csrc/qconv3x3_pair.cu``, on the int8
   tensor cores: K4a's implicit GEMM over a 3×2 window, its launch plan from
   :func:`pair_plan`) and ``qconv3x3_pair_dma`` (K7a,
-  ``csrc/qconv3x3_pair_dma.cu``): the pair-packed conv, A→B or B→A.
+  ``csrc/qconv3x3_pair_dma.cu``, K3a's TMA-fed kernel over a 3×2 window, its
+  plan from :func:`dma_plan`): the pair-packed conv, A→B or B→A.
 
 Phases. A packed tensor ``(B,H,P,2C)`` holds two neighbouring columns of an
 NHWC tensor in its channels. Phase B: pair p holds columns (2p, 2p+1), P =
@@ -38,6 +41,7 @@ CPU tensor.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +49,7 @@ import torch.nn.functional as F
 from twinvoice_tpu_torch import _build
 from twinvoice_tpu_torch.ops.qconv import (
     H100_SMS,
+    SMEM_LIMIT,
     ConvPlan,
     _sm_count,
     check_operands,
@@ -56,6 +61,8 @@ from twinvoice_tpu_torch.ops.qconv import (
 
 NAME = "qconv3x3_pair"  # K7b's library
 # launch-count keys; K3a's, K3b's and K7a's are also their libraries' names
+# (K3a and K7a also count each launch under "<key>:tma" or "<key>:copy", by
+# how the slabs reached shared memory)
 K7B = "qconv3x3_pair_requant"
 K7A = "qconv3x3_pair_dma"
 K3A = "qconv3x3_nhwc_dma"
@@ -268,9 +275,9 @@ def _round_up(v, m):
 
 
 def _pack_words(kernel, cpad, cop):
-    """A (Co,kh,kw,C) int8 kernel → the ``[tap][word][co]`` int32 words K3a,
-    K3b and K7a read: word q of tap t for output channel o holds channels
-    4q..4q+3, little-endian; zeros past C (up to ``cpad``) and past Co (up to
+    """A (Co,kh,kw,C) int8 kernel → the ``[tap][word][co]`` int32 words K3b
+    reads: word q of tap t for output channel o holds channels 4q..4q+3,
+    little-endian; zeros past C (up to ``cpad``) and past Co (up to
     ``cop``)."""
     co, c = kernel.shape[0], kernel.shape[-1]
     k = F.pad(kernel.reshape(co, -1, c), (0, cpad - c)).contiguous()
@@ -279,12 +286,12 @@ def _pack_words(kernel, cpad, cop):
 
 
 def _kernel_fn(name):
-    """K3b's, K3a's and K7a's C functions share one signature: four pointers,
-    (N, H, W, C, Co, chunk, CW, CoP, in_phase_a), out_inv, relu, out, stream."""
+    """K3b's C function: four pointers, (N, H, W, C, Co, CW, CoP), out_inv,
+    relu, out, stream."""
     fn = getattr(_build.library(name), f"twv_{name}")
     if fn.argtypes is None:
         ci, cf, vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-        fn.argtypes = [vp] * 4 + [ci] * 9 + [cf, ci, vp, vp]
+        fn.argtypes = [vp] * 4 + [ci] * 7 + [cf, ci, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -328,7 +335,7 @@ def qconv3x3_nhwc_requant(x_pad, kernel, a, bias, out_scale, *, relu=True):
     n, hp, wp, c = x_pad.shape
     cpad, cop = _round_up(c, 16), _round_up(co, 64)
     out = torch.empty((n, hp - 2, wp - 2, co), dtype=torch.int8, device=x_pad.device)
-    return _run(K3B, (n, hp - 2, wp - 2, c, co, 0, cpad // 4, cop, 0), out, x_pad,
+    return _run(K3B, (n, hp - 2, wp - 2, c, co, cpad // 4, cop), out, x_pad,
                 _pack_words(kernel, cpad, cop), a, bias, out_scale, relu)
 
 
@@ -342,11 +349,9 @@ def qconv3x3_nhwc_dma(x_pad, kernel, a, bias, out_scale, *, relu=True):
         return qconv3x3_nhwc_dma_reference(x_pad, kernel, a, bias, out_scale, relu=relu)
     co = _check_nhwc(K3A, x_pad, kernel, a, bias)
     n, hp, wp, c = x_pad.shape
-    chunk = min(_round_up(c, 16), 64)
-    cpad, cop = _round_up(c, chunk), _round_up(co, 64)
     out = torch.empty((n, hp - 2, wp - 2, co), dtype=torch.int8, device=x_pad.device)
-    return _run(K3A, (n, hp - 2, wp - 2, c, co, chunk, cpad // 4, cop, 0), out, x_pad,
-                _pack_words(kernel, cpad, cop), a, bias, out_scale, relu)
+    return _launch_dma(K3A, x_pad, kernel, a, bias, out_scale, relu, out, kw=3,
+                       in_phase=None)
 
 
 def qconv3x3_pair_dma(x, wp, a2, bias2, out_scale, *, in_phase="A", relu=True):
@@ -359,10 +364,193 @@ def qconv3x3_pair_dma(x, wp, a2, bias2, out_scale, *, in_phase="A", relu=True):
                                                in_phase=in_phase, relu=relu)
     p_out = _p_out(x.shape[2], in_phase)
     _check(K7A, x, wp, a2, bias2)
-    n, h, p_in, cpk = x.shape
-    co2 = wp.shape[0]
-    chunk = min(_round_up(cpk, 16), 64)
-    cpad, cop = _round_up(cpk, chunk), _round_up(co2, 64)
-    out = torch.empty((n, h, p_out, co2), dtype=torch.int8, device=x.device)
-    return _run(K7A, (n, h, p_in, cpk, co2, chunk, cpad // 4, cop, int(in_phase == "A")),
-                out, x, _pack_words(wp, cpad, cop), a2, bias2, out_scale, relu)
+    n, h, _, _ = x.shape
+    out = torch.empty((n, h, p_out, wp.shape[0]), dtype=torch.int8, device=x.device)
+    return _launch_dma(K7A, x, wp, a2, bias2, out_scale, relu, out, kw=2,
+                       in_phase=in_phase)
+
+
+# -- K3a and K7a: the TMA-fed tensor-core kernel and its plan ----------------------
+
+DMA_TW = 64           # output columns of a tile (one wgmma m tile)
+DMA_ALIGN = 128       # alignment of the ring slots, resident weights and staging
+DMA_BOX_MAX = 256     # elements of a tensor map's box along one dimension
+GRANULE = 16          # bytes of the input box's inner dimension
+
+
+def dma_tile_rows(cot: int) -> int:
+    """Output rows of a K3a/K7a tile: two warpgroups of ``256 / cot`` rows,
+    each row a 64 × ``cot`` s32 tile (128 registers a thread)."""
+    return 2 * (256 // cot)
+
+
+def dma_cot(co: int) -> int:
+    """Output channels a block (the wgmma's N): 32, 64 or 128."""
+    return 32 if co <= 32 else 64 if co <= 64 else 128
+
+
+class DmaPlan(NamedTuple):
+    kw: int           # window columns: 3 (K3a) or 2 (K7a)
+    cot: int          # output channels a block
+    th: int           # output rows of a tile (64 columns wide)
+    chunk: int        # input channels of a ring item (16, 32, 64 or 128)
+    n_chunks: int     # items a tile
+    kb: int           # weight bytes of one tap a chunk: max(chunk, 32)
+    stages: int       # slots of the ring
+    resident: bool    # all the block's weights stay in shared memory
+    tma_in: bool      # the slabs come by TMA (else the producer warp copies them)
+    tma_out: bool     # the tiles leave by a TMA store (else by bytes)
+    slab_bytes: int   # one item's slab: chunk / 16 granule planes
+    wchunk_bytes: int  # one item's weights for a block
+    smem: int         # bytes of dynamic shared memory a block
+    tiles: int        # output tiles of the batch
+    grid: tuple       # (blocks along the tiles, blocks along the output channels)
+
+
+def tensor_map_legal(dims, strides, box, *, base_aligned, swizzle=0, elem_bytes=1) -> bool:
+    """Whether ``cuTensorMapEncodeTiled`` takes a map: rank 1–5, every global
+    stride (of dimensions 1..) a multiple of 16 bytes under 2^40, a 16-byte
+    aligned base, every box dimension 1–256, the inner box a multiple of 16
+    bytes and, with a swizzle of ``swizzle`` bytes, no wider than it."""
+    inner = box[0] * elem_bytes
+    return (1 <= len(dims) <= 5 and len(strides) == len(dims) - 1 == len(box) - 1
+            and all(1 <= d < 2**32 for d in dims)
+            and all(s % 16 == 0 and 0 < s < 2**40 for s in strides)
+            and base_aligned and all(1 <= b <= DMA_BOX_MAX for b in box)
+            and inner % 16 == 0 and (swizzle == 0 or inner <= swizzle))
+
+
+def in_map_geometry(n, hin, win, c, kw, cot, chunk):
+    """The input's 5-D tensor map: dims (16 bytes, Win, Hin, C/16, N) with
+    byte strides (C, Win·C, 16, Hin·Win·C), and the box of one ring item
+    (16, 64 + kw − 1, th + 2, chunk/16, 1). → (dims, strides, box)."""
+    return ((GRANULE, win, hin, c // GRANULE, n),
+            (c, win * c, GRANULE, hin * win * c),
+            (GRANULE, DMA_TW + kw - 1, dma_tile_rows(cot) + 2, chunk // GRANULE, 1))
+
+
+def out_map_geometry(n, h, w, co, cot):
+    """The output's 4-D tensor map: dims (Co, W, H, N), byte strides (Co,
+    W·Co, H·W·Co), box (cot, 64, th / 2, 1): one warpgroup's rows. →
+    (dims, strides, box)."""
+    return ((co, w, h, n), (co, w * co, h * w * co),
+            (cot, DMA_TW, dma_tile_rows(cot) // 2, 1))
+
+
+def _dma_smem(kw, cot, chunk, n_chunks, stages, resident) -> int:
+    """Bytes of a block's dynamic shared memory (``csrc/int8_tma_conv.cuh:
+    plan_smem``): alignment slack, the ring (slab, and the weights when they
+    stream), the resident weights, the staging tile, the epilogue factors,
+    the mbarriers (a full and an empty one a slot, the weights', two turns)."""
+    th = dma_tile_rows(cot)
+    slab = chunk // GRANULE * (th + 2) * (DMA_TW + kw - 1) * GRANULE
+    wchunk = 3 * kw * max(chunk, 32) * cot
+    slot = _round_up(slab + (0 if resident else wchunk), DMA_ALIGN)
+    wres = _round_up(n_chunks * wchunk, DMA_ALIGN) if resident else 0
+    return (DMA_ALIGN + stages * slot + wres + th * DMA_TW * cot + 8 * cot
+            + 8 * (2 * stages + 3))
+
+
+def dma_plan(n, hin, win, c, h, w, co, kw, *, x_aligned=True, out_aligned=True,
+             sms=H100_SMS) -> DmaPlan:
+    """The launch plan of K3a (``kw=3``, an (n, hin, win, c) padded input →
+    (n, h, w, co)) or K7a (``kw=2``, the pair tensor (n, h, P, Cpk) → P∓1
+    pairs) on ``csrc/int8_tma_conv.cuh``.
+
+    ``cot`` output channels a block (32, 64, 128), tiles of ``th`` × 64
+    output pixels. The weights are resident when they fit beside a ring of 2
+    slots, else each item's chunk streams in its slot; the chunk is the widest
+    of 128, 64, 32, 16 (not past C rounded up to 16) that fits, with the most
+    slots of 4, 3, 2. The slabs come by TMA where the input's tensor map is
+    legal (C % 16 == 0, x 16-byte aligned), the tiles leave by TMA where the
+    output's is (Co % 16 == 0, out aligned) and the box is no wider than Co.
+    The grid is persistent: one block an SM, no more than tiles."""
+    cot = dma_cot(co)
+    th = dma_tile_rows(cot)
+    cmax = _round_up(c, GRANULE)
+    chunks = [ch for ch in (128, 64, 32, 16) if ch <= cmax]
+    resident, chunk, stages = next(
+        (res, ch, st) for res in (True, False) for ch in chunks for st in (4, 3, 2)
+        if _dma_smem(kw, cot, ch, -(-c // ch), st, res) <= SMEM_LIMIT)
+    smem = _dma_smem(kw, cot, chunk, -(-c // chunk), stages, resident)
+    tma_in = tensor_map_legal(*in_map_geometry(n, hin, win, c, kw, cot, chunk),
+                              base_aligned=x_aligned)
+    tma_out = cot <= co and tensor_map_legal(*out_map_geometry(n, h, w, co, cot),
+                                             base_aligned=out_aligned)
+    n_co = -(-co // cot)
+    tiles = n * -(-h // th) * -(-w // DMA_TW)
+    blocks = max(1, min(tiles, sms // n_co))
+    slab = chunk // GRANULE * (th + 2) * (DMA_TW + kw - 1) * GRANULE
+    return DmaPlan(kw, cot, th, chunk, -(-c // chunk), max(chunk, 32), stages, resident,
+                   tma_in, tma_out, slab, 3 * kw * max(chunk, 32) * cot, smem, tiles,
+                   (blocks, n_co))
+
+
+def dma_channel_order(cot: int):
+    """The block's output channel at each wgmma n index: n = 8j + 2q + e (n
+    tile j, quad thread q, e of its pair) holds channel q·cot/4 + 2j + e, so
+    that thread q of a quad holds cot/4 neighbouring channels of a pixel and
+    stores them as whole words. → (cot,) int64."""
+    n = torch.arange(cot)
+    return (n % 8) // 2 * (cot // 4) + 2 * (n // 8) + n % 2
+
+
+def pack_dma_weights(kernel, plan: DmaPlan):
+    """(Co, 3, kw, C) int8 → the packed weights K3a and K7a read,
+    [co block][chunk][tap][granule][n][16 bytes]: one chunk's weights for a
+    block are ``plan.wchunk_bytes`` contiguous bytes, each 8 n indices by 16
+    bytes of k one wgmma core matrix, n index n holding the block's channel
+    ``dma_channel_order(cot)[n]``; zeros past C (to ``kb`` bytes a tap) and
+    past Co."""
+    co, c = kernel.shape[0], kernel.shape[-1]
+    taps, n_co = 3 * plan.kw, plan.grid[1]
+    k = F.pad(kernel.reshape(co, taps, c),
+              (0, plan.n_chunks * plan.chunk - c, 0, 0, 0, n_co * plan.cot - co))
+    k = k.view(n_co, plan.cot, taps, plan.n_chunks, plan.chunk)
+    k = k[:, dma_channel_order(plan.cot).to(k.device)]
+    if plan.kb > plan.chunk:
+        k = F.pad(k, (0, plan.kb - plan.chunk))
+    k = k.reshape(n_co, plan.cot, taps, plan.n_chunks, plan.kb // GRANULE, GRANULE)
+    return k.permute(0, 3, 2, 4, 1, 5).contiguous()
+
+
+def _dma_fn(name):
+    fn = getattr(_build.library(name), f"twv_{name}")
+    if fn.argtypes is None:
+        ci, cf, vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+        n_ints = 14 if name == K7A else 13  # K7a's in_phase_a besides the shape
+        fn.argtypes = [vp] * 4 + [ci] * n_ints + [cf, ci, vp, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _dma_error(err):
+    if err == 900:
+        return "cuTensorMapEncodeTiled not found"
+    if err >= 1000:
+        return f"cuTensorMapEncodeTiled refused a tensor map, CUresult {err - 1000}"
+    return f"cudaError {err}"
+
+
+def _launch_dma(name, x, kernel, a, bias, out_scale, relu, out, *, kw, in_phase):
+    """Plan, pack the weights and launch K3a (``kw=3``) or K7a (``kw=2``,
+    ``in_phase`` "A" or "B") on checked operands into ``out``."""
+    n, hin, win, c = x.shape
+    _, h, w, co = out.shape
+    plan = dma_plan(n, hin, win, c, h, w, co, kw, x_aligned=x.data_ptr() % 16 == 0,
+                    out_aligned=out.data_ptr() % 16 == 0,
+                    sms=_sm_count(x.device.index or 0))
+    wpk = pack_dma_weights(kernel, plan)
+    shape = (n, hin, win, c, co, int(in_phase == "A")) if kw == 2 else (n, h, w, c, co)
+    fn = _dma_fn(name)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), wpk.data_ptr(), a.data_ptr(), bias.data_ptr(), *shape,
+                 plan.cot, plan.chunk, plan.stages, int(plan.resident), int(plan.tma_in),
+                 int(plan.tma_out), plan.smem, plan.grid[0], float(out_inv(out_scale)),
+                 int(bool(relu)), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, {_dma_error(err)}")
+    _build.launches[name] += 1
+    _build.launches[f"{name}:{'tma' if plan.tma_in else 'copy'}"] += 1
+    return out
