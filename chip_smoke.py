@@ -68,23 +68,27 @@ Phases, each printing one line with its wall time:
     (``ops.nhwc_conv.qconv3x3_pair_dma``) against their plain versions on the
     card, exactly equal int8: odd W, H not a multiple of 8, Cin 3, 16, 64 and
     128, ReLU and none, clips at both ends, live H-pad rows for K3a and K3b,
-    A->B, B->A and the chain A->B->A for K7a; K3a's and K7a's TMA-fed
-    tensor-core contract: C and Cpk 1, 2, 4, 17, 31, 33, 64, 129 and 1024, Co
-    and Co2 2, 8, 40, 72 and 256, inputs, weights and outputs 1 byte off
-    alignment, H = 1, H off the tile, odd W, live H-pad rows (K3a), P = 3 (A)
-    and P = 2 (B) and zero pad half-pairs (K7a); against their siblings (K4a,
-    K7b) at every w64 trunk layer shape their contracts admit at b128 (plain
-    versions held on images 0 and 127), K3a and K7a loading their slabs by TMA
-    at every one whose channels are a multiple of 16; then the slice's path:
-    the bundled w64 model quantised with the port's calibration on the
-    fixture pages, enc0 conv2 (512², 64->64) on enc0 conv1's int8 output
-    through each of the four entry points, equal to K4a's (K7a to K7b's on
-    the phase-A packing), K3a and K7a by TMA
+    A->B, B->A and the chain A->B->A for K7a; the contract of the TMA-fed
+    tensor-core kernel all four run on: C and Cpk 1, 2, 4, 17, 31, 33, 64,
+    129 (K4b 128) and 1024 (not K4b), Co and Co2 2, 8, 40, 72 and 256, inputs,
+    weights and outputs 1 byte off alignment, H = 1, H off the tile, odd W,
+    live H-pad rows (K3a reads them; K3b, by TMA and by copy, must not: it
+    differs from K3a on the first and last rows exactly), P = 3 (A) and P = 2
+    (B) and zero pad half-pairs (K7a); against their siblings (K4a, K7b) at
+    every w64 trunk layer shape their contracts admit at b128 (plain versions
+    held on images 0 and 127), each loading its slabs by TMA at every one
+    whose channels are a multiple of 16; then the slice's path: the bundled
+    w64 model quantised with the port's calibration on the fixture pages,
+    enc0 conv2 (512², 64->64) on enc0 conv1's int8 output through each of the
+    four entry points, equal to K4a's (K7a to K7b's on the phase-A packing),
+    all four by TMA
 16. the four kernels' times at the flagship shape (b128, 512², 64->64, the
     shape of JAX's probes; K7a on it packed to phase A) against their bounds,
-    their plain versions' and their siblings', K3a and K7a beside their dp4a
-    predecessors' times; K3a at every w64 trunk shape and K7a at the w64
-    "nhwc" trunk's three pair calls, beside their bounds and siblings
+    their plain versions' and their siblings', each beside its first
+    design's time (dp4a; K4b's mma.sync); K3a and K3b at every w64 trunk
+    shape, K4b at every w64 and w16 trunk shape with Cin <= 128, and K7a at
+    the w64 "nhwc" trunk's three pair calls, beside their bounds and
+    siblings
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -176,6 +180,27 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, name, iters=3):
+    """Mean device time of a kernel whose name holds ``name`` (``fn()``
+    launches one a call), from ``torch.profiler`` over ``iters`` calls after
+    one warm-up: the kernel alone, without the gaps a slow host leaves
+    between the calls, which :func:`cuda_ms` counts at small shapes. The mean
+    is over the launches the profiler recorded (it can miss one of a long
+    kernel's). Raises if it recorded none."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.key_averages() if name in ev.key]
+    us = sum(getattr(ev, "self_device_time_total", None) or ev.self_cuda_time_total
+             for ev in events)
+    if not us:
+        raise AssertionError(f"the profiler saw no device time of a kernel {name!r}")
+    return us / sum(ev.count for ev in events) / 1e3
 
 
 # -- phase 1-2 ---------------------------------------------------------------
@@ -1321,11 +1346,20 @@ NHWC_CALLS = {  # K3b, K3a, K4b: (kernel, plain version, takes the padded input)
     qconv.K4B: (qconv.qconv3x3_requant_dma, qconv.qconv3x3_requant_dma_reference, False),
 }
 FLAGSHIP = (SERVE_BATCH, 512, 64, 64)  # the reference's flagship conv: n, side, cin, co
-# K3a's and K7a's times before their redesign on TMA and the tensor cores (the
-# dp4a slab-ring kernels) at the flagship shape (K7a on it packed to phase A),
-# b128: this script's phase 16 in the final run of the tree before it, on an
-# NVIDIA H100 80GB HBM3 at 700.00 W
-DMA_DP4A_MS = {nhwc.K3A: 46.8506, nhwc.K7A: 63.6082}
+# Each kernel's time on its first design, before its redesign on TMA and
+# wgmma, at the flagship shape (K7a on it packed to phase A), b128: this
+# script's phase 16 in the last run of a tree that had that design, on an
+# NVIDIA H100 80GB HBM3 at 700.00 W. K3a, K7a and K3b multiplied with dp4a on
+# the CUDA cores; K4b with mma.sync behind a two-slot cp.async ring.
+DMA_DP4A_MS = {nhwc.K3A: 46.8506, nhwc.K7A: 63.6082, nhwc.K3B: 42.5731}
+DMA_MMA_SYNC_MS = {qconv.K4B: 5.8640}
+
+
+def first_design(kind):
+    """``kind``'s time on its first design, as printed beside its own."""
+    if kind in DMA_MMA_SYNC_MS:
+        return f"mma.sync kernel {DMA_MMA_SYNC_MS[kind]:.4f} ms (before the TMA design)"
+    return f"dp4a kernel {DMA_DP4A_MS[kind]:.4f} ms (before the TMA design)"
 
 
 def padded_conv_bound_ms(n, hw, cin, co, rows_read):
@@ -1408,28 +1442,33 @@ def k7a_case(g, label, x, wp, in_phase, *, relu=True, subset=None, need_clips=Tr
 
 def dma_contract_case(g, kind, label, x, wts, *, in_phase=None, relu=True, misalign=False,
                       need_clips=True):
-    """K3a (``x`` a padded (N,H+2,W+2,C) input, every row of it read; ``wts``
-    (Co,3,3,C)) or K7a (``x`` a pair tensor in ``in_phase``; ``wts``
-    (Co2,3,2,Cpk)) held against its plain version on the whole batch.
-    ``misalign``: the input, the weights and the output start 1 byte into
-    their buffers (no tensor map: the producer copies, the tile leaves by
-    bytes). → the output."""
+    """K3a or K3b (``x`` a padded (N,H+2,W+2,C) input, random pad rows and
+    columns included; ``wts`` (Co,3,3,C)), K4b (``x`` an unpadded (N,H,W,C)
+    input) or K7a (``x`` a pair tensor in ``in_phase``; ``wts``
+    (Co2,3,2,Cpk)) held against its plain version on the whole batch; K3b
+    also against K3a on the same input, from which it must differ on the
+    first and last output rows (the live pad rows it must not read) and
+    nowhere else. ``misalign``: the input, the weights and the output start
+    1 byte into their buffers (no tensor map: the producer copies, the tile
+    leaves by bytes). → the output."""
     co = wts.shape[0]
     a, b = epilogue_operands(g, co)
-    if kind == nhwc.K3A:
-        acc = nhwc.nhwc_conv_i8(x, wts, drop_h_pad=False)
-        plain = nhwc.qconv3x3_nhwc_dma_reference
-        fn, kw, extra = nhwc.qconv3x3_nhwc_dma, 3, {}
-    else:
+    extra = {}
+    if kind == nhwc.K7A:
         acc = nhwc.pair_conv_i8(x, wts, in_phase)
-        plain = nhwc.qconv3x3_pair_requant_reference
-        fn, kw, extra = nhwc.qconv3x3_pair_dma, 2, {"in_phase": in_phase}
+        fn, plain = nhwc.qconv3x3_pair_dma, nhwc.qconv3x3_pair_requant_reference
+        extra = {"in_phase": in_phase}
+    elif kind == qconv.K4B:
+        acc = qconv.conv3x3_i8(x, wts)
+        fn, plain, _ = NHWC_CALLS[kind]
+    else:
+        acc = nhwc.nhwc_conv_i8(x, wts, drop_h_pad=kind == nhwc.K3B)
+        fn, plain, _ = NHWC_CALLS[kind]
     out_scale = spread_scale(acc.to(torch.float32) * a + b)
     if misalign:  # the wrapper allocates an aligned output: launch into a view
         x, wts = misaligned(x), misaligned(wts)
         out = misaligned(torch.zeros(acc.shape, dtype=torch.int8, device="cuda"))
-        got = nhwc._launch_dma(kind, x, wts, a, b, out_scale, relu, out, kw=kw,
-                               in_phase=in_phase)
+        got = nhwc._launch_dma(kind, x, wts, a, b, out_scale, relu, out, in_phase=in_phase)
         label += " (in, weights and out 1 byte off alignment)"
     else:
         got = fn(x, wts, a, b, out_scale, relu=relu, **extra)
@@ -1443,16 +1482,23 @@ def dma_contract_case(g, kind, label, x, wts, *, in_phase=None, relu=True, misal
         half = co // 2
         if got[:, :, 0, :half].any() or got[:, :, -1, half:].any():
             raise AssertionError(f"{kind} {label}: pad half-pairs not zero")
+    if kind == nhwc.K3B:
+        k3a = nhwc.qconv3x3_nhwc_dma(x, wts, a, b, out_scale, relu=relu)
+        rows = (got != k3a).any(dim=3).any(dim=2).any(dim=0).tolist()
+        if not (rows[0] and rows[-1]) or any(rows[1:-1]):
+            raise AssertionError(f"{kind} {label}: rows where K3b and K3a differ on live "
+                                 f"H-pad rows {rows}; expected the first and last only")
     return got
 
 
 def phase_dma_contract(g):
-    """K3a's and K7a's contract on the TMA-fed tensor-core kernel: C and Cpk
-    over the 16-channel chunk (half a k step), the 32- to 128-channel chunks
-    and the streamed weights (1024); Co and Co2 off and past the 32-, 64- and
-    128-channel blocks; inputs, weights and outputs 1 byte off alignment; H =
-    1, H off the tile, odd W; every K3a case with live H-pad rows; K7a in both
-    phases, P = 3 (A) and P = 2 (B), the pad half-pairs of a B->A output."""
+    """The contract of the TMA-fed tensor-core kernel, for K3a, K7a, K3b and
+    K4b: C and Cpk over the 16-channel chunk (half a k step), the 32- to
+    128-channel chunks and the streamed weights (1024; K4b takes Cin <= 128);
+    Co and Co2 off and past the 32-, 64- and 128-channel blocks; inputs,
+    weights and outputs 1 byte off alignment; H = 1, H off the tile, odd W;
+    every K3a and K3b case with live H-pad rows; K7a in both phases, P = 3 (A)
+    and P = 2 (B), the pad half-pairs of a B->A output."""
     k3a, k7a = nhwc.K3A, nhwc.K7A
     for c in (1, 2, 4, 17, 31, 33, 64, 129):
         dma_contract_case(g, k3a, "C edge", rand_s8(g, (2, 7, 39, c)),
@@ -1489,10 +1535,33 @@ def phase_dma_contract(g):
         dma_contract_case(g, k7a, "H off the tile",
                           rand_s8(g, (2, 37, 2 * 33 + (in_phase == "A"), 32)),
                           rand_s8(g, (64, 3, 2, 32)), in_phase=in_phase, relu=False)
+    # K3b (its padded input's pad rows and columns random) and K4b, which
+    # takes Cin <= 128: the same edges at the same output shapes
+    for kind in (nhwc.K3B, qconv.K4B):
+        pad = 2 if kind == nhwc.K3B else 0
+        top = 129 if pad else 128
+        for c in (1, 2, 4, 17, 31, 33, 64, top):
+            dma_contract_case(g, kind, "C edge", rand_s8(g, (2, 5 + pad, 37 + pad, c)),
+                              rand_s8(g, (16, 3, 3, c)), relu=c % 2 == 0)
+        if pad:
+            dma_contract_case(g, kind, "C 1024", rand_s8(g, (1, 5, 23, 1024)),
+                              rand_s8(g, (24, 3, 3, 1024)))
+        for c, co in ((5, 2), (16, 8), (33, 40), (64, 72), (top, 256)):
+            dma_contract_case(g, kind, "Co edge", rand_s8(g, (1, 6 + pad, 41 + pad, c)),
+                              rand_s8(g, (co, 3, 3, c)), need_clips=co > 2)
+        for c, co in ((3, 16), (16, 16), (17, 32), (64, 48), (64, 64)):
+            dma_contract_case(g, kind, "misaligned", rand_s8(g, (2, 5 + pad, 37 + pad, c)),
+                              rand_s8(g, (co, 3, 3, c)), misalign=True)
+        dma_contract_case(g, kind, "H = 1", rand_s8(g, (2, 1 + pad, 33 + pad, 32)),
+                          rand_s8(g, (16, 3, 3, 32)), need_clips=False)
+        dma_contract_case(g, kind, "H off the tile, odd W",
+                          rand_s8(g, (2, 37 + pad, 67 + pad, 32)),
+                          rand_s8(g, (64, 3, 3, 32)), relu=False)
 
 
 def tma_count(kind):
-    """K3a's or K7a's launches whose slabs came by TMA so far."""
+    """The launches of ``kind`` (K3a, K3b, K4b, K7a) whose slabs came by TMA
+    so far."""
     return _build.launches[f"{kind}:tma"]
 
 
@@ -1566,21 +1635,20 @@ def phase_dma_kernels(fix8):
     # at every conv (the decoder conv1 on its concatenated halves), K4b where
     # Cin <= 128, K7a at the three calls of the "nhwc" trunk; held against
     # the plain versions on images 0 and 127 and the siblings on all 128
-    # (K3a and K7a must load their slabs by TMA wherever C or Cpk is a
-    # multiple of 16: every shape but enc0 conv1, Cin 3)
+    # (each must load its slabs by TMA wherever C or Cpk is a multiple of 16:
+    # every shape but enc0 conv1, Cin 3)
     sub = torch.tensor([0, SERVE_BATCH - 1], device="cuda")
     shapes = trunk_shapes(base=64)[qconv.K4A]
-    by_tma = {nhwc.K3A: [], nhwc.K7A: []}
+    by_tma = {kind: [] for kind in (*NHWC_CALLS, nhwc.K7A)}
     for hw, cin, co in shapes:
         x = rand_s8(g, (SERVE_BATCH, hw, hw, cin), 0, 128)
         for kind in NHWC_CALLS:
             if kind == qconv.K4B and cin > qconv.K4B_MAX_CIN:
                 continue
-            before = tma_count(nhwc.K3A)
+            before = tma_count(kind)
             nhwc_case(g, kind, f"w64 trunk {hw}^2", SERVE_BATCH, hw, hw, cin, co, x=x,
                       subset=sub)
-            if kind == nhwc.K3A:
-                by_tma[kind].append((cin, tma_count(nhwc.K3A) - before))
+            by_tma[kind].append((cin, tma_count(kind) - before))
         del x
     for label, (n, h, p, cpk, co2), in_phase in k7b_serving_calls(base=64):
         x = rand_s8(g, (n, h, p, cpk), 0, 128)
@@ -1596,10 +1664,9 @@ def phase_dma_kernels(fix8):
             raise AssertionError(f"{kind}: TMA loads at the w64 shapes (channels, TMA "
                                  f"launches) {cases}; expected one wherever the channels "
                                  f"are a multiple of 16")
-    print(f"  TMA loads: K3a at {sum(n for _, n in by_tma[nhwc.K3A])} of "
-          f"{len(by_tma[nhwc.K3A])} w64 shapes (all but Cin "
-          f"{[c for c, n in by_tma[nhwc.K3A] if not n]}), K7a at "
-          f"{sum(n for _, n in by_tma[nhwc.K7A])} of {len(by_tma[nhwc.K7A])}", flush=True)
+    print("  TMA loads at the w64 shapes: " + "; ".join(
+        f"{kind} {sum(n for _, n in cases)} of {len(cases)} (not at C "
+        f"{[c for c, n in cases if not n]})" for kind, cases in by_tma.items()), flush=True)
     torch.cuda.empty_cache()
 
     # the slice's path: the flagship layer of the real w64 model, enc0 conv2
@@ -1623,7 +1690,7 @@ def phase_dma_kernels(fix8):
     for kind in DMA_KERNELS:
         if launches.get(kind, 0) < 1:
             raise AssertionError(f"{kind} did not launch on the w64 enc0 path: {launches}")
-    for kind in (nhwc.K3A, nhwc.K7A):
+    for kind in DMA_KERNELS:
         if launches.get(f"{kind}:tma", 0) != launches[kind]:
             raise AssertionError(f"{kind} did not load by TMA on the w64 enc0 path: "
                                  f"{launches}")
@@ -1671,12 +1738,10 @@ def time_dma_kernels(card):
                            warmup=1)
         bound, by = dma_bound_ms(kind, n, hw, cin, co)
         rows[kind] = (ms, plain_ms, bound, by, k4a_ms)
-        dp4a = (f"; dp4a kernel {DMA_DP4A_MS[kind]:.4f} ms (the tree before)"
-                if kind in DMA_DP4A_MS else "")
         print(f"  {kind} b{n} {hw}^2 {cin}->{co}: {ms:.4f} ms vs bound {bound:.4f} ms "
-              f"({by}; {100 * bound / ms:.1f}% of bound); sibling K4a {k4a_ms:.4f} ms"
-              f"{dp4a}; plain PyTorch (float64 sums, 16 images a call) {plain_ms:.4f} ms; "
-              f"no single PyTorch call computes it [{card}]", flush=True)
+              f"({by}; {100 * bound / ms:.1f}% of bound); sibling K4a {k4a_ms:.4f} ms; "
+              f"{first_design(kind)}; plain PyTorch (float64 sums, 16 images a call) "
+              f"{plain_ms:.4f} ms; no single PyTorch call computes it [{card}]", flush=True)
     del x_pad
     xa = nhwc.to_phase_a(x)
     del x
@@ -1692,33 +1757,50 @@ def time_dma_kernels(card):
     rows[nhwc.K7A] = (ms, plain_ms, bound, by, k7b_ms)
     print(f"  {nhwc.K7A} A->B b{n} {tuple(xa.shape[1:])}->{2 * co}: {ms:.4f} ms vs bound "
           f"{bound:.4f} ms ({by}; {100 * bound / ms:.1f}% of bound); sibling K7b "
-          f"{k7b_ms:.4f} ms; dp4a kernel {DMA_DP4A_MS[nhwc.K7A]:.4f} ms (the tree before); "
-          f"plain PyTorch (float64 sums, 16 images a call) {plain_ms:.4f} ms; no single "
-          f"PyTorch call computes it [{card}]", flush=True)
+          f"{k7b_ms:.4f} ms; {first_design(nhwc.K7A)}; plain PyTorch (float64 sums, 16 "
+          f"images a call) {plain_ms:.4f} ms; no single PyTorch call computes it [{card}]",
+          flush=True)
     del xa
     time_dma_w64(g, card)
     return rows
 
 
+TMA_KERNEL = "tma_conv_kernel"        # the names of the kernels K3a, K3b, K4b and K7a
+WINDOW_KERNEL = "window_conv_kernel"  # and K4a and K7b launch (csrc/*.cuh)
+
+
 def time_dma_w64(g, card):
-    """K3a at every w64 trunk layer shape and K7a at the w64 "nhwc" trunk's
+    """K3a and K3b at every w64 trunk layer shape, K4b at every w64 and w16
+    trunk layer shape with Cin <= 128, and K7a at the w64 "nhwc" trunk's
     three pair calls, b128, each beside its bound and its sibling (K4a, K7b)
-    on the same inputs."""
-    print(f"  K3a and K7a at the w64 shapes, b{SERVE_BATCH} [{card}]:", flush=True)
-    for hw, cin, co in trunk_shapes(base=64)[qconv.K4A]:
+    on the same inputs: the time of a call (CUDA events around back-to-back
+    calls) and of its kernel alone (the profiler), which differ where the
+    host's work for a call outlasts the kernel."""
+    print(f"  K3a, K3b, K4b and K7a at the w64 shapes, K4b at the w16 shapes, "
+          f"b{SERVE_BATCH} [{card}]:", flush=True)
+    shapes = [(64, s) for s in trunk_shapes(base=64)[qconv.K4A]]
+    shapes += [(16, s) for s in trunk_shapes(base=16)[qconv.K4A]
+               if s[1] <= qconv.K4B_MAX_CIN]
+    for base, (hw, cin, co) in shapes:
         x = rand_s8(g, (SERVE_BATCH, hw, hw, cin), 0, 128)
         kern = rand_s8(g, (co, 3, 3, cin))
         ws, b = epilogue_operands(g, co)
         a = torch.tensor(np.float32(0.01), device="cuda") * ws
-        x_pad = nhwc.pad_nhwc(x)
-        ms = cuda_ms(lambda: nhwc.qconv3x3_nhwc_dma(x_pad, kern, a, b, 3.0), iters=3,
-                     warmup=1)
-        sib = cuda_ms(lambda: qconv.qconv3x3_requant(x, kern, ws, b, 0.01, 3.0), iters=3,
-                      warmup=1)
-        bound, by = dma_bound_ms(nhwc.K3A, SERVE_BATCH, hw, cin, co)
-        print(f"    {nhwc.K3A} {hw}^2 {cin}->{co}: {ms:.4f} ms vs bound {bound:.4f} ms "
-              f"({by}; {100 * bound / ms:.1f}% of bound); sibling K4a {sib:.4f} ms",
-              flush=True)
+        x_pad = nhwc.pad_nhwc(x) if base == 64 else None
+        k4a = lambda: qconv.qconv3x3_requant(x, kern, ws, b, 0.01, 3.0)
+        sib, sib_kernel = cuda_ms(k4a, iters=3, warmup=1), kernel_ms(k4a, WINDOW_KERNEL)
+        for kind, (fn, _, padded) in NHWC_CALLS.items():
+            if (base == 16 and kind != qconv.K4B) or (kind == qconv.K4B
+                                                      and cin > qconv.K4B_MAX_CIN):
+                continue
+            xin = x_pad if padded else x
+            call = lambda: fn(xin, kern, a, b, 3.0)
+            ms, in_kernel = cuda_ms(call, iters=3, warmup=1), kernel_ms(call, TMA_KERNEL)
+            bound, by = dma_bound_ms(kind, SERVE_BATCH, hw, cin, co)
+            print(f"    {kind} w{base} {hw}^2 {cin}->{co}: {ms:.4f} ms a call, "
+                  f"{in_kernel:.4f} ms in its kernel, vs bound {bound:.4f} ms ({by}; "
+                  f"{100 * bound / in_kernel:.1f}% of bound in the kernel); sibling K4a "
+                  f"{sib:.4f} ms a call, {sib_kernel:.4f} ms in its kernel", flush=True)
         del x, x_pad
     for label, (n, h, p, cpk, co2), in_phase in k7b_serving_calls(base=64):
         x = rand_s8(g, (n, h, p, cpk), 0, 128)

@@ -1,6 +1,7 @@
 // Pieces shared by the int8 convolutions: cp.async copies into shared memory
 // and the wait on a ring of them, the shared-memory pixel stride, word loads
-// that zero what lies past the channels, and the requantising epilogue.
+// that zero what lies past the channels, and the requantising epilogues'
+// saturating int8 pack.
 #pragma once
 
 #include <cstdint>
@@ -59,18 +60,6 @@ __device__ __forceinline__ int load_word(const int8_t* p, int c, int C) {
     if (c + j < C) v |= static_cast<unsigned>(static_cast<uint8_t>(p[c + j])) << (8 * j);
   }
   return static_cast<int>(v);
-}
-
-// One output of the product epilogue: y = fma(acc, a, b), rounded once as XLA
-// rounds JAX's acc * a + b under jit (__fmaf_rn), then ReLU when asked and
-// q = rint(y * inv) clipped to [0, 127] after a ReLU and to [-127, 127]
-// without one (round half to even, as jnp.round).
-__device__ __forceinline__ unsigned requant_fma(int acc, float a, float b, float inv,
-                                                bool relu) {
-  float y = __fmaf_rn(__int2float_rn(acc), a, b);
-  if (relu) y = fmaxf(y, 0.0f);
-  const float r = fminf(fmaxf(rintf(__fmul_rn(y, inv)), relu ? 0.0f : -127.0f), 127.0f);
-  return static_cast<unsigned>(static_cast<uint8_t>(static_cast<int8_t>(__float2int_rn(r))));
 }
 
 // lo and hi saturated to int8 and packed into the low 16 bits (lo in bits

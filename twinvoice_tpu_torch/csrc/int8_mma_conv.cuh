@@ -1,7 +1,6 @@
-// The int8 tensor-core pieces shared by K4a/K5 and K7b (int8_window_conv.cuh),
-// K6 (csrc/qupsample2x2.cu) and K4b (csrc/qconv3x3_requant_dma.cu): one
-// mma.sync m16n8k32 s8 x s8 -> s32 and the ldmatrix loads that feed it from
-// shared memory.
+// The int8 tensor-core pieces shared by K4a/K5 and K7b (int8_window_conv.cuh)
+// and K6 (csrc/qupsample2x2.cu): one mma.sync m16n8k32 s8 x s8 -> s32 and the
+// ldmatrix loads that feed it from shared memory.
 //
 // Fragments of mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, with
 // g = lane / 4 and q = lane % 4:

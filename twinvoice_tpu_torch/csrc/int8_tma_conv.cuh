@@ -1,13 +1,16 @@
-// The TMA-fed tensor-core convolution shared by K3a (csrc/qconv3x3_nhwc_dma.cu,
-// a 3 x 3 window over a caller-padded NHWC input) and K7a
-// (csrc/qconv3x3_pair_dma.cu, a 3 x 2 window over a pair-packed input), the
-// Hopper counterparts of the JAX package's two manual-DMA-ring Pallas
-// kernels. Each source holds its kernel's contract and bound; this header
-// holds the kernel they share:
+// The TMA-fed tensor-core convolution shared by four of the JAX package's
+// Pallas kernels: K3a (csrc/qconv3x3_nhwc_dma.cu) and K3b
+// (csrc/qconv3x3_nhwc_requant.cu), 3 x 3 windows over a caller-padded NHWC
+// input, K4b (csrc/qconv3x3_requant_dma.cu), a 3 x 3 SAME window over an
+// unpadded one, and K7a (csrc/qconv3x3_pair_dma.cu), a 3 x 2 window over a
+// pair-packed input. Each source holds its kernel's contract and bound; this
+// header holds the kernel they share:
 //   acc[n, h, w, o] = sum_{dy < 3, dx < KW, c < C}
 //                     x[n, h + dy + row_off, w + dx + col_off, c] * wt[o, dy, dx, c]
-// with rows and columns outside x read as zeros; x is (N, Hin, Win, C) int8
-// contiguous, out (N, H, W, Co) int8 contiguous;
+// with rows and columns outside x read as zeros; x holds N images of Hin
+// visible rows of Win pixels of C int8 channels, contiguous within an image,
+// the images Himg >= Hin rows apart (K3b sees only the rows between its
+// padded input's H-pad rows); out is (N, H, W, Co) int8 contiguous;
 //   y = fma(acc, a[o], bias[o])  (one rounding, as XLA fuses JAX's acc * a + b)
 // then ReLU as a floor when asked and q = rint(y * inv) clipped to [0, 127]
 // after a ReLU and to [-127, 127] without one. With zero_pad (K7a B->A) the
@@ -23,12 +26,13 @@
 //   slab (tile_rows + 2 rows by 64 + KW - 1 columns, `chunk` channels, one
 //   image) through a 5-D tensor map whose inner dimension is one 16-byte
 //   granule of channels: (16 bytes, Win, Hin, C / 16, N), strides (C,
-//   Win * C, 16, Hin * Win * C). The box lands as [granule][row][column][16
+//   Win * C, 16, Himg * Win * C). The box lands as [granule][row][column][16
 //   bytes], so every 8 neighbouring pixels of one granule are 128 contiguous
 //   bytes: one core matrix of the wgmma operand layout without swizzle. The
 //   box starts at row h0 + row_off and column w0 + col_off; TMA writes zeros
-//   for whatever lies outside x (a K7a's zero H halo, a B input's slab edges,
-//   the ragged last tile, the channels past C). Each slot has a full and an
+//   for whatever lies outside x (the zero H halo of K3b, K4b and K7a, K4b's W
+//   halo, a B input's slab edges, the ragged last tile, the channels past
+//   C). Each slot has a full and an
 //   empty mbarrier; the producer waits on the slot's empty barrier, announces
 //   the box's bytes on its full barrier (expect_tx) and starts the copy,
 //   which completes it.
@@ -99,12 +103,12 @@ __host__ __device__ constexpr int tile_rows(int cot) { return 2 * rows_per_wg(co
 __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 struct Args {
-  const int8_t* x;  // (N, Hin, Win, C) int8 contiguous
+  const int8_t* x;  // N images of (Hin, Win, C) int8, Himg * Win * C bytes apart
   const int8_t* w;  // [n_co][n_chunks][taps][kb / 16][CoT][16] int8
   const float* a;
   const float* bias;
   int8_t* out;      // (N, H, W, Co) int8 contiguous
-  int N, Hin, Win, C, H, W, Co;
+  int N, Hin, Himg, Win, C, H, W, Co;
   int row_off, col_off;
   int chunk, n_chunks, kb, stages;
   int n_th, n_tw, tiles;
@@ -333,7 +337,7 @@ __device__ void fill_slab(const Args& p, uint8_t* slot, int n, int h0, int w0, i
   constexpr int PW = kTW + KW - 1;
   constexpr int kPlane = (TH + 2) * PW;
   const int granules = p.chunk / 16;
-  const int8_t* img = p.x + static_cast<long long>(n) * p.Hin * p.Win * p.C;
+  const int8_t* img = p.x + static_cast<long long>(n) * p.Himg * p.Win * p.C;
   for (int i = lane; i < granules * kPlane; i += 32) {
     const int g = i / kPlane;
     const int px = i - g * kPlane;
@@ -713,15 +717,16 @@ int launch_cot(const Args& p, const CUtensorMap& in_map, const CUtensorMap& out_
 }
 
 // Checks the plan (computed by ops/nhwc_conv.py:dma_plan) against the shape,
-// fills its part of p (the caller sets the pointers, N, Hin, Win, C, H, W,
-// Co, row_off, col_off, zero_pad, inv and relu), builds the tensor maps and
+// fills its part of p (the caller sets the pointers, N, Hin, Himg, Win, C, H,
+// W, Co, row_off, col_off, zero_pad, inv and relu), builds the tensor maps and
 // launches. → 0, a cudaError_t, kErrNoEncoder or kErrEncode + CUresult.
 template <int KW>
 int launch(Args p, int cot, int chunk, int stages, int resident, int tma_in, int tma_out,
            int smem, int blocks, cudaStream_t stream) {
   constexpr int PW = kTW + KW - 1;
   const int th = tile_rows(cot);
-  const bool ok = p.N >= 1 && p.Hin >= 1 && p.Win >= 1 && p.C >= 1 && p.H >= 1 && p.W >= 1 &&
+  const bool ok = p.N >= 1 && p.Hin >= 1 && p.Himg >= p.Hin && p.Win >= 1 && p.C >= 1 &&
+                  p.H >= 1 && p.W >= 1 &&
                   p.Co >= 1 && (cot == 32 || cot == 64 || cot == 128) &&
                   (chunk == 16 || chunk == 32 || chunk == 64 || chunk == 128) &&
                   chunk <= round_up(p.C, 16) && stages >= 2 && stages <= 4 &&
@@ -762,7 +767,7 @@ int launch(Args p, int cot, int chunk, int stages, int resident, int tma_in, int
                                 static_cast<cuuint64_t>(p.C / 16),
                                 static_cast<cuuint64_t>(p.N)};
     const cuuint64_t px = static_cast<cuuint64_t>(p.C);
-    const cuuint64_t strides[4] = {px, px * p.Win, 16, px * p.Win * p.Hin};
+    const cuuint64_t strides[4] = {px, px * p.Win, 16, px * p.Win * p.Himg};
     const cuuint32_t box[5] = {16, static_cast<cuuint32_t>(PW), static_cast<cuuint32_t>(th + 2),
                                static_cast<cuuint32_t>(chunk / 16), 1};
     const int e = encode(&in_map, 5, p.x, dims, strides, box);

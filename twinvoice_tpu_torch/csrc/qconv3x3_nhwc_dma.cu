@@ -56,6 +56,7 @@ extern "C" int twv_qconv3x3_nhwc_dma(const void* x, const void* w, const void* a
   p.out = static_cast<int8_t*>(out);
   p.N = N;
   p.Hin = H + 2;
+  p.Himg = H + 2;
   p.Win = W + 2;
   p.C = C;
   p.H = H;

@@ -61,6 +61,7 @@ extern "C" int twv_qconv3x3_pair_dma(const void* x, const void* w, const void* a
   p.out = static_cast<int8_t*>(out);
   p.N = N;
   p.Hin = H;
+  p.Himg = H;
   p.Win = P;
   p.C = Cpk;
   p.H = H;

@@ -10,9 +10,10 @@ a CUDA source of its own whose design note is at its head:
   ``qconv3x3_nhwc_dma`` (K3a, ``csrc/qconv3x3_nhwc_dma.cu``): K4a's conv on an
   input the caller padded with :func:`pad_nhwc`. K3b drops the two H-pad rows
   and convolves zero rows in their place; K3a reads every row of the padded
-  input. Both read the W-pad columns as they lie. K3a runs on the int8 tensor
-  cores fed by TMA (``csrc/int8_tma_conv.cuh``, its launch plan from
-  :func:`dma_plan`);
+  input. Both read the W-pad columns as they lie. Both run on the int8 tensor
+  cores fed by TMA (``csrc/int8_tma_conv.cuh``, their launch plan from
+  :func:`dma_plan`), as K4b does (``ops/qconv.py:qconv3x3_requant_dma``,
+  launched by :func:`_launch_dma`);
 - ``qconv3x3_pair_requant`` (K7b, ``csrc/qconv3x3_pair.cu``, on the int8
   tensor cores: K4a's implicit GEMM over a 3×2 window, its launch plan from
   :func:`pair_plan`) and ``qconv3x3_pair_dma`` (K7a,
@@ -49,6 +50,7 @@ import torch.nn.functional as F
 from twinvoice_tpu_torch import _build
 from twinvoice_tpu_torch.ops.qconv import (
     H100_SMS,
+    K4B,
     SMEM_LIMIT,
     ConvPlan,
     _sm_count,
@@ -61,8 +63,8 @@ from twinvoice_tpu_torch.ops.qconv import (
 
 NAME = "qconv3x3_pair"  # K7b's library
 # launch-count keys; K3a's, K3b's and K7a's are also their libraries' names
-# (K3a and K7a also count each launch under "<key>:tma" or "<key>:copy", by
-# how the slabs reached shared memory)
+# (K3a, K3b, K4b and K7a also count each launch under "<key>:tma" or
+# "<key>:copy", by how the slabs reached shared memory)
 K7B = "qconv3x3_pair_requant"
 K7A = "qconv3x3_pair_dma"
 K3A = "qconv3x3_nhwc_dma"
@@ -274,40 +276,6 @@ def _round_up(v, m):
     return -(-v // m) * m
 
 
-def _pack_words(kernel, cpad, cop):
-    """A (Co,kh,kw,C) int8 kernel → the ``[tap][word][co]`` int32 words K3b
-    reads: word q of tap t for output channel o holds channels 4q..4q+3,
-    little-endian; zeros past C (up to ``cpad``) and past Co (up to
-    ``cop``)."""
-    co, c = kernel.shape[0], kernel.shape[-1]
-    k = F.pad(kernel.reshape(co, -1, c), (0, cpad - c)).contiguous()
-    words = k.view(torch.int32).permute(1, 2, 0)  # (taps, cpad/4, co)
-    return F.pad(words, (0, cop - co)).contiguous()
-
-
-def _kernel_fn(name):
-    """K3b's C function: four pointers, (N, H, W, C, Co, CW, CoP), out_inv,
-    relu, out, stream."""
-    fn = getattr(_build.library(name), f"twv_{name}")
-    if fn.argtypes is None:
-        ci, cf, vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-        fn.argtypes = [vp] * 4 + [ci] * 7 + [cf, ci, vp, vp]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _run(name, args, out, x, wpk, a, bias, out_scale, relu):
-    fn = _kernel_fn(name)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), wpk.data_ptr(), a.data_ptr(), bias.data_ptr(), *args,
-                 float(out_inv(out_scale)), int(bool(relu)), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
-    _build.launches[name] += 1
-    return out
-
-
 def _check_nhwc(name, x_pad, kernel, a, bias):
     co = check_operands(name, x_pad, kernel, a, bias, 3, scale_name="a")
     if x_pad.shape[1] < 3 or x_pad.shape[2] < 3:
@@ -333,10 +301,8 @@ def qconv3x3_nhwc_requant(x_pad, kernel, a, bias, out_scale, *, relu=True):
                                                relu=relu)
     co = _check_nhwc(K3B, x_pad, kernel, a, bias)
     n, hp, wp, c = x_pad.shape
-    cpad, cop = _round_up(c, 16), _round_up(co, 64)
     out = torch.empty((n, hp - 2, wp - 2, co), dtype=torch.int8, device=x_pad.device)
-    return _run(K3B, (n, hp - 2, wp - 2, c, co, cpad // 4, cop), out, x_pad,
-                _pack_words(kernel, cpad, cop), a, bias, out_scale, relu)
+    return _launch_dma(K3B, x_pad, kernel, a, bias, out_scale, relu, out)
 
 
 def qconv3x3_nhwc_dma(x_pad, kernel, a, bias, out_scale, *, relu=True):
@@ -350,8 +316,7 @@ def qconv3x3_nhwc_dma(x_pad, kernel, a, bias, out_scale, *, relu=True):
     co = _check_nhwc(K3A, x_pad, kernel, a, bias)
     n, hp, wp, c = x_pad.shape
     out = torch.empty((n, hp - 2, wp - 2, co), dtype=torch.int8, device=x_pad.device)
-    return _launch_dma(K3A, x_pad, kernel, a, bias, out_scale, relu, out, kw=3,
-                       in_phase=None)
+    return _launch_dma(K3A, x_pad, kernel, a, bias, out_scale, relu, out)
 
 
 def qconv3x3_pair_dma(x, wp, a2, bias2, out_scale, *, in_phase="A", relu=True):
@@ -366,11 +331,10 @@ def qconv3x3_pair_dma(x, wp, a2, bias2, out_scale, *, in_phase="A", relu=True):
     _check(K7A, x, wp, a2, bias2)
     n, h, _, _ = x.shape
     out = torch.empty((n, h, p_out, wp.shape[0]), dtype=torch.int8, device=x.device)
-    return _launch_dma(K7A, x, wp, a2, bias2, out_scale, relu, out, kw=2,
-                       in_phase=in_phase)
+    return _launch_dma(K7A, x, wp, a2, bias2, out_scale, relu, out, in_phase=in_phase)
 
 
-# -- K3a and K7a: the TMA-fed tensor-core kernel and its plan ----------------------
+# -- K3a, K3b, K4b and K7a: the TMA-fed tensor-core kernel and its plan -------------
 
 DMA_TW = 64           # output columns of a tile (one wgmma m tile)
 DMA_ALIGN = 128       # alignment of the ring slots, resident weights and staging
@@ -379,8 +343,8 @@ GRANULE = 16          # bytes of the input box's inner dimension
 
 
 def dma_tile_rows(cot: int) -> int:
-    """Output rows of a K3a/K7a tile: two warpgroups of ``256 / cot`` rows,
-    each row a 64 × ``cot`` s32 tile (128 registers a thread)."""
+    """Output rows of a tile of the TMA kernel: two warpgroups of ``256 /
+    cot`` rows, each row a 64 × ``cot`` s32 tile (128 registers a thread)."""
     return 2 * (256 // cot)
 
 
@@ -390,7 +354,7 @@ def dma_cot(co: int) -> int:
 
 
 class DmaPlan(NamedTuple):
-    kw: int           # window columns: 3 (K3a) or 2 (K7a)
+    kw: int           # window columns: 3 (K3a, K3b, K4b) or 2 (K7a)
     cot: int          # output channels a block
     th: int           # output rows of a tile (64 columns wide)
     chunk: int        # input channels of a ring item (16, 32, 64 or 128)
@@ -420,12 +384,15 @@ def tensor_map_legal(dims, strides, box, *, base_aligned, swizzle=0, elem_bytes=
             and inner % 16 == 0 and (swizzle == 0 or inner <= swizzle))
 
 
-def in_map_geometry(n, hin, win, c, kw, cot, chunk):
+def in_map_geometry(n, hin, win, c, kw, cot, chunk, himg=None):
     """The input's 5-D tensor map: dims (16 bytes, Win, Hin, C/16, N) with
-    byte strides (C, Win·C, 16, Hin·Win·C), and the box of one ring item
-    (16, 64 + kw − 1, th + 2, chunk/16, 1). → (dims, strides, box)."""
+    byte strides (C, Win·C, 16, Himg·Win·C), and the box of one ring item
+    (16, 64 + kw − 1, th + 2, chunk/16, 1). ``hin`` rows of an image are
+    visible to the map, its images lie ``himg`` rows apart (default
+    ``hin``; K3b's ``hin + 2``). → (dims, strides, box)."""
+    himg = hin if himg is None else himg
     return ((GRANULE, win, hin, c // GRANULE, n),
-            (c, win * c, GRANULE, hin * win * c),
+            (c, win * c, GRANULE, himg * win * c),
             (GRANULE, DMA_TW + kw - 1, dma_tile_rows(cot) + 2, chunk // GRANULE, 1))
 
 
@@ -451,11 +418,15 @@ def _dma_smem(kw, cot, chunk, n_chunks, stages, resident) -> int:
             + 8 * (2 * stages + 3))
 
 
-def dma_plan(n, hin, win, c, h, w, co, kw, *, x_aligned=True, out_aligned=True,
-             sms=H100_SMS) -> DmaPlan:
-    """The launch plan of K3a (``kw=3``, an (n, hin, win, c) padded input →
-    (n, h, w, co)) or K7a (``kw=2``, the pair tensor (n, h, P, Cpk) → P∓1
-    pairs) on ``csrc/int8_tma_conv.cuh``.
+def dma_plan(n, hin, win, c, h, w, co, kw, *, himg=None, x_aligned=True,
+             out_aligned=True, sms=H100_SMS) -> DmaPlan:
+    """The launch plan of ``csrc/int8_tma_conv.cuh`` for an input of ``n``
+    images of ``hin`` visible rows of ``win`` pixels of ``c`` channels,
+    ``himg`` rows apart (default ``hin``), → (n, h, w, co): K3a (``kw=3``,
+    the padded (n, h+2, w+2, c) input), K3b (``kw=3``, its rows 1..h, ``himg``
+    h + 2), K4b (``kw=3``, the unpadded (n, h, w, c) input) or K7a (``kw=2``,
+    the pair tensor (n, h, P, Cpk) → P∓1 pairs). ``x_aligned``: the first
+    visible row is 16-byte aligned.
 
     ``cot`` output channels a block (32, 64, 128), tiles of ``th`` × 64
     output pixels. The weights are resident when they fit beside a ring of 2
@@ -473,7 +444,7 @@ def dma_plan(n, hin, win, c, h, w, co, kw, *, x_aligned=True, out_aligned=True,
         (res, ch, st) for res in (True, False) for ch in chunks for st in (4, 3, 2)
         if _dma_smem(kw, cot, ch, -(-c // ch), st, res) <= SMEM_LIMIT)
     smem = _dma_smem(kw, cot, chunk, -(-c // chunk), stages, resident)
-    tma_in = tensor_map_legal(*in_map_geometry(n, hin, win, c, kw, cot, chunk),
+    tma_in = tensor_map_legal(*in_map_geometry(n, hin, win, c, kw, cot, chunk, himg),
                               base_aligned=x_aligned)
     tma_out = cot <= co and tensor_map_legal(*out_map_geometry(n, h, w, co, cot),
                                              base_aligned=out_aligned)
@@ -496,22 +467,25 @@ def dma_channel_order(cot: int):
 
 
 def pack_dma_weights(kernel, plan: DmaPlan):
-    """(Co, 3, kw, C) int8 → the packed weights K3a and K7a read,
+    """(Co, 3, kw, C) int8 → the packed weights the TMA kernel reads,
     [co block][chunk][tap][granule][n][16 bytes]: one chunk's weights for a
     block are ``plan.wchunk_bytes`` contiguous bytes, each 8 n indices by 16
     bytes of k one wgmma core matrix, n index n holding the block's channel
     ``dma_channel_order(cot)[n]``; zeros past C (to ``kb`` bytes a tap) and
-    past Co."""
+    past Co. Views, pads and one copy on the weights' device: no index
+    tensor, so no host-to-device copy (and no stream synchronisation) a
+    call."""
     co, c = kernel.shape[0], kernel.shape[-1]
-    taps, n_co = 3 * plan.kw, plan.grid[1]
+    taps, n_co, cot = 3 * plan.kw, plan.grid[1], plan.cot
     k = F.pad(kernel.reshape(co, taps, c),
-              (0, plan.n_chunks * plan.chunk - c, 0, 0, 0, n_co * plan.cot - co))
-    k = k.view(n_co, plan.cot, taps, plan.n_chunks, plan.chunk)
-    k = k[:, dma_channel_order(plan.cot).to(k.device)]
+              (0, plan.n_chunks * plan.chunk - c, 0, 0, 0, n_co * cot - co))
+    # the block's channel q·cot/4 + 2j + e as (q, j, e); n index 8j + 2q + e
+    k = k.view(n_co, 4, cot // 8, 2, taps, plan.n_chunks, plan.chunk)
     if plan.kb > plan.chunk:
         k = F.pad(k, (0, plan.kb - plan.chunk))
-    k = k.reshape(n_co, plan.cot, taps, plan.n_chunks, plan.kb // GRANULE, GRANULE)
-    return k.permute(0, 3, 2, 4, 1, 5).contiguous()
+    k = k.view(n_co, 4, cot // 8, 2, taps, plan.n_chunks, plan.kb // GRANULE, GRANULE)
+    return k.permute(0, 5, 4, 6, 2, 1, 3, 7).reshape(
+        n_co, plan.n_chunks, taps, plan.kb // GRANULE, cot, GRANULE)
 
 
 def _dma_fn(name):
@@ -532,12 +506,26 @@ def _dma_error(err):
     return f"cudaError {err}"
 
 
-def _launch_dma(name, x, kernel, a, bias, out_scale, relu, out, *, kw, in_phase):
-    """Plan, pack the weights and launch K3a (``kw=3``) or K7a (``kw=2``,
-    ``in_phase`` "A" or "B") on checked operands into ``out``."""
-    n, hin, win, c = x.shape
+def dma_input(name, shape):
+    """What the TMA kernel ``name`` (K3a, K3b, K4b or K7a) sees of its input
+    of ``shape``: → (kw, hin, himg, row0), its window's columns, the visible
+    rows of an image, the rows from one image to the next and the first
+    visible row. K3b sees rows 1..H of its padded (N, H+2, W+2, C) input, so
+    the zero halo comes from TMA and the live pad rows are never read."""
+    rows = shape[1]
+    if name == K3B:
+        return 3, rows - 2, rows, 1
+    return (2 if name == K7A else 3), rows, rows, 0
+
+
+def _launch_dma(name, x, kernel, a, bias, out_scale, relu, out, *, in_phase=None):
+    """Plan, pack the weights and launch K3a, K3b, K4b or K7a (``in_phase``
+    "A" or "B") on checked operands into ``out``."""
+    n, _, win, c = x.shape
     _, h, w, co = out.shape
-    plan = dma_plan(n, hin, win, c, h, w, co, kw, x_aligned=x.data_ptr() % 16 == 0,
+    kw, hin, himg, row0 = dma_input(name, x.shape)
+    plan = dma_plan(n, hin, win, c, h, w, co, kw, himg=himg,
+                    x_aligned=(x.data_ptr() + row0 * win * c) % 16 == 0,
                     out_aligned=out.data_ptr() % 16 == 0,
                     sms=_sm_count(x.device.index or 0))
     wpk = pack_dma_weights(kernel, plan)

@@ -34,8 +34,9 @@ Then ReLU where asked and ``clip(round(y · inv))`` to [0, 127] after a ReLU,
 computes it inside ``jit``. Scalars are host floats, rounded to float32 once.
 
 ``qconv3x3_requant_dma`` (K4b, ``ops/qconv_pallas.py:qconv3x3_requant_dma``)
-is K4a's product mode with one Cin chunk (Cin ≤ 128), on the int8 tensor
-cores (``csrc/qconv3x3_requant_dma.cu``, its design note there).
+is K4a's product mode with one Cin chunk (Cin ≤ 128), on the TMA-fed int8
+tensor-core kernel of K3a (``csrc/qconv3x3_requant_dma.cu``, its design note
+there; its plan and weight packing are ``ops/nhwc_conv.py``'s).
 
 ``qconv3x3_requant``, ``qconv3x3_split_requant`` and ``qconv3x3_requant_dma``
 launch their kernels for CUDA tensors and take their plain versions only for
@@ -57,7 +58,8 @@ from twinvoice_tpu_torch import _build
 NAME = "qconv3x3"
 K4A = "qconv3x3_requant"        # launch-count keys
 K5 = "qconv3x3_split_requant"
-K4B = "qconv3x3_requant_dma"    # also the name of K4b's library
+K4B = "qconv3x3_requant_dma"    # also the name of K4b's library (launches also
+                                # counted under "<key>:tma" or "<key>:copy")
 K4B_MAX_CIN = 128
 _PROD, _CHAIN, _SEPARATE = 0, 1, 2  # epilogue modes of the source
 STEM, PAIR, WIDE = 0, 1, 2  # k layouts of csrc/qconv3x3.cu
@@ -416,15 +418,6 @@ def qconv3x3_requant_dma_reference(x, kernel, a, bias, out_scale, *, relu=True):
     return requant(y, out_scale, relu).contiguous()
 
 
-def _k4b_fn():
-    fn = _build.library(K4B).twv_qconv3x3_requant_dma
-    if fn.argtypes is None:
-        ci, cf, vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-        fn.argtypes = [vp] * 4 + [ci] * 7 + [cf, ci, vp, vp]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def qconv3x3_requant_dma(x, kernel, a, bias, out_scale, *, relu=True, mxu_bf16=False):
     """K4b: K4a's product mode with the dequant factor given, one Cin chunk.
 
@@ -445,20 +438,8 @@ def qconv3x3_requant_dma(x, kernel, a, bias, out_scale, *, relu=True, mxu_bf16=F
         raise ValueError(f"{K4B}: Cin {x.shape[3]} > {K4B_MAX_CIN} (one Cin chunk)")
     if x.device.type == "cpu":
         return qconv3x3_requant_dma_reference(x, kernel, a, bias, out_scale, relu=relu)
+    from twinvoice_tpu_torch.ops import nhwc_conv  # which imports this module
+
     co = check_operands(K4B, x, kernel, a, bias, 3, scale_name="a")
-    n, h, w, cin = x.shape
-    cp = -(-cin // 32) * 32
-    tile = 8 if co <= 8 else 16 if co <= 16 else 32 if co <= 32 else 64
-    cop = -(-co // tile) * tile
-    wpk = F.pad(kernel.reshape(co, 9, cin), (0, cp - cin, 0, 0, 0, cop - co)).contiguous()
-    out = torch.empty((n, h, w, co), dtype=torch.int8, device=x.device)
-    fn = _k4b_fn()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), wpk.data_ptr(), a.data_ptr(), bias.data_ptr(), n, h, w, cin,
-                 co, cp, cop, float(out_inv(out_scale)), int(bool(relu)), out.data_ptr(),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"{K4B}: kernel launch failed, cudaError {err}")
-    _build.launches[K4B] += 1
-    return out
+    out = torch.empty((*x.shape[:3], co), dtype=torch.int8, device=x.device)
+    return nhwc_conv._launch_dma(K4B, x, kernel, a, bias, out_scale, relu, out)
