@@ -89,6 +89,29 @@ Phases, each printing one line with its wall time:
     shape, K4b at every w64 and w16 trunk shape with Cin <= 128, and K7a at
     the w64 "nhwc" trunk's three pair calls, beside their bounds and
     siblings
+17. the recognition stack (``ocr.torchocr``; no kernel of its own: cuDNN
+    convs and plain PyTorch on the card, numpy on the host) against the JAX
+    package's outputs in ``tests/data/torch_smoke_ocr.npz``, the bundled
+    recognizer and textness head on the card with TF32 off (by the engine
+    itself: cuDNN's TF32 flag is on around these checks): the device half
+    on JAX's prepared rows (argmax equal wherever JAX's top-1/top-2 gap is
+    above 1e-3 nats, the frames under it counted; log-probs within 1e-3,
+    confidences within 1e-4; top-8 ids equal where the values stand apart);
+    ``read_batch`` on the fixture crops with their modes under "greedy",
+    "beam_lm" and "cascade" (texts equal, confidences within 1e-4);
+    ``detect_lines`` ("classical", "hybrid") and ``read_page`` on the four
+    pages (boxes and texts equal); and the chained path: the port's fp32
+    ``segment_batch``, ``crop_fields`` and ``read_batch`` (invoice, date,
+    amount) on the pages, texts equal to JAX's chain on every field whose
+    port box is JAX's box, the others listed
+18. a bulk batch of 384 lines (128 invoices × 3 fields, tiled from the
+    fixture crops): the recognizer's device time a call beside its float32
+    bound under the engine's settings (NCHW, cuDNN's heuristics) and three
+    others (channels_last, cuDNN off, cuDNN autotuned over every algorithm),
+    each held against JAX's rows, with each conv alone under each and the
+    engine's two slowest convs at b128; and ``read_batch``'s lines/s with its
+    host steps under "cascade" and "greedy", with the recognizer's and the
+    classical detector's device calls timed apart from the rest
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -96,7 +119,9 @@ ran the kernels. Each int8 route of phases 9, 10, 13 and 14 is driven with
 the counts zeroed just before it and read just after; every kernel of the
 route must have launched its expected number of times, and no other (so no
 route runs K3a, K3b, K4b or K7a). Phase 15's w64 enc0 path is driven the same
-way, and each of the four must have launched there.
+way, and each of the four must have launched there. Phase 17's chained path
+is driven the same way: its one ``segment_batch`` call must launch K1 once
+and nothing else (the recognition stack itself runs none of the kernels).
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
 only. Without a CUDA device, or if any phase fails, it exits non-zero and
@@ -106,6 +131,7 @@ one JSON object per kernel row, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1819,6 +1845,400 @@ def time_dma_w64(g, card):
     torch.cuda.empty_cache()
 
 
+# -- phases 17-18: the recognition stack ---------------------------------------
+
+
+OCR_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_ocr.npz")
+OCR_POLICIES = ("greedy", "beam_lm", "cascade")
+OCR_METHODS = ("classical", "hybrid")
+OCR_NEAR_TIE = 1e-3   # nats: frames whose top-1/top-2 gap is below this may flip
+OCR_LP_TOL = 1e-3     # |log-prob − JAX's|, top-8 and blank
+OCR_CONF_TOL = 1e-4   # |confidence − JAX's|, rows and read_batch results
+OCR_BATCH = 3 * SERVE_BATCH  # lines of a bulk batch: 128 invoices × 3 fields
+
+
+def ocr_fixture():
+    with np.load(OCR_FIXTURE) as z:
+        fix = {k: z[k] for k in z.files}
+    fix["crop_list"] = []
+    for (h, w, c), a, b in zip(fix["crop_shapes"], fix["crop_offsets"][:-1],
+                               fix["crop_offsets"][1:]):
+        shape = (int(h), int(w)) + ((int(c),) if c else ())
+        fix["crop_list"].append(fix["crops"][a:b].reshape(shape))
+    return fix
+
+
+def ocr_rows_compare(fix, run):
+    """``run`` (the device half: float32 rows (B, 32, 256) → its five outputs
+    as numpy arrays) on JAX's prepared rows against JAX's outputs. → dict:
+    ``near`` and ``frames`` (frames whose top-1/top-2 gap is at most
+    OCR_NEAR_TIE, and all), ``ids`` (the argmax equal on every other frame),
+    ``lp_err`` and ``conf_err`` (max |Δ|, top-8 and blank log-probs;
+    confidences), ``topk`` (top-8 ids equal wherever the log-probs stand more
+    than 2·OCR_LP_TOL apart)."""
+    ids, conf, tk_ids, tk_lp, blank = run(fix["rows_u8"].astype(np.float32) / 255.0)
+    gap = fix["row_tk_lp"][..., 0] - fix["row_tk_lp"][..., 1]
+    clear = gap > OCR_NEAR_TIE
+    d = -np.diff(fix["row_tk_lp"], axis=-1)
+    apart = np.ones(tk_ids.shape, bool)
+    apart[..., :-1] &= d > 2 * OCR_LP_TOL
+    apart[..., 1:] &= d > 2 * OCR_LP_TOL
+    return {
+        "near": int((~clear).sum()), "frames": int(clear.size),
+        "ids": bool(np.array_equal(ids[clear], fix["row_ids"][clear])),
+        "bad": np.argwhere(clear & (ids != fix["row_ids"]))[:8].tolist(),
+        "lp_err": max(float(np.abs(tk_lp - fix["row_tk_lp"]).max()),
+                      float(np.abs(blank - fix["row_blank_lp"]).max())),
+        "conf_err": float(np.abs(conf - fix["row_conf"]).max()),
+        "topk": bool(np.array_equal(tk_ids[apart], fix["row_tk_ids"][apart])),
+    }
+
+
+def ocr_rows_check(fix, eng):
+    """The engine's device half (``eng._infer``) on JAX's prepared rows: ids
+    equal to JAX's on every frame whose top-1/top-2 gap is above
+    OCR_NEAR_TIE; conf, top-8 log-probs and blank log-probs within their
+    tolerances; top-8 ids equal where apart (:func:`ocr_rows_compare`). →
+    (near-tie frames, frames, max |Δ log-prob|, max |Δ conf|)."""
+    r = ocr_rows_compare(fix, eng._infer)
+    if not r["ids"]:
+        raise AssertionError(f"device half: argmax differs from JAX's at clear frames "
+                             f"(row, frame) {r['bad']}")
+    if r["lp_err"] > OCR_LP_TOL or r["conf_err"] > OCR_CONF_TOL:
+        raise AssertionError(f"device half: |d log-prob| {r['lp_err']:.3g} (tol "
+                             f"{OCR_LP_TOL}), |d conf| {r['conf_err']:.3g} (tol {OCR_CONF_TOL})")
+    if not r["topk"]:
+        raise AssertionError("device half: top-8 ids differ from JAX's where the "
+                             "log-probs stand apart")
+    return r["near"], r["frames"], r["lp_err"], r["conf_err"]
+
+
+def ocr_crops_check(fix, eng):
+    """read_batch on the fixture crops with their modes under each decode
+    policy: texts equal to JAX's, confidences within OCR_CONF_TOL. → max
+    |Δ conf|."""
+    crops, modes = fix["crop_list"], [str(m) for m in fix["crop_modes"]]
+    err = 0.0
+    for policy in OCR_POLICIES:
+        eng.decode = policy
+        res = eng.read_batch(crops, modes=modes)
+        texts = [r.text for r in res]
+        want = [str(t) for t in fix[f"text_{policy}"]]
+        if texts != want:
+            diff = [(i, modes[i], t, w) for i, (t, w) in enumerate(zip(texts, want)) if t != w]
+            raise AssertionError(f"read_batch {policy}: texts differ from JAX's at {diff}")
+        conf = np.asarray([np.nan if r.confidence is None else r.confidence for r in res])
+        ref = fix[f"conf_{policy}"]
+        if not np.array_equal(np.isnan(conf), np.isnan(ref)):
+            raise AssertionError(f"read_batch {policy}: confidences set where JAX's are not")
+        e = float(np.nanmax(np.abs(conf - ref), initial=0.0))
+        if e > OCR_CONF_TOL:
+            raise AssertionError(f"read_batch {policy}: |d conf| {e:.3g} > {OCR_CONF_TOL}")
+        err = max(err, e)
+    eng.decode = "cascade"
+    return err
+
+
+def _split(flat, counts):
+    out, k = [], 0
+    for n in counts:
+        out.append(flat[k:k + n])
+        k += n
+    return out
+
+
+def ocr_pages_check(pages, fix, eng):
+    """detect_lines (classical, hybrid) boxes and read_page boxes and texts on
+    the four pages equal to JAX's. → {method: boxes}, read_page lines."""
+    from twinvoice_tpu_torch.ocr.torchocr.detector import detect_lines, read_page
+
+    counts = {}
+    for method in OCR_METHODS:
+        want = _split(fix[f"boxes_{method}"], fix[f"nboxes_{method}"])
+        for i, page in enumerate(pages):
+            got = detect_lines(page, method=method, device=eng.device)
+            if got != [tuple(int(v) for v in b) for b in want[i]]:
+                raise AssertionError(f"detect_lines {method} page {i}: {got} != JAX's "
+                                     f"{want[i].tolist()}")
+        counts[method] = int(fix[f"nboxes_{method}"].sum())
+    boxes = _split(fix["page_boxes"], fix["page_counts"])
+    texts = _split(fix["page_texts"], fix["page_counts"])
+    confs = _split(fix["page_confs"], fix["page_counts"])
+    for i, page in enumerate(pages):
+        got = read_page(page, eng)
+        if [b for b, _ in got] != [tuple(int(v) for v in b) for b in boxes[i]]:
+            raise AssertionError(f"read_page page {i}: boxes differ from JAX's")
+        if [r.text for _, r in got] != [str(t) for t in texts[i]]:
+            raise AssertionError(f"read_page page {i}: texts {[r.text for _, r in got]} "
+                                 f"!= JAX's {texts[i].tolist()}")
+        e = max((abs(r.confidence - c) for (_, r), c in zip(got, confs[i])), default=0.0)
+        if e > OCR_CONF_TOL:
+            raise AssertionError(f"read_page page {i}: |d conf| {e:.3g}")
+    return counts, int(fix["page_counts"].sum())
+
+
+def ocr_chain(fix_pages, fix, eng, seg):
+    """The chained path: the port's fp32 segment_batch on the pages, its
+    crops, read_batch (invoice, date, amount). → rows (page, field, port
+    box == JAX box, port text, JAX chain text)."""
+    from twinvoice_tpu_torch import FIELDS
+
+    pages = fix_pages["pages"]
+    rgb = np.repeat(pages[..., None], 3, axis=-1)
+    _, boxes, ok = seg.segment_batch(rgb, pre_resized=False)
+    boxes, ok = boxes.cpu().numpy(), ok.cpu().numpy()
+    crops, where = [], []
+    for i, page in enumerate(pages):
+        for j, crop in enumerate(crop_fields(page, boxes[i], ok[i],
+                                             seg.cfg.black_crop_mean).values()):
+            if crop is not None:
+                crops.append(crop)
+                where.append((i, j))
+    modes = ["invoice", "date", "amount"]
+    res = eng.read_batch(crops, modes=[modes[j] for _, j in where])
+    jax_text = {(int(i), int(j)): str(t) for i, j, t in zip(
+        fix["field_page"], fix["field_slot"], fix["text_cascade"])}
+    rows = []
+    for (i, j), r in zip(where, res):
+        same_box = bool(np.array_equal(boxes[i, j], fix_pages["boxes"][i, j]))
+        rows.append((i, FIELDS[j], same_box, r.text, jax_text.get((i, j))))
+    return rows
+
+
+def phase_ocr(fix_pages):
+    """Phase 17: the recognition stack against JAX's outputs on the card."""
+    from twinvoice_tpu_torch.ocr.torchocr.engine import TorchOcrEngine
+
+    fix = ocr_fixture()
+    eng = TorchOcrEngine()
+    if not eng.available() or eng.device.type != "cuda":
+        raise AssertionError(f"TorchOcrEngine: available {eng.available()} on {eng.device}")
+    # cuDNN's TF32 flag at PyTorch's default (phase 4 turned it off): the engine
+    # must turn it off itself
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        near, frames, lp_err, conf_err = ocr_rows_check(fix, eng)
+        crop_err = ocr_crops_check(fix, eng)
+        counts, n_lines = ocr_pages_check(fix_pages["pages"], fix, eng)
+    print(f"  device half on JAX's {len(fix['rows_u8'])} prepared rows ({eng.arch}, "
+          f"{eng.charset.num_classes} classes, TF32 off inside the engine with cuDNN's "
+          f"flag on outside): ids equal on every frame with a "
+          f"top-1/top-2 gap above {OCR_NEAR_TIE} nats; {near} of {frames} frames under "
+          f"it; max |d log-prob| {lp_err:.3g} (tol {OCR_LP_TOL}), max |d conf| "
+          f"{conf_err:.3g} (tol {OCR_CONF_TOL}); top-8 ids equal where apart", flush=True)
+    print(f"  read_batch on {len(fix['crop_list'])} fixture crops (modes "
+          f"{sorted(set(fix['crop_modes'].tolist()))}) under {', '.join(OCR_POLICIES)}: "
+          f"texts equal to JAX's; max |d conf| {crop_err:.3g}", flush=True)
+    print(f"  detect_lines on the {len(fix_pages['pages'])} pages: boxes equal to JAX's "
+          f"({', '.join(f'{m} {n}' for m, n in counts.items())}); read_page: "
+          f"{n_lines} lines, boxes and texts equal to JAX's", flush=True)
+    _build.launches.clear()  # the chained path starts here
+    seg = load_pretrained_segmenter(variant="w16", dtype=torch.float32)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        rows = ocr_chain(fix_pages, fix, eng, seg)
+    launches = dict(_build.launches)
+    if launches != {k1.NAME: 1}:
+        raise AssertionError(f"the chained path launched {launches}; expected K1 once")
+    other = []
+    for i, field, same_box, text, want in rows:
+        print(f"    page {i} {field}: port {text!r}, JAX chain {want!r}"
+              f"{'' if same_box else ' (port box differs from JAX box)'}", flush=True)
+        if same_box and text != want:
+            raise AssertionError(f"chained path page {i} {field}: {text!r} != JAX's {want!r}")
+        if not same_box:
+            other.append(f"page {i} {field}")
+    print(f"  chained path (fp32 segment_batch, crop_fields, read_batch): "
+          f"{len(rows) - len(other)} of {len(rows)} fields on JAX's box, their texts "
+          f"equal to JAX's; other fields: {other or 'none'}; launches {launches}",
+          flush=True)
+    return eng, fix
+
+
+def ocr_layers(params, arch, b, h=32, w=256):
+    """The CRNN's convs in forward order for ``b`` lines → [(name, params,
+    input shape, multiply-adds)], and its time steps T."""
+    layers, hh, ww = [], h, w
+    for i, cp in enumerate(params["conv"]):
+        co, ci, kh, kw = cp["weight"].shape
+        layers.append((f"conv{i}", cp, (b, ci, hh, ww), b * hh * ww * co * ci * kh * kw))
+        if i < 3:
+            hh //= 2
+            if not (i == 2 and arch == "t64"):  # t64's third pool: height only
+                ww //= 2
+    heads = [("proj", params["proj"])]
+    heads += [(f"ctx{i}", cp) for i, cp in enumerate(params["ctx"])]
+    heads += [("head", params["head"])]
+    for name, cp in heads:
+        co, ci, kh, kw = cp["weight"].shape
+        layers.append((name, cp, (b, ci, 1, ww), b * ww * co * ci * kh * kw))
+    return layers, ww
+
+
+# phase 18's device-half settings, each held against JAX's rows: {name: (layout
+# of the rows and conv weights, cuDNN on, cuDNN's autotuner over every
+# algorithm)}; the first is the engine's own
+OCR_VARIANTS = {
+    "NCHW, cuDNN heuristics (the engine's)": (torch.contiguous_format, True, False),
+    "channels_last, cuDNN heuristics": (torch.channels_last, True, False),
+    "NCHW, cuDNN off (PyTorch's im2col and cuBLAS)": (torch.contiguous_format, False, False),
+    "NCHW, cuDNN autotuned over every algorithm": (torch.contiguous_format, True, True),
+}
+
+
+@contextlib.contextmanager
+def ocr_flags(cudnn, autotune):
+    """Inference with TF32 off, cuDNN on or off, and its autotuner off or
+    trying every algorithm (``benchmark_limit`` 0); all restored on exit."""
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=cudnn, benchmark=autotune, allow_tf32=False):
+        if autotune:
+            torch.backends.cudnn.benchmark_limit = 0
+        yield
+
+
+def device_kernels(fn, iters=3):
+    """``torch.profiler`` (device activity only) over ``iters`` calls of
+    ``fn()`` after one warm-up → [(device ms a call, kernel)], slowest first;
+    their sum is ``fn``'s device busy time a call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(((ev.self_device_time_total / iters / 1e3, ev.key)
+                   for ev in prof.key_averages() if ev.self_device_time_total),
+                  reverse=True)
+
+
+def ocr_conv_alone(cp, shape, fmt, cudnn, autotune):
+    """One CRNN conv alone on random input of ``shape`` under a phase-18
+    setting (bias included, as the model runs it) → (device ms a call, its
+    slowest kernel)."""
+    x = torch.rand(shape, device="cuda").contiguous(memory_format=fmt)
+    w = cp["weight"].contiguous(memory_format=fmt)
+    pad = (w.shape[2] // 2, w.shape[3] // 2)
+
+    def conv():
+        with ocr_flags(cudnn, autotune):
+            return torch.nn.functional.conv2d(x, w, cp["bias"], padding=pad)
+
+    kernels = device_kernels(conv)
+    return sum(ms for ms, _ in kernels), kernels[0][1]
+
+
+def phase_ocr_throughput(eng, fix, card):
+    """Phase 18: b384 lines (128 invoices × 3 fields) tiled from the fixture
+    crops: the recognizer's device time a call against its float32 bound
+    under the engine's settings and three others (each held against JAX's
+    rows), each conv alone under each; and read_batch's lines/s with its
+    host steps, cascade and greedy, with the recognizer's and the detector's
+    device calls timed apart from the rest."""
+    from twinvoice_tpu_torch.models.unet import _tree_map
+    from twinvoice_tpu_torch.ocr.torchocr import detector
+    from twinvoice_tpu_torch.ocr.torchocr.engine import infer_rows, prepare_crop
+
+    crops, modes = fix["crop_list"], [str(m) for m in fix["crop_modes"]]
+    reps = -(-OCR_BATCH // len(crops))
+    crops, modes = (crops * reps)[:OCR_BATCH], (modes * reps)[:OCR_BATCH]
+    rows = np.stack([r for r in (prepare_crop(c) for c in crops) if r is not None])
+    x = torch.from_numpy(rows[:OCR_BATCH]).to(eng.device)[:, None]
+    n = x.shape[0]
+    layers, steps = ocr_layers(eng._params, eng.arch, n)
+    flops = 2 * sum(layer[-1] for layer in layers)
+    n_bytes = x.numel() * 4 + sum(t.numel() * 4 for t in
+                                   [*_leaves(eng._params), *_leaves(eng._state)])
+    # out: int64 ids and top-8 ids, float32 top-8 and blank log-probs a frame;
+    # a float32 confidence a line
+    n_bytes += n * (steps * (8 + 8 * 8 + 8 * 4 + 4) + 4)
+    bound = max(1e3 * flops / FP32_OPS_PER_S, 1e3 * n_bytes / HBM_BYTES_PER_S)
+    print(f"  cuDNN {torch.backends.cudnn.version()}; TF32 off in every setting below",
+          flush=True)
+    # a channels_last input alone leaves conv0 (Cin 1), and so every later
+    # layer, in NCHW: the weights go channels_last too
+    nhwc_params = _tree_map(lambda t: t.contiguous(memory_format=torch.channels_last)
+                            if t.dim() == 4 else t, eng._params)
+    engine_convs = {}
+    for k, (variant, (fmt, cudnn, autotune)) in enumerate(OCR_VARIANTS.items()):
+        params = nhwc_params if fmt == torch.channels_last else eng._params
+
+        def half(rows_):
+            with ocr_flags(cudnn, autotune):
+                return infer_rows(params, eng._state,
+                                  rows_.contiguous(memory_format=fmt), arch=eng.arch)
+
+        def run(rows_):
+            out = half(torch.from_numpy(rows_).to(eng.device)[:, None])
+            return [t.cpu().numpy() for t in out]
+
+        ms = cuda_ms(lambda: half(x), iters=20 if k == 0 else 10)
+        r = ocr_rows_compare(fix, run)
+        print(f"  recognizer device half, b{n} lines (CRNN {eng.arch} + log-softmax, argmax, "
+              f"top-8), {variant}: {ms:.4f} ms a call (CUDA events) vs float32 bound "
+              f"{bound:.4f} ms ({flops / 1e9:.1f} GFLOP at 67 TFLOP/s; "
+              f"{100 * bound / ms:.1f}% of bound) [{card}]", flush=True)
+        print(f"    on JAX's rows: ids equal on clear frames {r['ids']}, max |d log-prob| "
+              f"{r['lp_err']:.3g}, max |d conf| {r['conf_err']:.3g}, top-8 ids equal where "
+              f"apart {r['topk']}; each conv alone on random input of its shape "
+              f"(device ms a call, torch.profiler; operations bound; slowest kernel):",
+              flush=True)
+        for name, cp, shape, macs in layers:
+            lms, kernel = ocr_conv_alone(cp, shape, fmt, cudnn, autotune)
+            if k == 0:
+                engine_convs[name] = lms
+            print(f"    {name} {shape} * {tuple(cp['weight'].shape)}: {lms:.4f} ms "
+                  f"({1e3 * 2 * macs / FP32_OPS_PER_S:.4f} ms; {kernel[:64]})", flush=True)
+    # the engine's two slowest convs at b128: whether cuDNN's choice changes
+    # with the batch
+    for name, cp, shape, _ in sorted(layers, key=lambda lay: -engine_convs[lay[0]])[:2]:
+        lms, kernel = ocr_conv_alone(cp, (SERVE_BATCH,) + shape[1:],
+                                     *OCR_VARIANTS["NCHW, cuDNN heuristics (the engine's)"])
+        print(f"    {name} at b{SERVE_BATCH}, the engine's settings: {lms:.4f} ms "
+              f"({kernel[:64]}); at b{n} {engine_convs[name]:.4f} ms", flush=True)
+    infer, cmap = eng._infer, detector._classical_map
+    spent = {"recognizer": [], "detector": []}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            spent[key].append(time.perf_counter() - t)
+            return out
+        return call
+
+    eng._infer = timed(infer, "recognizer")
+    detector._classical_map = timed(cmap, "detector")
+    try:
+        for policy in ("cascade", "greedy"):
+            eng.decode = policy
+            eng.read_batch(crops[:8], modes=modes[:8])  # warm-up
+            for v in spent.values():
+                v.clear()
+            t = time.perf_counter()
+            res = eng.read_batch(crops, modes=modes)
+            dt = time.perf_counter() - t
+            if len(res) != OCR_BATCH or not sum(bool(r.text) for r in res):
+                raise AssertionError(f"b{OCR_BATCH} read_batch {policy}: nothing read")
+            rec, det = sum(spent["recognizer"]), sum(spent["detector"])
+            print(f"  read_batch b{OCR_BATCH} lines, {policy}, host steps included: "
+                  f"{OCR_BATCH / dt:.1f} lines/s ({1e3 * dt:.1f} ms; "
+                  f"{len(spent['recognizer'])} recognizer calls {1e3 * rec:.1f} ms with "
+                  f"their copies; {len(spent['detector'])} classical detector maps "
+                  f"{1e3 * det:.1f} ms with the page pad and copies; share outside both "
+                  f"{1 - (rec + det) / dt:.3f}) [{card}]", flush=True)
+    finally:
+        eng._infer = infer
+        detector._classical_map = cmap
+        eng.decode = "cascade"
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
 def main():
     ph = Phases()
     name, card = ph.run(1, "device", phase_device)
@@ -1878,6 +2298,10 @@ def main():
                           phase_dma_kernels, fix8)
     dma_times = ph.run(16, "K3b, K3a, K4b and K7a timing at the flagship shape",
                        time_dma_kernels, card)
+
+    eng, ocr_fix = ph.run(17, "recognition stack vs JAX on the card", phase_ocr, fix)
+    ph.run(18, f"b{OCR_BATCH} recognition throughput", phase_ocr_throughput, eng,
+           ocr_fix, card)
 
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
              launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]

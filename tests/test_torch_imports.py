@@ -25,6 +25,8 @@ for m in mods:
 from twinvoice_tpu_torch.ops.nhwc_conv import (pad_nhwc, qconv3x3_nhwc_dma,
     qconv3x3_nhwc_requant, qconv3x3_pair_dma)
 from twinvoice_tpu_torch.ops.qconv import qconv3x3_requant_dma
+from twinvoice_tpu_torch.ocr.torchocr import TorchOcrEngine
+from twinvoice_tpu_torch.ocr.torchocr.detector import detect_lines, read_page
 import chip_smoke
 loaded = [m for m, v in sys.modules.items()
           if v is not None and m.split(".")[0] in {BLOCKED!r}]
@@ -37,7 +39,48 @@ def test_port_and_chip_smoke_import_without_jax_pil_cv2():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 21  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 32  # every module was imported
+
+
+_READ_WITHOUT_CV2 = f"""
+import sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+import numpy as np
+from twinvoice_tpu_torch.ocr.torchocr.detector import detect_lines, read_page
+from twinvoice_tpu_torch.ocr.torchocr.engine import TorchOcrEngine
+rng = np.random.default_rng(0)
+page = np.full((200, 300), 235, np.uint8)
+for y in (20, 90, 150):  # three dark "text lines" of blobs
+    for x in range(20, 260, 14):
+        page[y:y + 14, x:x + 9] = rng.integers(0, 60)
+eng = TorchOcrEngine(device="cpu")
+assert eng.available()
+rgb = np.repeat(page[..., None], 3, axis=-1)
+for mode in ("text", "amount", "invoice", "date"):
+    for decode in ("greedy", "beam_lm", "cascade"):
+        eng.decode = decode
+        out = eng.read_batch([page, rgb, page[10:40]], modes=[mode] * 3)
+        assert len(out) == 3
+for method in ("classical", "learned", "hybrid"):
+    assert len(detect_lines(page, method=method, device="cpu")) >= 2
+read_page(rgb, eng)
+loaded = [m for m, v in sys.modules.items()
+          if v is not None and m.split(".")[0] in {BLOCKED!r}]
+assert not loaded, loaded
+print("read")
+"""
+
+
+def test_recognition_stack_runs_without_jax_pil_cv2():
+    """Every host step of the engine and the detector (split, prepare, the
+    amount variants, the rescue variants, the three decoders, all map
+    methods) runs with JAX, the JAX package, Pillow and OpenCV blocked, as on
+    the card's machine."""
+    out = subprocess.run([sys.executable, "-c", _READ_WITHOUT_CV2], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "read"
 
 
 def test_find_nvcc_names_every_place_it_looked(monkeypatch, tmp_path):
