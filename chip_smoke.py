@@ -6,7 +6,8 @@
 Phases, each printing one line with its wall time:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit
-2. build every CUDA kernel of the port from ``twinvoice_tpu_torch/csrc``
+2. build every CUDA kernel of the port from ``twinvoice_tpu_torch/csrc``, and
+   the QR decoder from ``native/qrdecode.cpp`` beside them
 3. K1 (``ops.bbox_postprocess``) against its plain PyTorch version on the
    card: exact equality of boxes and valid flags on planted rectangles
    (float32 and bfloat16), all-below and all-above logits, H≠W, odd widths,
@@ -112,6 +113,24 @@ Phases, each printing one line with its wall time:
     engine's two slowest convs at b128; and ``read_batch``'s lines/s with its
     host steps under "cascade" and "greedy", with the recognizer's and the
     classical detector's device calls timed apart from the rest
+19. field fusion and the QR pipeline (``fusion``, ``qr``; no kernel of their
+    own) against the JAX extractor's outputs in
+    ``tests/data/torch_smoke_fusion.npz``: the bundled w16 segmenter at fp32,
+    ``QrPipeline()`` (its C++ decoder built in phase 2) and
+    ``TorchOcrEngine()`` on the four RGB fixture pages, through
+    ``extract_batch`` under the default ``FusionConfig`` (QR on, gray upload,
+    two chunks), ``extract_batch`` with QR off, ``extract`` on each page, and
+    ``extract`` with a segmenter that finds no field (the full-page read):
+    ``qr_raw`` and ``items`` equal to JAX's on every page, every meta field
+    (failures as ``(stage, error)``) equal on every page whose port boxes
+    are JAX's (the others listed); no page needs the OpenCV region pass;
+    then ``extract_batch`` on the int8 "pallas" route, its fields counted
+    against the fp32 run's (not a gate)
+20. a bulk batch of 128 pages tiled from the fixture: ``extract_batch`` at
+    the segmenter's default dtype (bf16) and the default ``FusionConfig``,
+    the cache cleared before each timed call: invoices/s, and each stage's
+    share of the call (``StageTimer``: the QR scans, the segmenter call and
+    its prep, upload, dispatch and fetch, the OCR)
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -122,6 +141,10 @@ route runs K3a, K3b, K4b or K7a). Phase 15's w64 enc0 path is driven the same
 way, and each of the four must have launched there. Phase 17's chained path
 is driven the same way: its one ``segment_batch`` call must launch K1 once
 and nothing else (the recognition stack itself runs none of the kernels).
+So is each route of phase 19 and phase 20's timed calls: K1 once per
+segmenter call (two per chunked ``extract_batch``, one per ``extract``) and
+nothing else, and on the int8 "pallas" route K4a, K6 and K2 their route
+counts per segmenter call. The kernel rows' launches sum every such path.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
 only. Without a CUDA device, or if any phase fails, it exits non-zero and
@@ -146,6 +169,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from twinvoice_tpu_torch import _build  # noqa: E402
+from twinvoice_tpu_torch.config import FusionConfig  # noqa: E402
 from twinvoice_tpu_torch.infer.pipeline import crop_fields  # noqa: E402
 from twinvoice_tpu_torch.infer.postprocess import (  # noqa: E402
     bbox_from_probs,
@@ -244,7 +268,17 @@ def phase_device():
 
 
 def phase_build():
-    for name, path in _build.build().items():
+    """The CUDA kernels (one nvcc each) and the QR decoder (the host C++
+    compiler), all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from twinvoice_tpu_torch.qr import native as qr_native
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        qr_lib = pool.submit(qr_native.build)
+        built = _build.build()
+        built["qrdecode"] = qr_lib.result()
+    for name, path in built.items():
         print(f"built {name}: {os.path.relpath(path, ROOT)}", flush=True)
 
 
@@ -2231,6 +2265,290 @@ def phase_ocr_throughput(eng, fix, card):
         eng.decode = "cascade"
 
 
+# -- phases 19-20: field fusion and the QR pipeline -------------------------
+
+
+FUSION_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_fusion.npz")
+# route → FusionConfig keywords; "batch*" drive extract_batch, the others
+# extract, "fallback" with a segmenter that finds no field
+FUSION_ROUTES = {"batch": {}, "batch_noqr": {"use_qr": False}, "single": {},
+                 "fallback": {"use_qr": False}}
+FUSION_BATCH = SERVE_BATCH  # pages of phase 20's bulk call
+FUSION_REPS = 5
+FUSION_STAGES = ("fusion.qr_scan_submit", "fusion.qr_scan", "fusion.segment",
+                 "segment.prep", "segment.h2d", "segment.dispatch", "segment.fetch",
+                 "fusion.ocr")
+
+
+def fusion_record(meta, items, qr_raw):
+    """An extractor's ``(meta, items, qr_raw)`` as plain JSON data: the
+    failures as ``[stage, error]`` (their time stamps and details differ run
+    to run)."""
+    meta = dict(meta, failures=[[f["stage"], f["error"]] for f in meta["failures"]])
+    return json.loads(json.dumps({"meta": meta, "items": items, "qr_raw": list(qr_raw)},
+                                 ensure_ascii=False))
+
+
+class NoFieldSegmenter:
+    """A segmenter that finds no field (both packages' entry points), so
+    ``extract`` falls back to reading the whole page."""
+
+    def segment_array(self, page):
+        from twinvoice_tpu_torch import FIELDS
+
+        return {}, {f: None for f in FIELDS}
+
+    segment_pil = segment_array
+
+
+def fusion_fixture():
+    with np.load(FUSION_FIXTURE) as z:
+        fix = {k: z[k] for k in z.files}
+    for route in FUSION_ROUTES:
+        fix[f"jax_{route}"] = json.loads(str(fix[f"jax_{route}"]))
+    return fix
+
+
+def fusion_boxes(seg, pages):
+    """The port's boxes for the pages as the extractor's segmenter calls make
+    them: extract_batch's (gray INTER_AREA prep, ``h2d_chunks`` chunks) and
+    extract's (``segment_array``'s bicubic resize). → {"batch": (boxes, ok),
+    "single": (boxes, ok)}, numpy."""
+    from twinvoice_tpu_torch.ops.host_image import (
+        resize_area_u8,
+        resize_pil_bicubic,
+        rgb_to_gray,
+    )
+
+    size = seg.cfg.img_size
+    sizes = np.asarray([(p.shape[1], p.shape[0]) for p in pages], np.int32)
+    _, boxes, ok = seg._segment_host(
+        lambda a, b: np.stack([resize_area_u8(rgb_to_gray(p), size, size)
+                               for p in pages[a:b]]),
+        sizes, return_masks=False, h2d_chunks=FusionConfig().h2d_chunks)
+    single = [seg._segment_one(resize_pil_bicubic(p, size, size), *sz)[1:]
+              for p, sz in zip(pages, sizes)]
+    return {"batch": (boxes, ok),
+            "single": (np.stack([b for b, _ in single]), np.stack([o for _, o in single]))}
+
+
+def fusion_same_boxes(fix, boxes):
+    """Per route, per page: whether the port's boxes and ok flags for the page
+    are JAX's (the fallback route segments nothing: all True)."""
+    n = len(fix["pages"])
+    same = {"fallback": [True] * n}
+    for kind in ("batch", "single"):
+        b, o = boxes[kind]
+        same[kind] = [bool(np.array_equal(b[i], fix[f"boxes_{kind}"][i])
+                           and np.array_equal(o[i], fix[f"ok_{kind}"][i]))
+                      for i in range(n)]
+    return {route: same["batch" if route.startswith("batch") else route]
+            for route in FUSION_ROUTES}
+
+
+def fusion_run(route, seg, qr, eng, pages):
+    """One route of FUSION_ROUTES through the port's extractor. → the
+    records (:func:`fusion_record`) of the pages."""
+    from twinvoice_tpu_torch.fusion.extract import InvoiceExtractor
+
+    ex = InvoiceExtractor(NoFieldSegmenter() if route == "fallback" else seg, qr,
+                          [eng], cfg=FusionConfig(**FUSION_ROUTES[route]))
+    res = (ex.extract_batch(list(pages)) if route.startswith("batch")
+           else [ex.extract(p) for p in pages])
+    return [fusion_record(*r) for r in res]
+
+
+def fusion_check(fix, route, got, same_box):
+    """``qr_raw`` and ``items`` equal to JAX's on every page, every meta field
+    equal on every page whose port boxes are JAX's. → the other pages."""
+    want = fix[f"jax_{route}"]
+    if len(got) != len(want):
+        raise AssertionError(f"fusion {route}: {len(got)} results for {len(want)} pages")
+    other = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in ("qr_raw", "items"):
+            if g[key] != w[key]:
+                raise AssertionError(f"fusion {route} page {i}: {key} {g[key]} != JAX's "
+                                     f"{w[key]}")
+        if not same_box[i]:
+            other.append(i)
+        elif g["meta"] != w["meta"]:
+            diff = {k: (g["meta"].get(k), v) for k, v in w["meta"].items()
+                    if g["meta"].get(k) != v}
+            raise AssertionError(f"fusion {route} page {i}: meta (port, JAX) differs "
+                                 f"at {diff}")
+    return other
+
+
+def fusion_segment_calls(n):
+    """Segmenter calls a route makes on ``n`` pages: extract_batch splits
+    its batch into ``h2d_chunks`` when it holds two pages a chunk, extract
+    makes one a page, the fallback route none."""
+    chunks = FusionConfig().h2d_chunks
+    batch = chunks if n >= 2 * chunks else 1
+    return {"batch": batch, "batch_noqr": batch, "single": n, "fallback": 0}
+
+
+def fusion_routes_check(fix, seg, qr, eng, expect_k1=True):
+    """Every route of FUSION_ROUTES on the fixture pages against JAX's, each
+    driven with the launch counts zeroed just before and read just after:
+    K1 once per segment call (2 for a chunked extract_batch, 1 per extract,
+    0 on the fallback) and nothing else (``expect_k1=False``: no launch at
+    all, the CPU). → {route: (records, pages not on JAX's boxes, launches)}."""
+    same = fusion_same_boxes(fix, fusion_boxes(seg, fix["pages"]))
+    calls = fusion_segment_calls(len(fix["pages"]))
+    out = {}
+    for route in FUSION_ROUTES:
+        _build.launches.clear()
+        got = fusion_run(route, seg, qr, eng, fix["pages"])
+        launches = dict(_build.launches)
+        want = {k1.NAME: calls[route]} if expect_k1 and calls[route] else {}
+        if launches != want:
+            raise AssertionError(f"fusion {route}: launches {launches}, expected {want}")
+        other = fusion_check(fix, route, got, same[route])
+        out[route] = (got, other, launches)
+    return out
+
+
+def meta_fields_agree(a, b):
+    """Meta fields (failures aside), items and payloads equal between two
+    runs' records. → (equal, compared)."""
+    keys = [k for k in a[0]["meta"] if k != "failures"]
+    eq = sum(x["meta"][k] == y["meta"][k] for x, y in zip(a, b) for k in keys)
+    eq += sum(x[k] == y[k] for x, y in zip(a, b) for k in ("items", "qr_raw"))
+    return eq, len(a) * (len(keys) + 2)
+
+
+def phase_fusion(fix8):
+    """Phase 19: the port's InvoiceExtractor on the fixture pages against the
+    JAX extractor's outputs, on every route; then extract_batch on the int8
+    "pallas" route."""
+    from twinvoice_tpu_torch.ocr.torchocr.engine import TorchOcrEngine
+    from twinvoice_tpu_torch.qr import detect as qr_detect
+
+    fix = fusion_fixture()
+    seg = load_pretrained_segmenter(torch.float32)
+    qr = qr_detect.QrPipeline()
+    eng = TorchOcrEngine()
+    qr_detect.passes.clear()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        out = fusion_routes_check(fix, seg, qr, eng)
+    passes = dict(qr_detect.passes)
+    if passes.get("regions", 0) or passes.get("regions_skipped", 0):
+        raise AssertionError(f"a page needed the QR region pass: {passes}")
+    launches = {}
+    for route, (got, other, n) in out.items():
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"  {route}: qr_raw and items equal to JAX's on {len(got)} pages; every "
+              f"meta field equal on the {len(got) - len(other)} pages whose port boxes "
+              f"are JAX's (others: {other or 'none'}); launches {n}", flush=True)
+    print(f"  QR passes over every route: {passes} (no region pass, no OpenCV step)",
+          flush=True)
+    for i, rec in enumerate(out["single"][0]):
+        m = rec["meta"]
+        print(f"    page {i}: {m['invoice_no']} ({m['source']}), {m['date']} "
+              f"({m['date_source']}), {m['total_amount']}; items {rec['items']}",
+              flush=True)
+    for i, rec in enumerate(out["fallback"][0]):
+        m = rec["meta"]
+        print(f"    page {i} full-page fallback: {m['invoice_no']} ({m['source']}), "
+              f"{m['date']} ({m['date_source']})", flush=True)
+    scales = quant.scales_from_array(fix8["scales"])
+    s8 = load_pretrained_segmenter(torch.float32, variant="w16", int8_scales=scales,
+                                   **ROUTE_ARGS["pallas"])
+    calls = fusion_segment_calls(len(fix["pages"]))["batch"]
+    (got8, _), n8 = counted("pallas (extract_batch)", ROUTE_KERNELS["pallas"], calls,
+                            lambda: (fusion_run("batch", s8, qr, eng, fix["pages"]), None))
+    for k, v in n8.items():
+        launches[k] = launches.get(k, 0) + v
+    eq, total = meta_fields_agree(got8, out["batch"][0])
+    print(f"  int8 pallas route, extract_batch: launches {n8} ({calls} segment calls); "
+          f"{eq} of {total} fields equal to the fp32 run's (not a gate)", flush=True)
+    return fix, launches
+
+
+def phase_fusion_throughput(fix, card):
+    """Phase 20: extract_batch on FUSION_BATCH pages tiled from the fixture,
+    the bundled w16 segmenter at its default dtype (bf16), the default
+    FusionConfig, the cache cleared before each timed call: invoices/s and
+    each stage's share of the call (StageTimer). → K1's launches."""
+    from twinvoice_tpu_torch.fusion.extract import InvoiceExtractor
+    from twinvoice_tpu_torch.ocr.torchocr.engine import TorchOcrEngine
+    from twinvoice_tpu_torch.qr.detect import QrPipeline
+    from twinvoice_tpu_torch.utils.tracing import get_timer
+
+    pages = [fix["pages"][i % len(fix["pages"])] for i in range(FUSION_BATCH)]
+    seg = load_pretrained_segmenter()
+    ex = InvoiceExtractor(seg, QrPipeline(), [TorchOcrEngine()], cfg=FusionConfig())
+    ex.extract_batch(pages)  # warm-up
+    timer = get_timer()
+    _build.launches.clear()
+    rates, shares = [], {}
+    for _ in range(FUSION_REPS):
+        ex.clear_cache()
+        timer.reset()
+        t = time.perf_counter()
+        res = ex.extract_batch(pages)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        rates.append(FUSION_BATCH / dt)
+        stats = timer.stats()
+        shares = {k: stats[k]["total_s"] / dt for k in FUSION_STAGES if k in stats}
+        want = fix["jax_batch"]
+        bad = [i for i, (meta, _, qr_raw) in enumerate(res)
+               if qr_raw != want[i % len(want)]["qr_raw"] or not meta["total_amount"]]
+        if bad:
+            raise AssertionError(f"phase 20: qr_raw differs from JAX's, or no amount, "
+                                 f"at pages {bad}")
+        print(f"  b{FUSION_BATCH} extract_batch: {FUSION_BATCH / dt:.2f} invoices/s "
+              f"({1e3 * dt:.1f} ms; stage shares "
+              + ", ".join(f"{k} {v:.3f}" for k, v in shares.items()) + f") [{card}]",
+              flush=True)
+    launches = dict(_build.launches)
+    chunks = FusionConfig().h2d_chunks
+    if launches != {k1.NAME: chunks * FUSION_REPS}:
+        raise AssertionError(f"phase 20: launches {launches}, expected K1 "
+                             f"{chunks * FUSION_REPS}")
+    print(f"  invoices/s over {FUSION_REPS} calls: median {sorted(rates)[len(rates) // 2]:.2f}; "
+          f"qr_raw equal to JAX's on every page; launches {launches}; the last call's "
+          f"stages (host wall time of each span):", flush=True)
+    for line in timer.report().splitlines():
+        print(f"    {line}", flush=True)
+    host_steps_alone(ex, pages, card)
+    return launches
+
+
+def host_steps_alone(ex, pages, card):
+    """The bulk call's host steps one at a time on the same pages, no thread
+    pool: the QR scans, the segmenter's numpy prep, and read_batch on the
+    crops of a segmenter call (whose own launches are not counted)."""
+    from twinvoice_tpu_torch.fusion.extract import _FIELD_MODES, _ocr_gray
+    from twinvoice_tpu_torch.ops.host_image import resize_area_u8, rgb_to_gray
+
+    size = ex.segmenter.cfg.img_size
+    times = {}
+    t = time.perf_counter()
+    for p in pages:
+        ex.qr.scan(p)
+    times["QR scans"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for p in pages:
+        resize_area_u8(rgb_to_gray(p), size, size)
+    times["segmenter prep"] = time.perf_counter() - t
+    crops = [c for _, c in ex.segmenter.segment_array_batch(
+        pages, return_masks=False, gray_h2d=True, h2d_chunks=FusionConfig().h2d_chunks)]
+    flat = [_ocr_gray(c.get(f)) for c in crops for f in _FIELD_MODES]
+    modes = [m for _ in crops for m in _FIELD_MODES.values()]
+    t = time.perf_counter()
+    ex.engines[0].read_batch(flat, modes=modes)
+    times["read_batch"] = time.perf_counter() - t
+    cores = len(os.sched_getaffinity(0))
+    print(f"  each host step alone on the {len(pages)} pages, serial ({cores} CPU cores): "
+          + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in times.items())
+          + f" [{card}]", flush=True)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -2302,6 +2620,20 @@ def main():
     eng, ocr_fix = ph.run(17, "recognition stack vs JAX on the card", phase_ocr, fix)
     ph.run(18, f"b{OCR_BATCH} recognition throughput", phase_ocr_throughput, eng,
            ocr_fix, card)
+    del eng
+
+    fusion_fix, fusion_launches = ph.run(19, "field fusion and the QR pipeline vs JAX "
+                                             "on the card", phase_fusion, fix8)
+    bulk_launches = ph.run(20, f"b{FUSION_BATCH} bulk extraction throughput",
+                           phase_fusion_throughput, fusion_fix, card)
+    for counts in (fusion_launches, bulk_launches):
+        for k, v in counts.items():
+            if k == k1.NAME:
+                launches[k] += v
+            else:
+                int8_launches[k] = int8_launches.get(k, 0) + v
+    print(f"  launches of K1 on the main path and phases 19-20: {launches[k1.NAME]}; "
+          f"on the int8 routes (phases 9-10, 13-14, 19): {int8_launches}", flush=True)
 
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
              launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]

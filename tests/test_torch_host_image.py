@@ -1,15 +1,18 @@
-"""PyTorch port: the numpy replacements of the OpenCV calls on the recognition
-stack's host path (``ops/host_image.py``) against ``cv2`` itself.
+"""PyTorch port: the numpy replacements of the OpenCV and Pillow calls on the
+host paths (``ops/host_image.py``) against ``cv2`` and Pillow themselves.
 
-Tolerance: none. Each replacement is bit-equal to its OpenCV call on every
-case here (gray, Otsu, linear and nearest resize, 2×2 erode, 3×3 Gaussian
-blur, connected components with their stats and their order), including
-1×N, N×1, empty and all-equal images.
+Tolerance: none. Each replacement is bit-equal to its call on every case here
+(gray, Otsu, linear and nearest resize, 2×2 erode, 3×3 Gaussian blur,
+connected components with their stats and their order; INTER_AREA on its
+three code paths, Pillow's luma and its default bicubic resize), including
+1×N, N×1, empty and all-equal images, on 1 and 3 channels where the call
+takes both.
 """
 
 import cv2
 import numpy as np
 import pytest
+from PIL import Image
 
 from twinvoice_tpu_torch.ops import host_image as hi
 
@@ -200,3 +203,106 @@ def test_connected_components_dilated_page_maps(shape):
 def test_connected_components_uniform_maps(fill):
     for shape in EDGE_SHAPES + [(50, 40)]:
         _check_components(np.full(shape, fill, np.uint8))
+
+
+def test_resize_linear_three_channels():
+    """The QR scan's last resort, ``cv2.resize(rgb, None, fx=2, fy=2)``, and
+    sized calls on RGB."""
+    rng = np.random.default_rng(11)
+    for h, w in EDGE_SHAPES + [(640, 440), (33, 64)]:
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        np.testing.assert_array_equal(
+            hi.resize_linear_u8(img, fx=2, fy=2),
+            cv2.resize(img, None, fx=2, fy=2, interpolation=cv2.INTER_LINEAR))
+        for width, height in ((2 * w + 1, 3 * h), (max(1, w // 3), h + 5)):
+            np.testing.assert_array_equal(
+                hi.resize_linear_u8(img, width, height),
+                cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR))
+
+
+def _check_area(img, *, dsize=None, f=None):
+    if dsize is not None:
+        got = hi.resize_area_u8(img, *dsize)
+        want = cv2.resize(img, dsize, interpolation=cv2.INTER_AREA)
+    else:
+        got = hi.resize_area_u8(img, fx=f[0], fy=f[1])
+        want = cv2.resize(img, None, fx=f[0], fy=f[1], interpolation=cv2.INTER_AREA)
+    assert got.shape == want.shape, (img.shape, dsize, f)
+    np.testing.assert_array_equal(got, want, err_msg=f"{img.shape} {dsize} {f}")
+
+
+AREA_SHAPES = [(640, 440), (480, 330), (101, 203), (64, 48), (31, 17), (7, 5),
+               (2, 2), (1, 9), (9, 1)]
+
+
+@pytest.mark.parametrize("channels", [0, 3])
+def test_resize_area_integer_shrink(channels):
+    """OpenCV's fast path: whole blocks (2×2 by a rounding shift, others by
+    a float32 mean), and the partial cells where the output reaches past the
+    last whole block (odd sizes at fx 0.5)."""
+    rng = np.random.default_rng(12 + channels)
+    for h, w in AREA_SHAPES:
+        img = rng.integers(0, 256, (h, w) + ((channels,) if channels else ()), dtype=np.uint8)
+        for f in ((0.5, 0.5), (0.25, 0.25), (1 / 3, 1 / 3), (0.5, 1.0), (1.0, 0.25)):
+            if round(w * f[0]) and round(h * f[1]):
+                _check_area(img, f=f)
+        for kx, ky in ((2, 2), (3, 3), (2, 3), (4, 1)):
+            if w >= kx and h >= ky:
+                _check_area(img, dsize=(w // kx, h // ky))
+
+
+@pytest.mark.parametrize("channels", [0, 3])
+def test_resize_area_general_shrink(channels):
+    """``resizeArea_``: non-integer shrinks on both axes, the QR pass's 0.75×
+    among them."""
+    rng = np.random.default_rng(14 + channels)
+    for h, w in AREA_SHAPES:
+        img = rng.integers(0, 256, (h, w) + ((channels,) if channels else ()), dtype=np.uint8)
+        for f in ((0.75, 0.75), (0.6, 0.9), (0.3, 0.45)):
+            if round(w * f[0]) and round(h * f[1]):
+                _check_area(img, f=f)
+        for width, height in ((max(1, 2 * w // 3), max(1, 4 * h // 5)), (max(1, w - 1), max(1, h - 2))):
+            if (width, height) != (w, h):
+                _check_area(img, dsize=(width, height))
+
+
+@pytest.mark.parametrize("channels", [0, 3])
+def test_resize_area_mixed_and_upscale(channels):
+    """A scale below 1 on either axis: the linear machinery on INTER_AREA's
+    taps (the segmenter's 440×640 → 512² grows x and shrinks y)."""
+    rng = np.random.default_rng(16 + channels)
+    for h, w in AREA_SHAPES:
+        img = rng.integers(0, 256, (h, w) + ((channels,) if channels else ()), dtype=np.uint8)
+        for dsize in ((512, 512), (64, 64), (2 * w + 3, max(1, h // 2)), (w + 1, h + 1), (37, 23)):
+            _check_area(img, dsize=dsize)
+        _check_area(img, f=(1.5, 0.8))
+
+
+def test_resize_area_flat():
+    for img in _images(18, EDGE_SHAPES + [(40, 60)], "flat"):
+        _check_area(img, dsize=(512, 512))
+        _check_area(img, f=(0.75, 0.75))
+        if img.shape[0] >= 2 and img.shape[1] >= 2:
+            _check_area(img, f=(0.5, 0.5))
+
+
+def test_pil_luma_random_rgb():
+    rng = np.random.default_rng(19)
+    rgb = rng.integers(0, 256, (512, 768, 3), dtype=np.uint8)
+    want = np.asarray(Image.fromarray(rgb).convert("L"))
+    np.testing.assert_array_equal(hi.pil_luma(rgb), want)
+    assert (hi.rgb_to_gray(rgb) != want).any()  # the two lumas are not one
+
+
+@pytest.mark.parametrize("shape", [(640, 440), (512, 512), (1000, 800), (31, 17),
+                                   (5, 3), (1, 1), (300, 700)])
+def test_resize_pil_bicubic(shape):
+    """Pillow's default resize of an RGB image (bicubic), shrinking,
+    growing and keeping each axis."""
+    rng = np.random.default_rng(shape[0])
+    img = rng.integers(0, 256, shape + (3,), dtype=np.uint8)
+    h, w = shape
+    for size in ((512, 512), (64, 64), (2 * w, h), (w, max(1, h // 2)), (17, 900)):
+        np.testing.assert_array_equal(hi.resize_pil_bicubic(img, *size),
+                                      np.asarray(Image.fromarray(img).resize(size)),
+                                      err_msg=f"{shape} -> {size}")

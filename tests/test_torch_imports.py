@@ -1,4 +1,5 @@
-"""PyTorch port: what the card's machine lacks is never imported, and the
+"""PyTorch port: what the card's machine lacks is never imported (the
+recognition stack and bulk extraction run end to end without it), and the
 kernel build finds nvcc, hashes its sources and reports failures."""
 
 import os
@@ -27,6 +28,8 @@ from twinvoice_tpu_torch.ops.nhwc_conv import (pad_nhwc, qconv3x3_nhwc_dma,
 from twinvoice_tpu_torch.ops.qconv import qconv3x3_requant_dma
 from twinvoice_tpu_torch.ocr.torchocr import TorchOcrEngine
 from twinvoice_tpu_torch.ocr.torchocr.detector import detect_lines, read_page
+from twinvoice_tpu_torch.fusion.extract import InvoiceExtractor
+from twinvoice_tpu_torch.qr.detect import QrPipeline
 import chip_smoke
 loaded = [m for m, v in sys.modules.items()
           if v is not None and m.split(".")[0] in {BLOCKED!r}]
@@ -81,6 +84,43 @@ def test_recognition_stack_runs_without_jax_pil_cv2():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-1] == "read"
+
+
+_EXTRACT_WITHOUT_CV2 = f"""
+import sys, warnings
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+import torch
+import chip_smoke
+from twinvoice_tpu_torch.config import FusionConfig
+from twinvoice_tpu_torch.fusion.extract import InvoiceExtractor
+from twinvoice_tpu_torch.models.pretrained import load_pretrained_segmenter
+from twinvoice_tpu_torch.ocr.torchocr.engine import TorchOcrEngine
+from twinvoice_tpu_torch.qr.detect import QrPipeline, passes
+fix = chip_smoke.fusion_fixture()
+seg = load_pretrained_segmenter(torch.float32, device="cpu")
+ex = InvoiceExtractor(seg, QrPipeline(), [TorchOcrEngine(device="cpu")], cfg=FusionConfig())
+with warnings.catch_warnings():
+    warnings.simplefilter("error")  # no OpenCV step was needed, so none skipped
+    out = ex.extract_batch(list(fix["pages"]))
+assert [chip_smoke.fusion_record(*r) for r in out] == fix["jax_batch"]
+assert dict(passes) == {{"gray_0.75": len(out)}}, dict(passes)
+loaded = [m for m, v in sys.modules.items()
+          if v is not None and m.split(".")[0] in {BLOCKED!r}]
+assert not loaded, loaded
+print("extracted")
+"""
+
+
+def test_extract_batch_runs_without_jax_pil_cv2():
+    """The bulk extraction route end to end (the QR library's build and
+    scan, the segmenter's numpy prep, the crops, the recognizer, the merge)
+    with JAX, the JAX package, Pillow and OpenCV blocked, as on the card's
+    machine, giving the JAX extractor's fields on the fixture pages."""
+    out = subprocess.run([sys.executable, "-c", _EXTRACT_WITHOUT_CV2], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "extracted"
 
 
 def test_find_nvcc_names_every_place_it_looked(monkeypatch, tmp_path):

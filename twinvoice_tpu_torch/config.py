@@ -1,6 +1,7 @@
-"""Configuration for the ported slice: copies of ``twinvoice_tpu.config``'s
-``UNetConfig`` and ``InferConfig`` (the port imports nothing of the JAX
-package, so it keeps its own). Defaults are the same values."""
+"""Configuration for the ported slices: copies of ``twinvoice_tpu.config``'s
+``UNetConfig``, ``InferConfig`` and ``FusionConfig`` (the port imports
+nothing of the JAX package, so it keeps its own). Defaults are the same
+values."""
 
 from __future__ import annotations
 
@@ -38,3 +39,25 @@ class InferConfig:
     black_crop_mean: float = 3.0  # reject crops with mean pixel < 3 (all-black)
     dtype: str = "float32"        # serving default overridden to bfloat16 by Segmenter
     batch_size: int = 32
+
+
+@dataclass(frozen=True)
+class FusionConfig:
+    """Field-fusion behavior (reference app_camera.py:736-878)."""
+
+    ocr_space_api_key: str = ""   # reference hardcodes a key (app_camera.py:68); we use env
+    use_qr: bool = True
+    use_ocr_space: bool = False   # network engine, off by default
+    use_local_ocr: bool = True
+    adjust_items_to_total: bool = True   # revived dead feature (app_camera.py:182)
+    auto_rotate: bool = True             # revived dead feature (app_camera.py:655)
+    full_page_fallback: bool = True      # detector+recognizer full-page scan
+    # when field crops yield nothing (EasyOCR readtext analogue, :817-833)
+    host_workers: int = 4                # extract_batch: QR scans run in a
+    # thread pool overlapped with the segmenter's device call (the native
+    # decoder releases the GIL)
+    gray_h2d: bool = True                # extract_batch: upload luminance and
+    # replicate it to RGB on the device — 3× fewer host→device bytes
+    h2d_chunks: int = 2                  # extract_batch: split the segmenter
+    # batch so that chunk k+1's host resize and upload run under chunk k's
+    # device compute (identical results)

@@ -37,8 +37,10 @@ Public layout is the JAX package's: NHWC uint8 images in; masks
 ``(B,3)`` bool out, as torch tensors on the segmenter's device.
 
 Pillow and OpenCV are imported only inside the PIL entry points, as the JAX
-package does; :func:`crop_fields` is the crop rule on numpy arrays, so a
-caller without either library can crop too.
+package does. The array entry points (``segment_array_batch``,
+``segment_array``) take uint8 RGB pages at their own sizes and do the host
+resize in numpy, exact to the JAX package's OpenCV and Pillow calls
+(``ops.host_image``); :func:`crop_fields` is the crop rule on numpy arrays.
 """
 
 from __future__ import annotations
@@ -71,6 +73,11 @@ from twinvoice_tpu_torch.infer.wpack import (
 from twinvoice_tpu_torch.models.unet import fold_unet, unet_apply_folded
 from twinvoice_tpu_torch.ops.bbox_postprocess import bbox_postprocess
 from twinvoice_tpu_torch.ops.head import bbox_from_rowcol_max
+from twinvoice_tpu_torch.ops.host_image import (
+    resize_area_u8,
+    resize_pil_bicubic,
+    rgb_to_gray,
+)
 from twinvoice_tpu_torch.ops.image import normalize_uint8, resize_bilinear
 
 INT8_HEADS = ("xla", "xla-bf16", "pallas")
@@ -152,6 +159,7 @@ class Segmenter:
         self.head_params = None  # the logits head's tensors, made once
         self.wpack_mode = None  # "full" or "enc" when the W-phase trunk serves
         self.nhwc_params = None  # the "nhwc" trunk's K7b operands when it serves
+        self._copy_stream = None  # the host-to-device copies' stream, on a card
         if int8_calib is not None or int8_scales is not None:
             folded32 = fold_unet(params, state, cfg=model_cfg, dtype=torch.float32,
                                  device=self.device)
@@ -273,63 +281,125 @@ class Segmenter:
             return self._run_from_raw(imgs_u8, orig_sizes)
         return self._run(imgs_u8, orig_sizes, return_masks)
 
-    def segment_pil_batch(self, pil_images, *, return_masks=True,
-                          gray_h2d=False):
-        """Batched PIL path: one device call segments all images; crops are
-        sliced per image on the host. → list of (masks, crops) pairs with
-        :meth:`segment_pil`'s contract. ``return_masks=False`` fetches only
-        the boxes. ``gray_h2d=True`` uploads luminance and replicates it to
-        three channels on the device (3× fewer host→device bytes).
-        """
+    def _upload(self, arrs, sizes):
+        """Host uint8 images and int32 (ow, oh) sizes → device tensors. On a
+        card they are copied from pinned memory on a side stream, so that the
+        copy runs under the compute already queued, and the compute stream
+        waits for it."""
+        x = torch.from_numpy(np.ascontiguousarray(arrs))
+        s = torch.from_numpy(np.ascontiguousarray(sizes, np.int32))
+        if self.device.type != "cuda":
+            return x.to(self.device), s.to(self.device)
+        x, s = x.pin_memory(), s.pin_memory()
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            dx = x.to(self.device, non_blocking=True)
+            ds = s.to(self.device, non_blocking=True)
+        compute.wait_stream(self._copy_stream)
+        dx.record_stream(compute)  # the allocator keeps them until it is done
+        ds.record_stream(compute)
+        return dx, ds
+
+    def _segment_host(self, prep, sizes, *, return_masks, h2d_chunks):
+        """The host-resize batch route: ``prep(a, b)`` gives items a..b as
+        uint8 (b − a, S, S[, 3]); ``sizes`` (n, 2) int32 (ow, oh). With
+        ``h2d_chunks > 1``, at least two items a chunk and box-only, the
+        batch is split as JAX's ``segment_pil_batch`` splits it
+        (``np.linspace``) and every chunk is dispatched before any is
+        fetched, so chunk k+1's prep and upload run under chunk k's device
+        work. → (mask or None, boxes, ok) as numpy, one call's results."""
         from twinvoice_tpu_torch.utils.tracing import trace_span
 
+        n = len(sizes)
+        if h2d_chunks > 1 and n >= 2 * h2d_chunks and not return_masks:
+            bounds = np.linspace(0, n, h2d_chunks + 1).astype(int)
+        else:
+            bounds = np.asarray([0, n])
+        pending = []
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            with trace_span("segment.prep"):
+                arrs = prep(a, b)
+            with trace_span("segment.h2d"):
+                dev, dev_sizes = self._upload(arrs, sizes[a:b])
+            with trace_span("segment.dispatch"):
+                pending.append(self._run(dev, dev_sizes, return_masks=return_masks))
+        with trace_span("segment.fetch"):
+            mask = (np.concatenate([m.cpu().numpy() for m, _, _ in pending])
+                    if return_masks else None)
+            boxes = np.concatenate([bx.cpu().numpy() for _, bx, _ in pending])
+            ok = np.concatenate([o.cpu().numpy() for _, _, o in pending])
+        return mask, boxes, ok
+
+    @staticmethod
+    def _field_masks(mask, bi):
+        return None if mask is None else {f: mask[bi, :, :, i] for i, f in enumerate(FIELDS)}
+
+    def segment_pil_batch(self, pil_images, *, return_masks=True,
+                          gray_h2d=False, h2d_chunks=1):
+        """Batched PIL path: one device call segments all images (one a
+        chunk with ``h2d_chunks``); crops are sliced per image on the host.
+        → list of (masks, crops) pairs with :meth:`segment_pil`'s contract.
+        ``return_masks=False`` fetches only the boxes. ``gray_h2d=True``
+        uploads luminance and replicates it to three channels on the device
+        (3× fewer host→device bytes). ``h2d_chunks`` (box-only) pipelines
+        the host resize and upload under the device work
+        (:meth:`_segment_host`); the results are one call's.
+        """
         size = self.cfg.img_size
         convert = "L" if gray_h2d else "RGB"
 
         try:  # host resize with OpenCV when present, else Pillow
             import cv2
 
-            def prep(imgs):
-                out = []
-                for im in imgs:
-                    arr = np.asarray(im.convert("RGB"))
-                    if gray_h2d:
-                        arr = cv2.cvtColor(arr, cv2.COLOR_RGB2GRAY)
-                    out.append(cv2.resize(arr, (size, size),
-                                          interpolation=cv2.INTER_AREA))
-                return np.stack(out)
+            def prep1(im):
+                arr = np.asarray(im.convert("RGB"))
+                if gray_h2d:
+                    arr = cv2.cvtColor(arr, cv2.COLOR_RGB2GRAY)
+                return cv2.resize(arr, (size, size), interpolation=cv2.INTER_AREA)
         except ImportError:
 
-            def prep(imgs):
-                return np.stack([
-                    np.asarray(im.convert(convert).resize((size, size)),
-                               np.uint8)
-                    for im in imgs
-                ])
+            def prep1(im):
+                return np.asarray(im.convert(convert).resize((size, size)), np.uint8)
 
-        with trace_span("segment.prep"):
-            arrs = prep(pil_images)
         sizes = np.asarray([im.size for im in pil_images], np.int32)
-        with trace_span("segment.dispatch"):
-            mask, boxes, ok = self._run(arrs, sizes, return_masks=return_masks)
-        with trace_span("segment.fetch"):
-            if return_masks:
-                mask = mask.cpu().numpy()
-            boxes = boxes.cpu().numpy()
-            ok = ok.cpu().numpy()
+        mask, boxes, ok = self._segment_host(
+            lambda a, b: np.stack([prep1(im) for im in pil_images[a:b]]), sizes,
+            return_masks=return_masks, h2d_chunks=h2d_chunks)
+        return [(self._field_masks(mask, bi),
+                 _pil_crops(im, boxes[bi], ok[bi], self.cfg.black_crop_mean))
+                for bi, im in enumerate(pil_images)]
 
-        out = []
-        for bi, pil_img in enumerate(pil_images):
-            masks = (
-                {f: mask[bi, :, :, i] for i, f in enumerate(FIELDS)}
-                if return_masks else None
-            )
-            crops = _pil_crops(pil_img, boxes[bi], ok[bi],
-                               self.cfg.black_crop_mean)
-            out.append((masks, crops))
-        return out
+    def segment_array_batch(self, pages, *, return_masks=True, gray_h2d=False,
+                            h2d_chunks=1):
+        """:meth:`segment_pil_batch` on uint8 (H, W, 3) RGB pages at their
+        own sizes, without Pillow or OpenCV: the host prep is the JAX
+        package's OpenCV branch in numpy (``rgb_to_gray`` when ``gray_h2d``,
+        then ``resize_area_u8`` to S²), and the crops are
+        :func:`crop_fields` views of the pages."""
+        size = self.cfg.img_size
 
-    # -- single-image PIL API (reference-parity surface) -------------------
+        def prep1(page):
+            return resize_area_u8(rgb_to_gray(page) if gray_h2d else page, size, size)
+
+        sizes = np.asarray([(p.shape[1], p.shape[0]) for p in pages], np.int32)
+        mask, boxes, ok = self._segment_host(
+            lambda a, b: np.stack([prep1(p) for p in pages[a:b]]), sizes,
+            return_masks=return_masks, h2d_chunks=h2d_chunks)
+        return [(self._field_masks(mask, bi),
+                 crop_fields(page, boxes[bi], ok[bi], self.cfg.black_crop_mean))
+                for bi, page in enumerate(pages)]
+
+    # -- single-image API (reference-parity surface) -----------------------
+
+    def _segment_one(self, small, ow, oh):
+        """One host-resized (S, S, 3) uint8 image of an (ow, oh) original →
+        (masks dict, boxes (3, 4), ok (3,)) on the host."""
+        mask, boxes, ok = self._run(small[None], np.asarray([[ow, oh]], np.int32))
+        mask = mask[0].cpu().numpy()
+        masks = {f: mask[:, :, i] for i, f in enumerate(FIELDS)}
+        return masks, boxes[0].cpu().numpy(), ok[0].cpu().numpy()
 
     def segment_pil(self, pil_img):
         """→ ``(masks: dict[field, bool (S,S)], crops: dict[field, PIL|None])``.
@@ -338,13 +408,16 @@ class Segmenter:
         does; the model and the boxes run on the device.
         """
         size = self.cfg.img_size
-        ow, oh = pil_img.size
-        small = pil_img.convert("RGB").resize((size, size))
-        arr = np.asarray(small, np.uint8)[None]
-        sizes = np.asarray([[ow, oh]], np.int32)
-        mask, boxes, ok = self._run(arr, sizes)
-        mask = mask[0].cpu().numpy()
-        boxes = boxes[0].cpu().numpy()
-        ok = ok[0].cpu().numpy()
-        masks = {f: mask[:, :, i] for i, f in enumerate(FIELDS)}
+        small = np.asarray(pil_img.convert("RGB").resize((size, size)), np.uint8)
+        masks, boxes, ok = self._segment_one(small, *pil_img.size)
         return masks, _pil_crops(pil_img, boxes, ok, self.cfg.black_crop_mean)
+
+    def segment_array(self, page):
+        """:meth:`segment_pil` on a uint8 (H, W, 3) RGB page, without
+        Pillow: the resize is Pillow's default bicubic in numpy
+        (``resize_pil_bicubic``), and the crops are :func:`crop_fields`
+        views of the page."""
+        size = self.cfg.img_size
+        small = resize_pil_bicubic(page, size, size)
+        masks, boxes, ok = self._segment_one(small, page.shape[1], page.shape[0])
+        return masks, crop_fields(page, boxes, ok, self.cfg.black_crop_mean)

@@ -1,15 +1,19 @@
-"""Host image steps of the recognition stack in numpy, for a machine without
-OpenCV.
+"""Host image steps in numpy, for a machine without OpenCV or Pillow.
 
-The JAX package's recognizer and detector call OpenCV on the host
-(``ocr/jaxocr/engine.py``, ``detector.py``, ``textness.py``). Each function
-here computes what that call computes on uint8 (or float32) arrays, with
-OpenCV's own fixed-point arithmetic where it has one, so the strings and boxes
-the port reads are the JAX package's. ``tests/test_torch_host_image.py``
-holds each against ``cv2`` on seeded sweeps.
+The JAX package calls OpenCV and Pillow on the host: the recognizer and
+detector (``ocr/jaxocr/engine.py``, ``detector.py``, ``textness.py``), the
+segmenter's host resize (``infer/pipeline.py``) and the QR scan
+(``qr/detect.py``). Each function here computes what that call computes on
+uint8 (or float32) arrays, with the library's own fixed-point or float32
+arithmetic where it has one, so the boxes, strings and payloads the port
+reads are the JAX package's. ``tests/test_torch_host_image.py`` holds each
+against ``cv2`` or Pillow on seeded sweeps.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import numpy as np
 
@@ -68,15 +72,29 @@ def otsu_threshold(gray: np.ndarray):
     return max_val, binary
 
 
-def _linear_taps(src: int, dst: int):
-    """Source index and 11-bit coefficient pair of each output position of
-    a linear resize ``src`` → ``dst`` samples (OpenCV's pixel-centre rule:
-    ``f = (d + 0.5)·src/dst − 0.5`` rounded to float32)."""
-    scale = 1.0 / (dst / src)
+def _linear_taps(src: int, dst: int, inv_scale: float):
+    """Source index and float32 weight of each output position of a linear
+    resize ``src`` → ``dst`` samples (OpenCV's pixel-centre rule:
+    ``f = (d + 0.5)·scale − 0.5`` rounded to float32, ``scale = 1 /
+    inv_scale``)."""
+    scale = 1.0 / inv_scale
     f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
     s = np.floor(f).astype(np.int64)
     f = f - s.astype(np.float32)
     return s, f
+
+
+def _area_taps(dst: int, inv_scale: float):
+    """INTER_AREA's taps where it is emulated by the linear machinery (a
+    scale below 1 on either axis): ``s = floor(d·scale)`` and ``f = (d + 1) −
+    (s + 1)/scale`` in float32, 0 where it is not positive, else its
+    fractional part."""
+    scale = 1.0 / inv_scale
+    d = np.arange(dst)
+    s = np.floor(d * scale).astype(np.int64)
+    f = ((d + 1) - (s + 1) * inv_scale).astype(np.float32)
+    f = np.where(f <= 0, np.float32(0), f - np.floor(f).astype(np.float32))
+    return s, f.astype(np.float32)
 
 
 def _coef(f):
@@ -86,16 +104,13 @@ def _coef(f):
             np.rint(f * np.float32(_COEF_SCALE)).astype(np.int64))
 
 
-def resize_linear_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
-    """uint8 (H, W) → uint8 (height, width), as ``cv2.resize(img, (width,
-    height), interpolation=cv2.INTER_LINEAR)``: a horizontal pass into
-    integer rows at 11-bit coefficients, then a vertical pass that rounds
-    the 22-bit sums back to uint8 the way OpenCV's vector loop does."""
-    _require_pixels(img, "resize_linear_u8")
-    h, w = img.shape
-    if (h, w) == (height, width):
-        return img.copy()
-    sx, fx = _linear_taps(w, width)
+def _two_tap_resize(img: np.ndarray, xtaps, ytaps) -> np.ndarray:
+    """OpenCV's fixed-point two-tap resize of uint8 (H, W) or (H, W, C) on
+    the given taps: a horizontal pass into integer rows at 11-bit
+    coefficients, then a vertical pass that rounds the 22-bit sums back to
+    uint8 the way OpenCV's vector loop does. Channels are independent."""
+    h, w = img.shape[:2]
+    sx, fx = xtaps
     # columns left of the first sample and right of the last take the edge
     # pixel at full weight
     lo = sx < 0
@@ -105,21 +120,244 @@ def resize_linear_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
     fx = np.where(hi, np.float32(0), fx)
     sx = np.where(hi, w - 1, sx)
     a0, a1 = _coef(fx)
+    extra = (None,) * (img.ndim - 2)  # broadcast the taps over channels
+    cols = (slice(None),) + extra
+    a0, a1, hi = a0[cols], a1[cols], hi[cols]
     src = img.astype(np.int64)
     rows = src[:, sx] * a0 + src[:, np.minimum(sx + 1, w - 1)] * a1
     rows = np.where(hi, src[:, sx] * _COEF_SCALE, rows)
-    # rows: (h, width) with 11 fractional bits; the vertical taps are not
-    # clamped, their rows are
-    sy, fy = _linear_taps(h, height)
+    # rows: (h, width[, C]) with 11 fractional bits; the vertical taps are
+    # not clamped, their rows are
+    sy, fy = ytaps
     b0, b1 = _coef(fy)
     r0 = rows[np.clip(sy, 0, h - 1)]
     r1 = rows[np.clip(sy + 1, 0, h - 1)]
-    b0, b1 = b0[:, None], b1[:, None]
+    b0, b1 = b0[(slice(None), None) + extra], b1[(slice(None), None) + extra]
     # OpenCV's vector loop: 16-bit high products of the rows shifted by 4,
     # a saturating add, then a rounding shift by 2
     v = (((r0 >> 4) * b0) >> 16) + (((r1 >> 4) * b1) >> 16)
     v = (np.clip(v, -32768, 32767) + 2) >> 2
     return np.clip(v, 0, 255).astype(np.uint8)
+
+
+def _dsize(img, width, height, fx, fy):
+    """cv2.resize's output size and inverse scales, from ``dsize`` (width,
+    height) or, when it is None, from ``fx, fy`` (the size rounded half to
+    even, as ``saturate_cast<int>``)."""
+    h, w = img.shape[:2]
+    if width is None or height is None:
+        if fx is None or fy is None:
+            raise ValueError("give width and height, or fx and fy")
+        width, height = int(round(w * fx)), int(round(h * fy))
+        if width <= 0 or height <= 0:
+            raise ValueError(f"empty output size {(height, width)}")
+        return width, height, float(fx), float(fy)
+    return width, height, width / w, height / h
+
+
+def resize_linear_u8(img: np.ndarray, width: int = None, height: int = None, *,
+                     fx: float = None, fy: float = None) -> np.ndarray:
+    """uint8 (H, W) or (H, W, C) → uint8 (height, width[, C]), as
+    ``cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR)`` or,
+    with ``fx, fy`` in place of the size, ``cv2.resize(img, None, fx=fx,
+    fy=fy, interpolation=cv2.INTER_LINEAR)`` (upscales; a downscale by
+    exactly 2 is INTER_AREA's in OpenCV, not this)."""
+    _require_pixels(img, "resize_linear_u8")
+    width, height, ix, iy = _dsize(img, width, height, fx, fy)
+    h, w = img.shape[:2]
+    if (h, w) == (height, width):
+        return img.copy()
+    return _two_tap_resize(img, _linear_taps(w, width, ix), _linear_taps(h, height, iy))
+
+
+@functools.lru_cache(maxsize=32)
+def _area_tab(ssize: int, dsize: int, scale: float):
+    """OpenCV's ``computeResizeAreaTab``: each output cell's source samples
+    and their float32 weights (the partial first and last ones by the
+    covered fraction of the cell), in OpenCV's order. → (index, weight), each
+    (dsize, taps), padded with index 0 and weight 0."""
+    cells = []
+    for dx in range(dsize):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, ssize - fsx1)
+        sx1, sx2 = math.ceil(fsx1), math.floor(fsx2)
+        sx2 = min(sx2, ssize - 1)
+        sx1 = min(sx1, sx2)
+        taps = []
+        if sx1 - fsx1 > 1e-3:
+            taps.append((sx1 - 1, (sx1 - fsx1) / cell))
+        taps += [(sx, 1.0 / cell) for sx in range(sx1, sx2)]
+        if fsx2 - sx2 > 1e-3:
+            taps.append((sx2, min(min(fsx2 - sx2, 1.0), cell) / cell))
+        cells.append(taps)
+    n = max(len(t) for t in cells)
+    index = np.zeros((dsize, n), np.int64)
+    weight = np.zeros((dsize, n), np.float32)
+    for dx, taps in enumerate(cells):
+        for t, (sx, a) in enumerate(taps):
+            index[dx, t] = sx
+            weight[dx, t] = np.float32(a)
+    return index, weight
+
+
+def _area_general(img, width, height, sx, sy):
+    """OpenCV's ``resizeArea_`` (non-integer shrink): each source row's
+    horizontal float32 sums (``buf += S·alpha`` in tap order), accumulated
+    over the rows of each output row (``sum += beta·buf``), then rounded
+    half to even."""
+    h, w = img.shape[:2]
+    xi, xa = _area_tab(w, width, sx)
+    yi, ya = _area_tab(h, height, sy)
+    extra = (None,) * (img.ndim - 2)
+    src = img.astype(np.float32)
+    buf = np.zeros((h, width) + img.shape[2:], np.float32)
+    for t in range(xi.shape[1]):  # a zero-weight pad tap adds +0: no change
+        buf += src[:, xi[:, t]] * xa[(slice(None), t) + extra]
+    acc = np.zeros((height, width) + img.shape[2:], np.float32)
+    for t in range(yi.shape[1]):
+        acc += ya[(slice(None), t, None) + extra] * buf[yi[:, t]]
+    return np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+
+
+def _area_fast(img, width, height, kx, ky):
+    """OpenCV's ``ResizeAreaFast`` (an integer shrink ``kx`` × ``ky``): the
+    mean of each whole block (2×2 blocks by ``(sum + 2) >> 2``, others by
+    ``sum · float32(1/area)`` rounded half to even), and, where the output
+    reaches past the last whole block, the float32 mean of the pixels the
+    cell does hold."""
+    h, w = img.shape[:2]
+    c = img.shape[2:]
+    src = img.astype(np.int64)
+    fw, fh = min(w // kx, width), min(h // ky, height)
+    out = np.zeros((height, width) + c, np.uint8)
+    blocks = src[:fh * ky, :fw * kx].reshape((fh, ky, fw, kx) + c).sum(axis=(1, 3))
+    if kx == 2 and ky == 2:
+        out[:fh, :fw] = (blocks + 2) >> 2
+    else:
+        mean = blocks.astype(np.float32) * (np.float32(1) / np.float32(kx * ky))
+        out[:fh, :fw] = np.clip(np.rint(mean), 0, 255)
+    for dy in range(height):  # the partial cells, at the right and bottom edges
+        xs = range(fw, width) if dy < fh else range(width)
+        for dx in xs:
+            cell = src[dy * ky:dy * ky + ky, dx * kx:dx * kx + kx]
+            n = cell.shape[0] * cell.shape[1]
+            mean = cell.sum(axis=(0, 1)).astype(np.float32) / np.float32(n)
+            out[dy, dx] = np.clip(np.rint(mean), 0, 255)
+    return out
+
+
+_DBL_EPSILON = float(np.finfo(np.float64).eps)  # OpenCV's test for an integer scale
+
+
+def resize_area_u8(img: np.ndarray, width: int = None, height: int = None, *,
+                   fx: float = None, fy: float = None) -> np.ndarray:
+    """uint8 (H, W) or (H, W, C) → uint8 (height, width[, C]), as
+    ``cv2.resize(img, (width, height), interpolation=cv2.INTER_AREA)`` or,
+    with ``fx, fy`` in place of the size, ``cv2.resize(img, None, fx=fx,
+    fy=fy, interpolation=cv2.INTER_AREA)``. OpenCV's three code paths:
+
+    - an integer shrink on both axes: the block mean (:func:`_area_fast`);
+    - a shrink on both axes: the area-weighted float32 sums
+      (:func:`_area_general`);
+    - a scale below 1 on either axis: the linear machinery on INTER_AREA's
+      taps (:func:`_area_taps`).
+    """
+    _require_pixels(img, "resize_area_u8")
+    width, height, ix, iy = _dsize(img, width, height, fx, fy)
+    h, w = img.shape[:2]
+    if (h, w) == (height, width):
+        return img.copy()
+    sx, sy = 1.0 / ix, 1.0 / iy
+    if sx >= 1 and sy >= 1:
+        kx, ky = int(round(sx)), int(round(sy))
+        if abs(sx - kx) < _DBL_EPSILON and abs(sy - ky) < _DBL_EPSILON:
+            return _area_fast(img, width, height, kx, ky)
+        return _area_general(img, width, height, sx, sy)
+    return _two_tap_resize(img, _area_taps(width, ix), _area_taps(height, iy))
+
+
+def pil_luma(rgb: np.ndarray) -> np.ndarray:
+    """uint8 (H, W, 3) RGB → uint8 (H, W) luma, as Pillow's
+    ``Image.convert("L")``: ``(19595·R + 38470·G + 7471·B + 0x8000) >> 16``
+    (OpenCV's :func:`rgb_to_gray` rounds otherwise on about 0.1% of
+    pixels)."""
+    c = rgb.astype(np.int32)
+    y = c[..., 0] * 19595 + c[..., 1] * 38470 + c[..., 2] * 7471
+    return ((y + 0x8000) >> 16).astype(np.uint8)
+
+
+# Pillow's resample.c: 8-bit coefficients in 22-bit fixed point
+_PIL_PRECISION_BITS = 32 - 8 - 2
+
+
+def _pil_bicubic(x: float) -> float:
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+@functools.lru_cache(maxsize=32)
+def _pil_coeffs(in_size: int, out_size: int):
+    """Pillow's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for the
+    bicubic filter (support 2, widened by the downscale factor): each output
+    sample's first source index and its fixed-point weights. → (first
+    (out,), index (out, taps), weight (out, taps) int64, padded with the
+    first index and weight 0)."""
+    scale = float(in_size) / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    index = np.zeros((out_size, ksize), np.int64)
+    weight = np.zeros((out_size, ksize), np.int64)
+    one = 1 << _PIL_PRECISION_BITS
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        ss = 1.0 / filterscale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        k = [_pil_bicubic((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        ww = 0.0
+        for v in k:
+            ww += v
+        if ww != 0.0:
+            k = [v / ww for v in k]
+        index[xx] = xmin
+        index[xx, :xmax] = np.arange(xmin, xmin + xmax)
+        weight[xx, :xmax] = [int(-0.5 + v * one) if v < 0 else int(0.5 + v * one)
+                             for v in k]
+    return index, weight
+
+
+def _pil_pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One of Pillow's 8-bit resample passes along ``axis`` (0 rows, 1
+    columns): a rounding-biased fixed-point sum, clipped to uint8."""
+    index, weight = _pil_coeffs(img.shape[axis], out_size)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    extra = (None,) * (src.ndim - 1)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PIL_PRECISION_BITS - 1), np.int64)
+    for t in range(index.shape[1]):
+        acc += src[index[:, t]] * weight[(slice(None), t) + extra]
+    out = np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_pil_bicubic(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """uint8 (H, W, C) → uint8 (height, width, C), as Pillow's default
+    ``Image.fromarray(img).resize((width, height))`` (bicubic, a = −0.5): the
+    horizontal pass first, into uint8, then the vertical one; an axis whose
+    size does not change is not resampled."""
+    _require_pixels(img, "resize_pil_bicubic")
+    out = img
+    if img.shape[1] != width:
+        out = _pil_pass(out, width, 1)
+    if img.shape[0] != height:
+        out = _pil_pass(out, height, 0)
+    return out.copy() if out is img else out
 
 
 def resize_nearest(x: np.ndarray, factor: int) -> np.ndarray:

@@ -1,6 +1,6 @@
-"""Per-stage wall-time meter (``twinvoice_tpu.utils.tracing``, trimmed to what
-the serving path uses). ``trace_span`` records into a :class:`StageTimer`
-and marks the span on a ``torch.profiler`` timeline."""
+"""Per-stage wall-time meter (``twinvoice_tpu.utils.tracing``).
+``trace_span`` records into a :class:`StageTimer` and marks the span on a
+``torch.profiler`` timeline."""
 
 from __future__ import annotations
 
@@ -38,6 +38,18 @@ class StageTimer:
                     "max_ms": 1e3 * s[-1],
                 }
         return out
+
+    def reset(self):
+        with self._lock:
+            self._samples.clear()
+
+    def report(self) -> str:
+        lines = [f"{'stage':24s} {'count':>6s} {'p50':>9s} {'p95':>9s} {'max':>9s}"]
+        for stage, st in sorted(self.stats().items()):
+            lines.append(
+                f"{stage:24s} {st['count']:6d} {st['p50_ms']:8.1f}m {st['p95_ms']:8.1f}m {st['max_ms']:8.1f}m"
+            )
+        return "\n".join(lines)
 
 
 _GLOBAL = StageTimer()
