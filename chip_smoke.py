@@ -131,6 +131,29 @@ Phases, each printing one line with its wall time:
     the cache cleared before each timed call: invoices/s, and each stage's
     share of the call (``StageTimer``: the QR scans, the segmenter call and
     its prep, upload, dispatch and fetch, the OCR)
+21. segmenter training (``train``; no kernel of its own: cuDNN convs and
+    plain PyTorch) against the JAX trainer's numbers in
+    ``tests/data/torch_smoke_train.npz``: from the bundled w16 weights, 3
+    ``make_train_step`` steps on its b4 512² batch at fp32 (TF32 off), bf16
+    and bf16 with ``fast_norm``: the losses, the step-1 gradients' norms and
+    sampled elements (also against the exact float64 step stored there), the
+    BN running statistics after steps 1 and 3, the step norms of every leaf
+    after step 3, and the eval step's loss and per-class IoU, each within
+    ``TRAIN_TOLS``; then one fp32 step with ``remat`` against one without
+22. the bundled w64 model (31,043,651 parameters) trained on the fixture
+    batch at fp32 (TF32 off) and bf16: the median ms of 10 steps after 2,
+    img/s, the step's bound (FLOPs from the layer shapes over the card's
+    peak for the dtype) and the share of it reached, peak memory, and the
+    losses, which must fall; ``fit`` for 3 epochs from the bundled weights
+    (a checkpoint of them at epoch 0 that ``fit`` resumes from) on the four
+    pages, checkpoints and visual dumps in a temporary directory, resumed
+    from ``latest`` for a fourth, and its first epoch again without the
+    prefetch thread (the same loss); the ``best`` weights saved with
+    ``save_params_npz``, read back with ``weights.load_npz`` and served at
+    bf16 through ``Segmenter``, which must launch K1; its ok flags equal
+    and its boxes within one grid cell of the plain path's on the same
+    weights (eval-mode ``unet_apply`` at fp32, ``bbox_from_probs``), which
+    must find fields
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -144,7 +167,8 @@ and nothing else (the recognition stack itself runs none of the kernels).
 So is each route of phase 19 and phase 20's timed calls: K1 once per
 segmenter call (two per chunked ``extract_batch``, one per ``extract``) and
 nothing else, and on the int8 "pallas" route K4a, K6 and K2 their route
-counts per segmenter call. The kernel rows' launches sum every such path.
+counts per segmenter call. Phase 22's serving of the trained w64 weights is
+driven the same way: K1 once. The kernel rows' launches sum every such path.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
 only. Without a CUDA device, or if any phase fails, it exits non-zero and
@@ -169,30 +193,60 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from twinvoice_tpu_torch import _build  # noqa: E402
-from twinvoice_tpu_torch.config import FusionConfig  # noqa: E402
-from twinvoice_tpu_torch.infer.pipeline import crop_fields  # noqa: E402
+from twinvoice_tpu_torch.config import (  # noqa: E402
+    Config,
+    FusionConfig,
+    InferConfig,
+    TrainConfig,
+    replace,
+)
+from twinvoice_tpu_torch.data.dataset import ArrayDataset  # noqa: E402
+from twinvoice_tpu_torch.infer.pipeline import Segmenter, crop_fields  # noqa: E402
 from twinvoice_tpu_torch.infer.postprocess import (  # noqa: E402
     bbox_from_probs,
     probability_to_logit_thresholds,
+    scale_and_pad_boxes,
 )
 from twinvoice_tpu_torch.infer import quant  # noqa: E402
-from twinvoice_tpu_torch.models.pretrained import load_pretrained_segmenter  # noqa: E402
-from twinvoice_tpu_torch.models.unet import unet_apply_folded  # noqa: E402
+from twinvoice_tpu_torch.models.pretrained import (  # noqa: E402
+    VARIANTS,
+    load_pretrained_segmenter,
+    variant_path,
+)
+from twinvoice_tpu_torch.models.unet import (  # noqa: E402
+    _tree_map,
+    param_count,
+    tree_leaves,
+    unet_apply,
+    unet_apply_folded,
+)
 from twinvoice_tpu_torch.ops import bbox_postprocess as k1  # noqa: E402
 from twinvoice_tpu_torch.ops import head as k2  # noqa: E402
 from twinvoice_tpu_torch.ops import nhwc_conv as nhwc  # noqa: E402
 from twinvoice_tpu_torch.ops import qconv  # noqa: E402
 from twinvoice_tpu_torch.ops import qupsample as k6  # noqa: E402
-from twinvoice_tpu_torch.ops.image import resize_bilinear  # noqa: E402
+from twinvoice_tpu_torch.ops.image import normalize_uint8, resize_bilinear  # noqa: E402
+from twinvoice_tpu_torch.train import checkpoint as ckpt  # noqa: E402
+from twinvoice_tpu_torch.train.trainer import (  # noqa: E402
+    DTYPES,
+    TrainState,
+    fit,
+    make_eval_step,
+    make_optimizer,
+    make_train_step,
+    to_device_batch,
+)
+from twinvoice_tpu_torch.weights import keystr_items, load_npz, to_jax_params  # noqa: E402
 
 FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_pages.npz")
 INT8_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_int8.npz")
 WPACK_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_wpack.npz")
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside tensor
-# cores, int8 on the tensor cores (dense)
+# cores, int8 and bf16 on the tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 SERVE_BATCH = 128
 SERVE_ITERS = 20
 
@@ -2167,7 +2221,6 @@ def phase_ocr_throughput(eng, fix, card):
     rows), each conv alone under each; and read_batch's lines/s with its
     host steps, cascade and greedy, with the recognizer's and the detector's
     device calls timed apart from the rest."""
-    from twinvoice_tpu_torch.models.unet import _tree_map
     from twinvoice_tpu_torch.ocr.torchocr import detector
     from twinvoice_tpu_torch.ocr.torchocr.engine import infer_rows, prepare_crop
 
@@ -2180,7 +2233,7 @@ def phase_ocr_throughput(eng, fix, card):
     layers, steps = ocr_layers(eng._params, eng.arch, n)
     flops = 2 * sum(layer[-1] for layer in layers)
     n_bytes = x.numel() * 4 + sum(t.numel() * 4 for t in
-                                   [*_leaves(eng._params), *_leaves(eng._state)])
+                                   [*tree_leaves(eng._params), *tree_leaves(eng._state)])
     # out: int64 ids and top-8 ids, float32 top-8 and blank log-probs a frame;
     # a float32 confidence a line
     n_bytes += n * (steps * (8 + 8 * 8 + 8 * 4 + 4) + 4)
@@ -2549,12 +2602,427 @@ def host_steps_alone(ex, pages, card):
           + f" [{card}]", flush=True)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, list):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
+# -- phases 21-22: segmenter training -------------------------------------------
+
+
+TRAIN_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_train.npz")
+TRAIN_LR = 1e-3       # the fixture's: TrainConfig.lr, epoch 1 of the schedule
+TRAIN_SETTINGS = {"fp32": ("float32", False), "bf16": ("bfloat16", False),
+                  "bf16_fast": ("bfloat16", True)}
+
+
+def train_fixture():
+    with np.load(TRAIN_FIXTURE) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _copy_to(tree, device):
+    """A copy of a params/state tree on ``device``."""
+    return _tree_map(lambda t: t.to(device, copy=True), tree)
+
+
+def train_batch(fix, dtype, device):
+    """The fixture's b4 512² batch as ``ArrayDataset.batches`` gives it,
+    NCHW on ``device``."""
+    images, masks = next(ArrayDataset(fix["pages"], fix["masks"]).batches(4, shuffle=False))
+    return to_device_batch(images, masks, dtype, device)
+
+
+def train_run(fix, device, dtype, fast=False, *, steps=3, remat=False):
+    """The port's ``make_train_step`` from the bundled w16 weights on the
+    fixture batch: ``steps`` steps at lr 1e-3, the numbers the fixture
+    stores (its module doc), keyed as there, plus the eval step's."""
+    _, mcfg, _ = VARIANTS["w16"]
+    params, state = load_npz(variant_path("w16"))
+    start = dict(keystr_items(to_jax_params(params, state)[0]))
+    params, state = _copy_to(params, device), _copy_to(state, device)
+    tcfg = TrainConfig(dtype=dtype, fast_norm=fast, remat=remat)
+    x, y = train_batch(fix, DTYPES[dtype], device)
+    out = {}
+    if not fast:
+        loss, iou = make_eval_step(mcfg, tcfg)(params, state, x, y)
+        out["eval_loss"], out["eval_iou"] = float(loss), iou.cpu().numpy()
+    opt = make_optimizer(params, tcfg)
+    step = make_train_step(mcfg, tcfg, device=device)
+    skeys = [str(k) for k in fix["state_keys"]]
+    losses, bn = [], []
+    for i in range(steps):
+        params, state, loss = step(params, state, opt, x, y, TRAIN_LR)
+        losses.append(loss)
+        sd = dict(keystr_items(to_jax_params(params, state)[1]))
+        bn.append(np.concatenate([sd[k] for k in skeys]))
+        if i == 0:
+            grads = dict(keystr_items(to_jax_params(_tree_map(lambda t: t.grad, params),
+                                                    state)[0]))
+    pkeys = [str(k) for k in fix["param_keys"]]
+    after = dict(keystr_items(to_jax_params(params, state)[0]))
+    out.update({
+        "losses": torch.stack(losses).cpu().numpy(),
+        "grad_norms": np.array([np.linalg.norm(grads[k].astype(np.float64)) for k in pkeys]),
+        "grad_sample": np.stack([grads[k].reshape(-1)[i] for k, i in
+                                 zip(pkeys, fix["sample_idx"])]),
+        "bn1": bn[0], "bn3": bn[-1],
+        "step_norms": np.array([np.linalg.norm((after[k] - start[k]).astype(np.float64))
+                                for k in pkeys]),
+        "grads": grads,
+    })
+    return out
+
+
+# Phase 21's tolerances, per setting. Each number is held to the exact float64
+# step where the fixture has it (``exact_*``: step 1's loss, gradients and BN
+# state) and to JAX's within JAX's own distance from the exact value (or, for
+# the bf16 losses, from JAX's float32 loss) plus the same tolerance: XLA's CPU
+# reductions add up one element after another (in bf16 at bf16), so JAX's
+# gradients are up to 1e-4 from the exact ones at float32 and up to 80% at
+# bf16 (the out bias: a bf16 sum over 1M pixels). "loss": relative, each of
+# the 3 steps and the eval step; "grad": a leaf's norm and its 16 sampled
+# elements, relative to the leaf's exact norm (the first two levels' ReLU and
+# pool kinks on the flat paper background route a float32 gradient by the
+# activations' last bit); "bn1"/"bn3": relative ‖·‖ of the BN running
+# statistics after steps 1 and 3; "step": a kernel's step norm after 3 steps,
+# relative to JAX's (Adam's ±lr steps, but for near-0 gradients); "iou": the
+# eval step's per-class IoU, absolute; "bias": the norm of a pre-BN conv
+# bias's gradient (exactly 0) relative to its kernel's. The 1-D leaves' step
+# norms are held to Adam's bound, 3·lr·√n.
+TRAIN_TOLS = {
+    "fp32": dict(loss=1e-4, grad=2e-2, bn1=1e-5, bn3=1e-4, step=1e-2, iou=1e-3, bias=1e-3),
+    "bf16": dict(loss=1e-2, grad=0.25, bn1=1e-3, bn3=5e-2, step=0.3, iou=1e-2, bias=2e-2),
+}
+TRAIN_TOLS["bf16_fast"] = TRAIN_TOLS["bf16"]
+
+
+def rel_dist(a, b):
+    """‖a − b‖ / ‖b‖ in float64."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def pre_bn_bias(key):
+    """A conv bias that train-mode BatchNorm follows: its exact gradient is 0."""
+    return "['conv" in key and key.endswith("['bias']")
+
+
+def train_parity(fix, tag, got):
+    """Hold one setting's numbers (:func:`train_run`) to the fixture's with
+    ``TRAIN_TOLS[tag]``; print each leaf's gradient and step norms beside
+    JAX's (and the exact gradient norm), then the losses beside JAX's and
+    each check's worst case. Returns the failures (empty: it passed)."""
+    tol = TRAIN_TOLS[tag]
+    fails = []
+    jl = fix[f"{tag}_losses"]
+    for i, (a, b, f) in enumerate(zip(got["losses"], jl, fix["fp32_losses"])):
+        if abs(a - b) > abs(b - f) * 1.01 + tol["loss"] * b:
+            fails.append(f"step {i + 1} loss {a:.8f} vs JAX {b:.8f}")
+    pkeys = [str(k) for k in fix["param_keys"]]
+    ex, jn, gn = fix["exact_grad_norms"], fix[f"{tag}_grad_norms"], got["grad_norms"]
+    es, js, gs = fix["exact_grad_sample"], fix[f"{tag}_grad_sample"], got["grad_sample"]
+    worst = {"grad": (0.0, ""), "step": (0.0, "")}
+    rows = []
+    for i, key in enumerate(pkeys):
+        step, jstep = got["step_norms"][i], fix[f"{tag}_step_norms"][i]
+        rows.append(f"    {tag} {key:38s} grad {gn[i]:.5e} JAX {jn[i]:.5e} exact "
+                    f"{ex[i]:.5e} | step {step:.5e} JAX {jstep:.5e}")
+        n = got["grads"][key].size
+        if pre_bn_bias(key):
+            kern = ex[pkeys.index(key.replace("['bias']", "['kernel']"))]
+            if gn[i] > tol["bias"] * kern:
+                fails.append(f"{key}: gradient norm {gn[i]:.3e} (exactly 0)")
+        else:
+            err = max(abs(gn[i] - ex[i]), np.abs(gs[i] - es[i]).max()) / ex[i]
+            jerr = max(abs(jn[i] - ex[i]), np.abs(js[i] - es[i]).max()) / ex[i]
+            vs_jax = max(abs(gn[i] - jn[i]), np.abs(gs[i] - js[i]).max()) / ex[i]
+            if err > tol["grad"] or vs_jax > jerr * 1.01 + tol["grad"]:
+                fails.append(f"{key}: gradient {err:.3e} from exact, {vs_jax:.3e} from JAX "
+                             f"(JAX {jerr:.3e} from exact)")
+            worst["grad"] = max(worst["grad"], (err, key))
+        if key.endswith("['kernel']"):
+            rel = abs(step - jstep) / jstep
+            worst["step"] = max(worst["step"], (rel, key))
+            if rel > tol["step"]:
+                fails.append(f"{key}: step norm {step:.4e} vs JAX {jstep:.4e}")
+        elif step > 3.03 * TRAIN_LR * np.sqrt(n):
+            fails.append(f"{key}: step norm {step:.4e} above Adam's bound")
+    bn1_exact = rel_dist(got["bn1"], fix["exact_bn1"])
+    bn1_jax = rel_dist(got["bn1"], fix[f"{tag}_bn1"])
+    bn1_own = rel_dist(fix[f"{tag}_bn1"], fix["exact_bn1"])
+    bn3 = rel_dist(got["bn3"], fix[f"{tag}_bn3"])
+    if bn1_exact > tol["bn1"] or bn1_jax > bn1_own * 1.01 + tol["bn1"]:
+        fails.append(f"BN state after step 1: {bn1_exact:.3e} from exact, {bn1_jax:.3e} from JAX")
+    if bn3 > tol["bn3"]:
+        fails.append(f"BN state after step 3: {bn3:.3e} from JAX")
+    line = (f"  {tag}: losses {np.round(got['losses'].astype(np.float64), 8).tolist()} vs JAX "
+            f"{np.round(jl.astype(np.float64), 8).tolist()}; step-1 gradient worst {worst['grad'][0]:.2e} of its "
+            f"norm from exact ({worst['grad'][1]}); BN after step 1 {bn1_exact:.2e} from "
+            f"exact, {bn1_jax:.2e} from JAX; after step 3 {bn3:.2e}; kernel step norms worst "
+            f"{worst['step'][0]:.2e} from JAX's ({worst['step'][1]})")
+    if "eval_loss" in got:
+        el, jel = got["eval_loss"], float(fix[f"{tag}_eval_loss"])
+        diou = np.abs(got["eval_iou"] - fix[f"{tag}_eval_iou"]).max()
+        if abs(el - jel) > tol["loss"] * jel or diou > tol["iou"]:
+            fails.append(f"eval loss {el:.8f} vs JAX {jel:.8f}, IoU off by {diou:.3e}")
+        line += (f"; eval loss {el:.8f} vs JAX {jel:.8f}, IoU "
+                 f"{np.round(got['eval_iou'].astype(np.float64), 5).tolist()} vs "
+                 f"{np.round(fix[f'{tag}_eval_iou'].astype(np.float64), 5).tolist()}")
+    print("\n".join(rows) + "\n" + line, flush=True)
+    return fails
+
+
+def remat_check(fix, device):
+    """One float32 step with ``remat=True`` against one without, from the
+    same start: the loss equal within 1e-6, each gradient within 1e-4 of
+    its norm (the recompute reruns cuDNN's convs, whose backward may sum in
+    another order), the new BN state within 1e-6."""
+    runs = [train_run(fix, device, "float32", steps=1, remat=r) for r in (False, True)]
+    a, b = runs
+    errs = [rel_dist(b["grads"][k], a["grads"][k]) for k in a["grads"] if not pre_bn_bias(k)]
+    dl = abs(float(a["losses"][0]) - float(b["losses"][0])) / float(a["losses"][0])
+    dbn = rel_dist(b["bn1"], a["bn1"])
+    print(f"  remat vs plain, one fp32 step: loss {float(b['losses'][0]):.8f} vs "
+          f"{float(a['losses'][0]):.8f}; gradients within {max(errs):.2e}; BN state within "
+          f"{dbn:.2e}", flush=True)
+    if dl > 1e-6 or max(errs) > 1e-4 or dbn > 1e-6:
+        raise AssertionError(f"remat differs from plain: loss {dl:.3e}, gradients "
+                             f"{max(errs):.3e}, BN {dbn:.3e}")
+
+
+def phase_train_parity(card):
+    """Phase 21: the port's train step against the JAX trainer's numbers."""
+    fix = train_fixture()
+    device = torch.device("cuda")
+    fails = []
+    with tf32_off():
+        for tag, (dtype, fast) in TRAIN_SETTINGS.items():
+            got = train_run(fix, device, dtype, fast)
+            fails += [f"{tag}: {f}" for f in train_parity(fix, tag, got)]
+        remat_check(fix, device)
+    print(f"  [{card}]", flush=True)
+    if fails:
+        raise AssertionError("training parity:\n" + "\n".join(fails))
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for cuDNN's convs and for matmuls, restored after."""
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def unet_macs(cfg, size):
+    """Multiply-adds of one image's U-Net forward, from the layer shapes."""
+    macs, cin, hw = 0, cfg.in_channels, size
+    for w in cfg.encoder_widths():
+        macs += hw * hw * 9 * (cin * w + w * w)
+        cin, hw = w, hw // 2
+    bw = cfg.bottleneck_width()
+    macs += hw * hw * 9 * (cin * bw + bw * bw)
+    up_in = bw
+    for w in reversed(cfg.encoder_widths()):
+        macs += hw * hw * 4 * up_in * w      # the 2×2 transpose conv, at its input size
+        hw *= 2
+        macs += hw * hw * 9 * (2 * w * w + w * w)
+        up_in = w
+    return macs + hw * hw * cfg.encoder_widths()[0] * cfg.num_classes
+
+
+def train_step_bound_ms(cfg, n, size, n_params, dtype):
+    """The least time of one train step: its operations (the forward, and
+    the input and weight gradients of every layer but the first layer's
+    input gradient; 2 FLOPs a multiply-add) over the card's peak for
+    ``dtype``, or the bytes it must move (the params and AdamW's two
+    moments, float32, each read and written once, and the batch's images
+    and masks read once), whichever is larger.
+    → (ms, "operations" or "bytes", FLOPs)."""
+    stem = size * size * 9 * cfg.in_channels * cfg.encoder_widths()[0]
+    flops = 2 * n * (3 * unet_macs(cfg, size) - stem)
+    peak = FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
+    nbytes = 2 * 3 * 4 * n_params + n * size * size * 6 * (4 if dtype == "float32" else 2)
+    ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / HBM_BYTES_PER_S
+    return (ops_ms, "operations", flops) if ops_ms >= bytes_ms else (bytes_ms, "bytes", flops)
+
+
+TRAIN_WARMUP = 2   # untimed steps before phase 22's timed ones
+TRAIN_TIMED = 10
+# a train step's device kernels by kind: the first kind whose words a
+# kernel's name holds
+TRAIN_KERNEL_KINDS = (
+    ("conv", ("conv", "xmma", "cudnn", "fprop", "dgrad", "wgrad", "winograd", "fft",
+              "nchwToNhwc", "nhwcToNchw")),
+    ("gemm", ("gemm", "cutlass", "sm90_")),
+    ("reduction", ("reduce",)),
+    ("AdamW", ("multi_tensor", "adam")),
+    ("pool", ("pool",)),
+    ("cat", ("CatArray",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def train_step_kinds(step_fn, ms):
+    """Two train steps under ``torch.profiler``: their device time a step
+    by kernel kind (``TRAIN_KERNEL_KINDS``), beside the event-timed step's
+    ``ms`` and 1 − busy/ms unclamped (negative where the profiled steps'
+    kernels outlast the timed steps), and the three slowest kernels."""
+    kernels = device_kernels(step_fn, iters=2)
+    kinds = {}
+    for t, name in kernels:
+        kind = next((k for k, words in TRAIN_KERNEL_KINDS
+                     if any(w.lower() in name.lower() for w in words)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + t
+    busy = sum(kinds.values())
+    print(f"    profiled device {busy:.3f} ms a step beside {ms:.3f} ms timed, 1 - busy/ms "
+          f"{1 - busy / ms:.4f}; "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
+          + "; slowest: " + "; ".join(f"{t:.3f} {n[:60]}" for t, n in kernels[:3]),
+          flush=True)
+
+
+def train_speed(fix, card, params, state, dtype):
+    """Phase 22's timing at one dtype: the w64 train step on the fixture
+    batch, ``TRAIN_WARMUP`` steps then ``TRAIN_TIMED`` timed ones (CUDA
+    events around each). → the losses of every step."""
+    device = torch.device("cuda")
+    mcfg = VARIANTS["w64"][1]
+    params, state = _copy_to(params, device), _copy_to(state, device)
+    tcfg = TrainConfig(dtype=dtype)
+    opt = make_optimizer(params, tcfg)
+    step = make_train_step(mcfg, tcfg, device=device)
+    x, y = train_batch(fix, DTYPES[dtype], device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, events = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        params, state, loss = step(params, state, opt, x, y, TRAIN_LR)
+        ev[1].record()
+        losses.append(loss)
+        if i >= TRAIN_WARMUP:
+            events.append(ev)
+    torch.cuda.synchronize()
+    ms = float(np.median([a.elapsed_time(b) for a, b in events]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = torch.stack(losses).cpu().numpy()
+    bound, by, flops = train_step_bound_ms(mcfg, x.shape[0], x.shape[2],
+                                           param_count(params), dtype)
+    print(f"  w64 b{x.shape[0]} {x.shape[2]}^2 {dtype}: {ms:.3f} ms a step (median of "
+          f"{TRAIN_TIMED}), {1e3 * x.shape[0] / ms:.2f} img/s; bound {bound:.3f} ms by "
+          f"{by} ({flops / 1e12:.3f} TFLOP), {bound / ms:.3f} of it reached; peak memory "
+          f"{peak:.2f} GiB [{card}]", flush=True)
+    print(f"    losses {np.round(losses.astype(np.float64), 6).tolist()}", flush=True)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"w64 {dtype} losses do not fall: {losses.tolist()}")
+    train_step_kinds(lambda: step(params, state, opt, x, y, TRAIN_LR), ms)
+    return {"ms": ms, "bound_ms": bound, "peak_gib": peak}
+
+
+def served_vs_plain(seg, params, state, mcfg, pages):
+    """The trained weights served through ``seg`` (K1, box-only) against the
+    plain path on the same weights: eval-mode ``unet_apply`` at fp32 (TF32
+    off), ``bbox_from_probs`` and ``scale_and_pad_boxes``. The ok flags must
+    be equal and the boxes within one grid cell, and the plain path must find
+    fields. → (served ok, boxes, the launches of the served call)."""
+    icfg = seg.cfg
+    sizes = torch.tensor([[pages.shape[2], pages.shape[1]]] * len(pages), dtype=torch.int32,
+                         device="cuda")
+    _build.launches.clear()  # the trained model's serving path starts here
+    _, boxes, ok = seg.segment_batch(pages, return_masks=False)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    params, state = _copy_to(params, "cuda"), _copy_to(state, "cuda")
+    with torch.no_grad(), tf32_off():
+        x = normalize_uint8(torch.as_tensor(pages, device="cuda").permute(0, 3, 1, 2),
+                            torch.float32)
+        logits, _ = unet_apply(params, state, x, cfg=mcfg, train=False)
+        gb, gv = bbox_from_probs(torch.sigmoid(logits).permute(0, 2, 3, 1), icfg.thresholds)
+        ref_boxes, ref_ok = scale_and_pad_boxes(gb, gv, sizes, icfg.img_size, icfg.pad_frac)
+    ref_ok, ref_boxes = ref_ok.cpu().numpy(), ref_boxes.cpu().numpy().astype(np.int64)
+    print(f"  the trained w64 served at bf16 on the 4 pages: ok {ok.cpu().numpy().tolist()}, "
+          f"boxes {boxes.cpu().numpy().tolist()}; plain fp32 boxes {ref_boxes.tolist()}; "
+          f"launches {launches}", flush=True)
+    if not ref_ok.any():
+        raise AssertionError("the trained w64 finds no field on the plain path")
+    tol_px = -(-max(pages.shape[1:3]) // icfg.img_size) + 1
+    exact, n = ok_check("trained w64 bf16 vs plain fp32", ok, boxes, ref_ok, ref_boxes, tol_px)
+    print(f"  served vs plain: ok equal ({n} of {ref_ok.size} fields found); boxes exactly "
+          f"equal {exact}/{n}, the rest within {tol_px} px", flush=True)
+    return ok, boxes, launches
+
+
+def phase_train_w64(card):
+    """Phase 22: the bundled w64 U-Net trained on the card (see the module
+    doc), then served. → K1's launches by the trained model's ``Segmenter``."""
+    import tempfile
+
+    fix = train_fixture()
+    bundled = load_npz(variant_path("w64"))
+    with tf32_off():
+        for dtype in ("float32", "bfloat16"):
+            train_speed(fix, card, *bundled, dtype)
+    mcfg = VARIANTS["w64"][1]
+    ds = ArrayDataset(fix["pages"], fix["masks"])
+    _build.build_dir().mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp, tf32_off():
+        tcfg = TrainConfig(epochs=3, checkpoint_dir=os.path.join(tmp, "ckpt"),
+                           visualize_dir=os.path.join(tmp, "vis"))
+        cfg = Config(model=mcfg, train=tcfg)
+        # fit starts from its seeded init or from a checkpoint: the bundled
+        # weights at epoch 0 make the checkpoint it starts from
+        start = os.path.join(tmp, "start")
+        params, state = _copy_to(bundled[0], "cpu"), _copy_to(bundled[1], "cpu")
+        ckpt.save(start, TrainState(params, state, make_optimizer(params, tcfg)))
+        del params, state
+        t = time.perf_counter()
+        state, history = fit(ds, cfg, resume_dir=start,
+                             log=lambda m: print("   ", m, flush=True))
+        fit_s = time.perf_counter() - t
+        latest = os.path.join(tcfg.checkpoint_dir, "latest")
+        t = time.perf_counter()
+        state, resumed = fit(ds, replace(cfg, train=replace(tcfg, epochs=4)),
+                             resume_dir=latest, log=lambda m: print("   ", m, flush=True))
+        resume_s = time.perf_counter() - t
+        if [r["epoch"] for r in history] != [1, 2, 3] or [r["epoch"] for r in resumed] != [4]:
+            raise AssertionError(f"fit ran epochs {[r['epoch'] for r in history]}, then "
+                                 f"{[r['epoch'] for r in resumed]}")
+        losses = [r["loss"] for r in history + resumed]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"fit losses {losses}")
+        # the same first epoch without the prefetch thread: its one loss is
+        # the forward at the bundled weights, so a batch the side stream had
+        # not finished uploading would show here
+        _, sync = fit(ds, replace(cfg, train=replace(
+            tcfg, epochs=1, prefetch=0, visualize=False,
+            checkpoint_dir=os.path.join(tmp, "sync"))), resume_dir=start, log=lambda m: None)
+        if abs(sync[0]["loss"] - losses[0]) > 1e-6 * losses[0]:
+            raise AssertionError(f"epoch 1 loss {losses[0]} with prefetch, "
+                                 f"{sync[0]['loss']} without")
+        pngs = sorted(os.listdir(tcfg.visualize_dir))
+        want = [f"epoch{e:03d}_{k}.png" for e in range(1, 5) for k in ("img", "pred", "true")]
+        if pngs != want:
+            raise AssertionError(f"visual dumps {pngs}")
+        for name in pngs:
+            with open(os.path.join(tcfg.visualize_dir, name), "rb") as f:
+                if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                    raise AssertionError(f"{name} is not a PNG")
+        best = ckpt.restore(os.path.join(tcfg.checkpoint_dir, "best"), state)
+        npz = os.path.join(tmp, "best.npz")
+        ckpt.save_params_npz(npz, best.params, best.bn_state)
+        print(f"  fit w64 fp32 from the bundled weights, 3 epochs of 1 step on the 4 pages: "
+              f"{fit_s:.2f} s; resumed from latest for epoch 4: {resume_s:.2f} s (both "
+              f"mostly checkpoint writes); losses {np.round(losses, 6).tolist()} (epoch 1 "
+              f"without prefetch {sync[0]['loss']:.6f}), best {best.best_loss:.6f} at epoch "
+              f"{int(np.argmin(losses)) + 1}; {len(pngs)} PNGs; best.npz "
+              f"{os.path.getsize(npz) / 2 ** 20:.1f} MiB [{card}]", flush=True)
+        del state, best
+        params, state = ckpt.load_params_npz(npz)
+    seg = Segmenter(params, state, mcfg, InferConfig(img_size=512), dtype=torch.bfloat16)
+    _, boxes, launches = served_vs_plain(seg, params, state, mcfg, fix["pages"])
+    if launches.get(k1.NAME, 0) != 1 or tuple(boxes.shape) != (4, 3, 4):
+        raise AssertionError(f"serving the trained w64 launched {launches}")
+    return launches[k1.NAME]
 
 
 def main():
@@ -2634,6 +3102,12 @@ def main():
                 int8_launches[k] = int8_launches.get(k, 0) + v
     print(f"  launches of K1 on the main path and phases 19-20: {launches[k1.NAME]}; "
           f"on the int8 routes (phases 9-10, 13-14, 19): {int8_launches}", flush=True)
+
+    ph.run(21, "segmenter training vs the JAX trainer on the card", phase_train_parity, card)
+    launches[k1.NAME] += ph.run(22, "w64 training speed, fit, resume and serving",
+                                phase_train_w64, card)
+    print(f"  launches of K1 on the main path and phases 19-20, 22: {launches[k1.NAME]}",
+          flush=True)
 
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
              launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]

@@ -1,6 +1,6 @@
 """PyTorch port: what the card's machine lacks is never imported (the
-recognition stack and bulk extraction run end to end without it), and the
-kernel build finds nvcc, hashes its sources and reports failures."""
+recognition stack, bulk extraction and training run end to end without it),
+and the kernel build finds nvcc, hashes its sources and reports failures."""
 
 import os
 import stat
@@ -30,6 +30,9 @@ from twinvoice_tpu_torch.ocr.torchocr import TorchOcrEngine
 from twinvoice_tpu_torch.ocr.torchocr.detector import detect_lines, read_page
 from twinvoice_tpu_torch.fusion.extract import InvoiceExtractor
 from twinvoice_tpu_torch.qr.detect import QrPipeline
+from twinvoice_tpu_torch.data.dataset import ArrayDataset, synthetic_dataset
+from twinvoice_tpu_torch.train import checkpoint, losses, metrics, schedule, visualize
+from twinvoice_tpu_torch.train.trainer import fit, make_train_step
 import chip_smoke
 loaded = [m for m, v in sys.modules.items()
           if v is not None and m.split(".")[0] in {BLOCKED!r}]
@@ -42,7 +45,7 @@ def test_port_and_chip_smoke_import_without_jax_pil_cv2():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 32  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 51  # every module was imported
 
 
 _READ_WITHOUT_CV2 = f"""
@@ -121,6 +124,39 @@ def test_extract_batch_runs_without_jax_pil_cv2():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-1] == "extracted"
+
+
+_FIT_WITHOUT_CV2 = f"""
+import os, sys, tempfile
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+from twinvoice_tpu_torch.config import Config, TrainConfig, UNetConfig
+from twinvoice_tpu_torch.data.dataset import synthetic_dataset
+from twinvoice_tpu_torch.train import checkpoint
+from twinvoice_tpu_torch.train.trainer import fit
+d = tempfile.mkdtemp()
+cfg = Config(model=UNetConfig(base_width=4), train=TrainConfig(
+    epochs=2, checkpoint_dir=os.path.join(d, "c"), visualize_dir=os.path.join(d, "v"),
+    val_fraction=0.25))
+state, history = fit(synthetic_dataset(n=8, size=32), cfg, device="cpu", log=lambda m: None)
+checkpoint.save_params_npz(os.path.join(d, "w.npz"), state.params, state.bn_state)
+checkpoint.load_params_npz(os.path.join(d, "w.npz"))
+assert len(os.listdir(os.path.join(d, "v"))) == 6, os.listdir(os.path.join(d, "v"))
+loaded = [m for m, v in sys.modules.items()
+          if v is not None and m.split(".")[0] in {BLOCKED!r}]
+assert not loaded, loaded
+print("trained")
+"""
+
+
+def test_fit_runs_without_jax_pil_cv2():
+    """Training end to end (the split, the steps with prefetch, the visual
+    dumps' PNGs, the checkpoints, the npz weights both ways) with JAX, the
+    JAX package, Pillow and OpenCV blocked, as on the card's machine."""
+    out = subprocess.run([sys.executable, "-c", _FIT_WITHOUT_CV2], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "trained"
 
 
 def test_find_nvcc_names_every_place_it_looked(monkeypatch, tmp_path):

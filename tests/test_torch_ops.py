@@ -63,7 +63,7 @@ def test_conv_transpose2x2_matches_jax(rng):
         jnp.asarray(x), {"kernel": jnp.asarray(kernel), "bias": jnp.asarray(bias)}))
     tp = {"weight": torch.from_numpy(np.ascontiguousarray(kernel.transpose(2, 3, 0, 1))),
           "bias": torch.from_numpy(bias)}
-    got = nhwc(tconv.conv_transpose2x2_serving(nchw(x), tp))
+    got = nhwc(tconv.conv_transpose2x2(nchw(x), tp))
     assert got.shape == (2, 12, 10, 4)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 

@@ -147,3 +147,83 @@ def product_tie_biases(acc, a, inv, relu):
                 lambda b: (np.float32(v * a[c]) + b).astype(np.float32)]
 
     return tie_biases(forms_at, np.abs(acc), inv, relu, 60 if relu else -21)
+
+
+# -- a float64 train step: the exact value both float32 trainers approximate --------
+
+
+def float64_step(params, state, images, masks, *, momentum=0.1, eps=1e-5, dice_w=0.85,
+                 focal_w=0.15, alpha=0.8, gamma=2.0, smooth=1.0, focal_eps=1e-7):
+    """One train-mode forward and backward of the U-Net in float64, written
+    from the formulas with ``torch.nn.functional`` (two-pass batch variance,
+    torch's ``BatchNorm2d`` running-statistics rule), independent of the
+    port's modules and of the JAX package. ``params``/``state`` are numpy
+    trees in the JAX layout, ``images``/``masks`` NHWC numpy.
+    → (loss, {keystr: gradient in the JAX layout}, {keystr: new BN state})."""
+    import torch
+    import torch.nn.functional as F
+
+    from twinvoice_tpu_torch.weights import keystr_items
+
+    def t64(a, perm=None):
+        a = np.asarray(a, np.float64)
+        return torch.from_numpy(np.ascontiguousarray(
+            a if perm is None else np.transpose(a, perm))).requires_grad_()
+
+    grads_of, leaves = {}, {}
+    for key, leaf in keystr_items(params):
+        perm = None
+        if key.endswith("['kernel']"):
+            perm = (2, 3, 0, 1) if key.startswith("['up']") else (3, 2, 0, 1)
+        leaves[key] = t64(leaf, perm)
+        grads_of[key] = perm
+    new_state = {}
+
+    def bn(x, key, skey):
+        mean = x.mean((0, 2, 3))
+        var = ((x - mean[:, None, None]) ** 2).mean((0, 2, 3))
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        s = {k: np.asarray(v, np.float64) for k, v in dict(keystr_items(state)).items()}
+        new_state[skey + "['mean']"] = (1 - momentum) * s[skey + "['mean']"] + \
+            momentum * mean.detach().numpy()
+        new_state[skey + "['var']"] = (1 - momentum) * s[skey + "['var']"] + \
+            momentum * var.detach().numpy() * n / (n - 1)
+        return ((x - mean[:, None, None]) / torch.sqrt(var + eps)[:, None, None]
+                * leaves[key + "['scale']"][:, None, None] + leaves[key + "['bias']"][:, None, None])
+
+    def dc(prefix, x):
+        for i in (1, 2):
+            x = F.conv2d(x, leaves[f"{prefix}['conv{i}']['kernel']"],
+                         leaves[f"{prefix}['conv{i}']['bias']"], padding=1)
+            x = torch.relu(bn(x, f"{prefix}['bn{i}']", f"{prefix}['bn{i}']"))
+        return x
+
+    x = torch.from_numpy(np.asarray(images, np.float64)).permute(0, 3, 1, 2)
+    depth = len(params["enc"])
+    skips = []
+    for i in range(depth):
+        x = dc(f"['enc'][{i}]", x)
+        skips.append(x)
+        x = F.max_pool2d(x, 2)
+    x = dc("['bottleneck']", x)
+    for i in range(depth):
+        x = F.conv_transpose2d(x, leaves[f"['up'][{i}]['kernel']"],
+                               leaves[f"['up'][{i}]['bias']"], stride=2)
+        x = dc(f"['dec'][{i}]", torch.cat([x, skips[depth - 1 - i]], dim=1))
+    logits = F.conv2d(x, leaves["['out']['kernel']"], leaves["['out']['bias']"])
+    p = torch.sigmoid(logits)
+    t = torch.from_numpy(np.asarray(masks, np.float64)).permute(0, 3, 1, 2)
+    inter = (p * t).sum((2, 3))
+    union = p.sum((2, 3)) + t.sum((2, 3))
+    dice = (1 - (2 * inter + smooth) / (union + smooth)).mean()
+    pc = p.clamp(focal_eps, 1 - focal_eps)
+    bce = -(t * torch.log(pc) + (1 - t) * torch.log(1 - pc))
+    focal = (alpha * (1 - torch.exp(-bce)) ** gamma * bce).mean()
+    loss = dice_w * dice + focal_w * focal
+    loss.backward()
+    grads = {}
+    for key, perm in grads_of.items():
+        g = leaves[key].grad.numpy()
+        grads[key] = g if perm is None else np.transpose(g, np.argsort(perm))
+    return float(loss.detach()), grads, new_state
+

@@ -1,11 +1,13 @@
 """Configuration for the ported slices: copies of ``twinvoice_tpu.config``'s
-``UNetConfig``, ``InferConfig`` and ``FusionConfig`` (the port imports
+``UNetConfig``, ``LossConfig``, ``TrainConfig``, ``InferConfig``,
+``DataConfig``, ``FusionConfig``, ``Config`` and ``replace`` (the port imports
 nothing of the JAX package, so it keeps its own). Defaults are the same
-values."""
+values. ``Config`` has no ``mesh``: the data-parallel path is not ported."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Tuple
 
 
@@ -29,6 +31,46 @@ class UNetConfig:
 
 
 @dataclass(frozen=True)
+class LossConfig:
+    """Dice+focal mixture (reference train.py:49-59)."""
+
+    dice_weight: float = 0.85
+    focal_weight: float = 0.15
+    focal_alpha: float = 0.8
+    focal_gamma: float = 2.0
+    dice_smooth: float = 1.0
+    focal_eps: float = 1e-7
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer/schedule/loop (reference train.py:99,119,121-123,129)."""
+
+    batch_size: int = 4
+    epochs: int = 50
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+    warm_restart_t0: int = 10     # CosineAnnealingWarmRestarts(T_0=10, T_mult=2)
+    warm_restart_tmult: int = 2
+    eta_min: float = 0.0
+    seed: int = 0
+    loss: LossConfig = field(default_factory=LossConfig)
+    checkpoint_dir: str = "checkpoints"
+    visualize_dir: str = "visualize"
+    visualize: bool = True
+    val_fraction: float = 0.0     # reference has no val split; >0 enables one
+    dtype: str = "float32"        # "float32" (parity) or "bfloat16" (fast)
+    remat: bool = False           # recompute each DoubleConv in the backward
+    # pass: about 1/3 more FLOPs for a large activation-memory cut
+    fast_norm: bool = False       # BN normalize in the activation dtype
+    # (stats stay fp32); only meaningful with bfloat16
+    prefetch: int = 2             # host batches prepared and uploaded ahead on
+    # a worker thread (0 = synchronous)
+    sync_every: int = 0           # synchronise with the device every N steps
+    # (0 = only at epoch end)
+
+
+@dataclass(frozen=True)
 class InferConfig:
     """The serving graph: grid size, per-field thresholds, box padding."""
 
@@ -39,6 +81,20 @@ class InferConfig:
     black_crop_mean: float = 3.0  # reject crops with mean pixel < 3 (all-black)
     dtype: str = "float32"        # serving default overridden to bfloat16 by Segmenter
     batch_size: int = 32
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset build + loading (reference rescue_masks_from_json_final.py, dataset.py)."""
+
+    train_size: Tuple[int, int] = (512, 512)
+    img_dir: str = "fixed_images"
+    mask_dir: str = "fixed_masks"
+    label_to_channel: Tuple[Tuple[str, int], ...] = (
+        ("invoice_no", 0),
+        ("date", 1),
+        ("total_amount", 2),
+    )
 
 
 @dataclass(frozen=True)
@@ -61,3 +117,17 @@ class FusionConfig:
     h2d_chunks: int = 2                  # extract_batch: split the segmenter
     # batch so that chunk k+1's host resize and upload run under chunk k's
     # device compute (identical results)
+
+
+@dataclass(frozen=True)
+class Config:
+    model: UNetConfig = field(default_factory=UNetConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    infer: InferConfig = field(default_factory=InferConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    fusion: FusionConfig = field(default_factory=FusionConfig)
+
+
+def replace(cfg, **kw):
+    """dataclasses.replace that reads naturally at call sites."""
+    return dataclasses.replace(cfg, **kw)

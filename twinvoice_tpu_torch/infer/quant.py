@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from twinvoice_tpu_torch.ops.conv import conv3x3, conv_transpose2x2_serving, max_pool2
+from twinvoice_tpu_torch.ops.conv import conv3x3, conv_transpose2x2, max_pool2
 from twinvoice_tpu_torch.ops.head import head_rowcol_max, head_rowcol_max_reference
 from twinvoice_tpu_torch.ops.image import normalize_uint8
 from twinvoice_tpu_torch.ops.qconv import (
@@ -74,7 +74,7 @@ def collect_activation_scales(folded, x):
     h = torch.relu(conv3x3(h, bp["conv2"]))
     scales["bottleneck"] = {"c1": s1, "c2": _absmax(h)}
     for up_p, dec_p, skip in zip(folded["up"], folded["dec"], reversed(skips)):
-        h = conv_transpose2x2_serving(h, up_p)
+        h = conv_transpose2x2(h, up_p)
         scales["up"].append(_absmax(h))
         c = h.shape[1]
         k1 = dec_p["conv1"]["weight"]

@@ -1,22 +1,165 @@
-"""The BN-folded U-Net serving forward (``twinvoice_tpu.models.unet``), NCHW.
+"""The config-driven U-Net field segmenter (``twinvoice_tpu.models.unet``),
+NCHW.
 
-``fold_unet`` folds every eval-mode BatchNorm into the conv before it, once;
-``unet_apply_folded`` runs the conv+ReLU graph with the concat-free split
-decoder. Parameters are the torch-layout trees of ``weights.from_jax_params``.
+``init_unet`` returns ``(params, state)`` trees (state = BatchNorm running
+statistics) and ``unet_apply(params, state, x, train=...)`` returns
+``(logits, new_state)``: the training forward, with train- or eval-mode
+BatchNorm. For serving, ``fold_unet`` folds every eval-mode BatchNorm into the
+conv before it, once, and ``unet_apply_folded`` runs the conv+ReLU graph with
+the concat-free split decoder. Parameters are the torch-layout trees of
+``weights.from_jax_params``. Defaults give the reference's
+31,043,651-parameter 3→3 class model.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from twinvoice_tpu_torch import resolve_device
 from twinvoice_tpu_torch.config import UNetConfig
 from twinvoice_tpu_torch.ops.conv import (
     conv1x1,
     conv3x3,
-    conv_transpose2x2_serving,
+    conv_transpose2x2,
+    init_conv,
+    init_conv_transpose,
     max_pool2,
 )
-from twinvoice_tpu_torch.ops.norm import fold_batchnorm_into_conv
+from twinvoice_tpu_torch.ops.norm import (
+    batchnorm_apply,
+    fold_batchnorm_into_conv,
+    init_batchnorm,
+)
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_double_conv(generator, cin, cout, dtype, device):
+    bn1_p, bn1_s = init_batchnorm(cout, dtype=dtype, device=device)
+    bn2_p, bn2_s = init_batchnorm(cout, dtype=dtype, device=device)
+    params = {
+        "conv1": init_conv(generator, 3, 3, cin, cout, dtype=dtype, device=device),
+        "bn1": bn1_p,
+        "conv2": init_conv(generator, 3, 3, cout, cout, dtype=dtype, device=device),
+        "bn2": bn2_p,
+    }
+    return params, {"bn1": bn1_s, "bn2": bn2_s}
+
+
+def init_unet(generator, cfg: UNetConfig = UNetConfig(), *, dtype=torch.float32,
+              device=None):
+    """Returns ``(params, state)`` trees on ``device`` (``None`` means the
+    card), drawn from the CPU ``torch.Generator`` ``generator``."""
+    device = resolve_device(device)
+    widths = cfg.encoder_widths()
+    params = {"enc": [], "dec": [], "up": []}
+    state = {"enc": [], "dec": []}
+
+    cin = cfg.in_channels
+    for wdt in widths:
+        p, s = _init_double_conv(generator, cin, wdt, dtype, device)
+        params["enc"].append(p)
+        state["enc"].append(s)
+        cin = wdt
+
+    bw = cfg.bottleneck_width()
+    params["bottleneck"], state["bottleneck"] = _init_double_conv(
+        generator, widths[-1], bw, dtype, device)
+
+    up_in = bw
+    for wdt in reversed(widths):
+        params["up"].append(init_conv_transpose(generator, up_in, wdt, dtype=dtype,
+                                                device=device))
+        p, s = _init_double_conv(generator, 2 * wdt, wdt, dtype, device)
+        params["dec"].append(p)
+        state["dec"].append(s)
+        up_in = wdt
+
+    params["out"] = init_conv(generator, 1, 1, widths[0], cfg.num_classes, dtype=dtype,
+                              device=device, bias_init=cfg.out_bias_init)
+    return params, state
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+
+def _double_conv(p, s, x, *, train, momentum, eps, fast_norm):
+    x = conv3x3(x, p["conv1"])
+    x, s1 = batchnorm_apply(x, p["bn1"], s["bn1"], train=train, momentum=momentum,
+                            eps=eps, norm_in_compute_dtype=fast_norm)
+    x = torch.relu(x)
+    x = conv3x3(x, p["conv2"])
+    x, s2 = batchnorm_apply(x, p["bn2"], s["bn2"], train=train, momentum=momentum,
+                            eps=eps, norm_in_compute_dtype=fast_norm)
+    x = torch.relu(x)
+    return x, {"bn1": s1, "bn2": s2}
+
+
+def unet_apply(params, state, x, *, cfg: UNetConfig = UNetConfig(), train=False,
+               remat=False, fast_norm=False):
+    """Forward pass. ``x``: (N,Cin,H,W) with H, W divisible by 2^depth.
+
+    Returns ``(logits (N,num_classes,H,W) in x's dtype, new_state)``.
+
+    ``remat=True`` runs every DoubleConv under ``torch.utils.checkpoint``:
+    the backward pass recomputes the block's insides instead of keeping them
+    live. The recompute runs BatchNorm again; that is safe because
+    ``batchnorm_apply`` only returns statistics and writes none.
+
+    ``fast_norm=True`` runs the BN normalise in the activation dtype (the
+    statistics stay float32).
+    """
+    mom, eps = cfg.bn_momentum, cfg.bn_eps
+
+    def dc(p, s, h):
+        if remat:
+            return checkpoint(_double_conv, p, s, h, train=train, momentum=mom,
+                              eps=eps, fast_norm=fast_norm, use_reentrant=False)
+        return _double_conv(p, s, h, train=train, momentum=mom, eps=eps,
+                            fast_norm=fast_norm)
+
+    new_state = {"enc": [], "dec": []}
+    skips = []
+    h = x
+    for p, s in zip(params["enc"], state["enc"]):
+        h, ns = dc(p, s, h)
+        new_state["enc"].append(ns)
+        skips.append(h)
+        h = max_pool2(h)
+
+    h, new_state["bottleneck"] = dc(params["bottleneck"], state["bottleneck"], h)
+
+    for up_p, dec_p, dec_s, skip in zip(
+        params["up"], params["dec"], state["dec"], reversed(skips)
+    ):
+        h = conv_transpose2x2(h, up_p)
+        h = torch.cat([h, skip], dim=1)  # [upsampled, skip]: torch's cat order
+        h, ns = dc(dec_p, dec_s, h)
+        new_state["dec"].append(ns)
+
+    return conv1x1(h, params["out"]), new_state
+
+
+def param_count(params) -> int:
+    return sum(int(a.numel()) for a in tree_leaves(params))
+
+
+def tree_leaves(tree):
+    """The tensors of a params/state tree, in a fixed order: dict keys sorted
+    (as JAX flattens a dict), then list order. So two trees with the same
+    keys give their leaves in the same order whatever order their dicts were
+    built in (``init_unet``'s and ``weights.load_npz``'s differ), which the
+    optimizer's and the checkpoint's leaf indices rely on."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
 
 
 def _fold_double_conv(p, s, eps):
@@ -72,7 +215,7 @@ def unet_apply_folded(folded, x):
         h = max_pool2(h)
     h = _folded_double_conv(folded["bottleneck"], h)
     for up_p, dec_p, skip in zip(folded["up"], folded["dec"], reversed(skips)):
-        h = conv_transpose2x2_serving(h, up_p)
+        h = conv_transpose2x2(h, up_p)
         c = h.shape[1]
         k1 = dec_p["conv1"]["weight"]
         part_up = conv3x3(h, {"weight": k1[:, :c], "bias": dec_p["conv1"]["bias"]})

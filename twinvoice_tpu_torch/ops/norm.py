@@ -1,8 +1,63 @@
-"""Inference-time BatchNorm folding (``twinvoice_tpu.ops.norm``)."""
+"""BatchNorm in train and eval mode, and inference-time BatchNorm folding
+(``twinvoice_tpu.ops.norm``), on NCHW tensors.
+
+torch ``BatchNorm2d`` semantics (eps 1e-5, momentum 0.1, affine, running
+statistics): train mode normalises with the *biased* batch variance and
+updates the running variance with the *unbiased* one (Bessel n/(n−1)),
+``running = (1−m)·running + m·batch``; eval mode normalises with the running
+statistics.
+"""
 
 from __future__ import annotations
 
 import torch
+
+
+def init_batchnorm(c, *, dtype=torch.float32, device=None):
+    params = {"scale": torch.ones(c, dtype=dtype, device=device),
+              "bias": torch.zeros(c, dtype=dtype, device=device)}
+    state = {"mean": torch.zeros(c, dtype=dtype, device=device),
+             "var": torch.ones(c, dtype=dtype, device=device)}
+    return params, state
+
+
+def batchnorm_apply(x, params, state, *, train, momentum=0.1, eps=1e-5,
+                    norm_in_compute_dtype=False):
+    """Returns ``(y, new_state)``; ``x`` is NCHW, statistics reduce over
+    (N, H, W). Functional: ``state`` is never written, the new running
+    statistics are returned (detached from the graph), so a recomputed
+    forward (``unet_apply(remat=True)``) counts each step's statistics once.
+
+    The batch variance is E[x²] − E[x]² in float32, as the JAX package takes
+    it (``torch.var`` and ``F.batch_norm`` are two-pass and round
+    differently). ``norm_in_compute_dtype``: the statistics stay float32, but
+    the normalise itself runs in ``x.dtype`` (bf16 training: no float32
+    copy of the activation).
+    """
+    scale, bias = params["scale"], params["bias"]
+    if train:
+        x32 = x.to(torch.float32)
+        mean = torch.mean(x32, dim=(0, 2, 3))
+        var = torch.mean(torch.square(x32), dim=(0, 2, 3)) - torch.square(mean)
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        with torch.no_grad():
+            unbiased = var * (n / max(n - 1, 1))
+            new_state = {
+                "mean": (1 - momentum) * state["mean"] + momentum * mean,
+                "var": (1 - momentum) * state["var"] + momentum * unbiased,
+            }
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    inv = scale.to(torch.float32) / torch.sqrt(var.to(torch.float32) + eps)
+    if norm_in_compute_dtype and x.dtype != torch.float32:
+        dt = x.dtype
+        y = ((x - mean.to(dt)[:, None, None]) * inv.to(dt)[:, None, None]
+             + bias.to(dt)[:, None, None])
+        return y, new_state
+    y = ((x.to(torch.float32) - mean[:, None, None]) * inv[:, None, None]
+         + bias.to(torch.float32)[:, None, None])
+    return y.to(x.dtype), new_state
 
 
 def fold_batchnorm_into_conv(conv_params, bn_params, bn_state, *, eps=1e-5):

@@ -107,6 +107,57 @@ def from_jax_params(params, state):
     return tp, ts
 
 
+def _array(t, perm=None):
+    a = t.detach().cpu().numpy()
+    return np.array(a if perm is None else np.transpose(a, perm), order="C")  # a copy
+
+
+def _jax_conv(p, perm):
+    return {"kernel": _array(p["weight"], perm), "bias": _array(p["bias"])}
+
+
+def _jax_double_conv(p):
+    return {
+        "conv1": _jax_conv(p["conv1"], (2, 3, 1, 0)),
+        "bn1": {k: _array(v) for k, v in p["bn1"].items()},
+        "conv2": _jax_conv(p["conv2"], (2, 3, 1, 0)),
+        "bn2": {k: _array(v) for k, v in p["bn2"].items()},
+    }
+
+
+def _jax_bn_state(s):
+    return {name: {k: _array(v) for k, v in bn.items()} for name, bn in s.items()}
+
+
+def to_jax_params(params, state):
+    """The inverse of :func:`from_jax_params`: torch ``(params, state)`` trees
+    → numpy trees in the JAX package's layouts (HWIO ``kernel``, (2,2,Ci,Co)
+    transpose kernels). A pure transpose, so a round trip is bit-exact."""
+    jp = {
+        "enc": [_jax_double_conv(p) for p in params["enc"]],
+        "bottleneck": _jax_double_conv(params["bottleneck"]),
+        "up": [_jax_conv(p, (2, 3, 0, 1)) for p in params["up"]],
+        "dec": [_jax_double_conv(p) for p in params["dec"]],
+        "out": _jax_conv(params["out"], (2, 3, 1, 0)),
+    }
+    js = {
+        "enc": [_jax_bn_state(s) for s in state["enc"]],
+        "bottleneck": _jax_bn_state(state["bottleneck"]),
+        "dec": [_jax_bn_state(s) for s in state["dec"]],
+    }
+    return jp, js
+
+
+def keystr_items(tree, prefix=""):
+    """``(keystr, leaf)`` pairs of a nested dict/list tree, the paths written
+    as JAX's ``keystr`` writes them (``['enc'][0]['conv1']['kernel']``)."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in keystr_items(v, f"{prefix}['{k}']")]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree) for kv in keystr_items(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
 def load_npz(path):
     """Bundled npz → ``(params, state)`` torch trees on the CPU, float32."""
     return from_jax_params(*read_npz_tree(path))
