@@ -154,6 +154,32 @@ Phases, each printing one line with its wall time:
     and its boxes within one grid cell of the plain path's on the same
     weights (eval-mode ``unet_apply`` at fp32, ``bbox_from_probs``), which
     must find fields
+23. recognizer and textness-head training (``ocr/torchocr/train.py``,
+    ``textness.py``; no kernel of their own: cuDNN's convs, cuBLAS, PyTorch's
+    CTC and plain PyTorch, as the JAX trainers are plain XLA) against the
+    JAX trainers' numbers in ``tests/data/torch_smoke_ocrtrain.npz``, TF32
+    off: from the bundled recognizer (t64, 420 classes) 3 steps on its b64
+    batch of lines at lr 3e-4, and from the bundled textness head 3 steps on
+    its 8 pages at ``textness.train``'s optimizer: the losses, the step-1
+    gradients' norms and sampled elements (also against the exact float64
+    step stored there), the recognizer's BN running statistics after steps
+    1 and 3, and every leaf's step norm after step 3, each within
+    ``OCR_TRAIN_TOLS``; the textness labels equal to JAX's; the bundled
+    recognizer's greedy texts on the eval batch equal to JAX's away from
+    near-ties (``OCR_NEAR_TIE``), with ``evaluate``'s exact-match and CER;
+    ``ctc_loss`` on infeasible t32 rows beside feasible ones equal to its
+    plain recursion
+24. the recognizer at b64 t64 fp32 (TF32 off): the median ms of 10 steps
+    after 2, lines/s, the step's bound (FLOPs from the layer shapes over the
+    card's float32 peak), peak memory and device time by kernel kind, the
+    losses over 12 steps, which must fall; ``train()`` for 120 steps from
+    the bundled weights (``resume_from``) on the fixture's pool, saved with
+    ``save_weights`` into a temporary directory under the kernels' build
+    directory, served by ``TorchOcrEngine(weights_dir=...)`` on phase 17's
+    fixture crops with the texts of an engine built from the in-memory
+    params; the textness head at b32 256² (the 8 pages tiled) beside its
+    bound, then ``save_textness``, ``load_textness`` and ``textness_map``
+    equal to the in-memory head's
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -168,7 +194,8 @@ So is each route of phase 19 and phase 20's timed calls: K1 once per
 segmenter call (two per chunked ``extract_batch``, one per ``extract``) and
 nothing else, and on the int8 "pallas" route K4a, K6 and K2 their route
 counts per segmenter call. Phase 22's serving of the trained w64 weights is
-driven the same way: K1 once. The kernel rows' launches sum every such path.
+driven the same way: K1 once. Phases 23-24 must leave every count as it
+was. The kernel rows' launches sum every such path.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
 only. Without a CUDA device, or if any phase fails, it exits non-zero and
@@ -220,6 +247,11 @@ from twinvoice_tpu_torch.models.unet import (  # noqa: E402
     unet_apply,
     unet_apply_folded,
 )
+from twinvoice_tpu_torch.ocr.torchocr import charset as rec_charset  # noqa: E402
+from twinvoice_tpu_torch.ocr.torchocr import model as rec_model  # noqa: E402
+from twinvoice_tpu_torch.ocr.torchocr import textness as ttex  # noqa: E402
+from twinvoice_tpu_torch.ocr.torchocr import train as rec_train  # noqa: E402
+from twinvoice_tpu_torch.ocr.torchocr.data import encode_labels, lines_to_tensor  # noqa: E402
 from twinvoice_tpu_torch.ops import bbox_postprocess as k1  # noqa: E402
 from twinvoice_tpu_torch.ops import head as k2  # noqa: E402
 from twinvoice_tpu_torch.ops import nhwc_conv as nhwc  # noqa: E402
@@ -2829,20 +2861,27 @@ def unet_macs(cfg, size):
     return macs + hw * hw * cfg.encoder_widths()[0] * cfg.num_classes
 
 
-def train_step_bound_ms(cfg, n, size, n_params, dtype):
-    """The least time of one train step: its operations (the forward, and
-    the input and weight gradients of every layer but the first layer's
-    input gradient; 2 FLOPs a multiply-add) over the card's peak for
-    ``dtype``, or the bytes it must move (the params and AdamW's two
-    moments, float32, each read and written once, and the batch's images
-    and masks read once), whichever is larger.
+def step_bound_ms(macs, first_macs, n_params, in_bytes, peak=FP32_OPS_PER_S):
+    """The least time of one train step: its operations (the forward's
+    ``macs`` multiply-adds, and the input and weight gradients of every layer
+    but the first layer's input gradient, ``first_macs``; 2 FLOPs a
+    multiply-add) over the card's ``peak``, or the bytes it must move (the
+    params and AdamW's two moments, float32, each read and written once, and
+    the batch's ``in_bytes`` read once), whichever is larger.
     → (ms, "operations" or "bytes", FLOPs)."""
-    stem = size * size * 9 * cfg.in_channels * cfg.encoder_widths()[0]
-    flops = 2 * n * (3 * unet_macs(cfg, size) - stem)
-    peak = FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
-    nbytes = 2 * 3 * 4 * n_params + n * size * size * 6 * (4 if dtype == "float32" else 2)
+    flops = 2 * (3 * macs - first_macs)
+    nbytes = 2 * 3 * 4 * n_params + in_bytes
     ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / HBM_BYTES_PER_S
     return (ops_ms, "operations", flops) if ops_ms >= bytes_ms else (bytes_ms, "bytes", flops)
+
+
+def train_step_bound_ms(cfg, n, size, n_params, dtype):
+    """:func:`step_bound_ms` of a U-Net step on ``n`` images of ``size``² at
+    ``dtype``'s peak (its images and masks the batch)."""
+    stem = size * size * 9 * cfg.in_channels * cfg.encoder_widths()[0]
+    return step_bound_ms(n * unet_macs(cfg, size), n * stem, n_params,
+                         n * size * size * 6 * (4 if dtype == "float32" else 2),
+                         FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S)
 
 
 TRAIN_WARMUP = 2   # untimed steps before phase 22's timed ones
@@ -2851,7 +2890,7 @@ TRAIN_TIMED = 10
 # kernel's name holds
 TRAIN_KERNEL_KINDS = (
     ("conv", ("conv", "xmma", "cudnn", "fprop", "dgrad", "wgrad", "winograd", "fft",
-              "nchwToNhwc", "nhwcToNchw")),
+              "nchwToNhwc", "nhwcToNchw", "complex", "region_transform")),
     ("gemm", ("gemm", "cutlass", "sm90_")),
     ("reduction", ("reduce",)),
     ("AdamW", ("multi_tensor", "adam")),
@@ -2880,6 +2919,26 @@ def train_step_kinds(step_fn, ms):
           flush=True)
 
 
+def timed_steps(step_fn):
+    """``TRAIN_WARMUP`` untimed calls of ``step_fn()`` (→ a loss tensor), then
+    ``TRAIN_TIMED`` timed by CUDA events around each. → (median ms, peak GiB
+    over all the calls, the losses of every call)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, events = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        losses.append(step_fn())
+        ev[1].record()
+        if i >= TRAIN_WARMUP:
+            events.append(ev)
+    torch.cuda.synchronize()
+    return (float(np.median([a.elapsed_time(b) for a, b in events])),
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+            torch.stack(losses).cpu().numpy())
+
+
 def train_speed(fix, card, params, state, dtype):
     """Phase 22's timing at one dtype: the w64 train step on the fixture
     batch, ``TRAIN_WARMUP`` steps then ``TRAIN_TIMED`` timed ones (CUDA
@@ -2891,21 +2950,13 @@ def train_speed(fix, card, params, state, dtype):
     opt = make_optimizer(params, tcfg)
     step = make_train_step(mcfg, tcfg, device=device)
     x, y = train_batch(fix, DTYPES[dtype], device)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, events = [], []
-    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
-        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        params, state, loss = step(params, state, opt, x, y, TRAIN_LR)
-        ev[1].record()
-        losses.append(loss)
-        if i >= TRAIN_WARMUP:
-            events.append(ev)
-    torch.cuda.synchronize()
-    ms = float(np.median([a.elapsed_time(b) for a, b in events]))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    losses = torch.stack(losses).cpu().numpy()
+    box = [params, state]
+
+    def one():
+        box[0], box[1], loss = step(box[0], box[1], opt, x, y, TRAIN_LR)
+        return loss
+
+    ms, peak, losses = timed_steps(one)
     bound, by, flops = train_step_bound_ms(mcfg, x.shape[0], x.shape[2],
                                            param_count(params), dtype)
     print(f"  w64 b{x.shape[0]} {x.shape[2]}^2 {dtype}: {ms:.3f} ms a step (median of "
@@ -2915,7 +2966,7 @@ def train_speed(fix, card, params, state, dtype):
     print(f"    losses {np.round(losses.astype(np.float64), 6).tolist()}", flush=True)
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"w64 {dtype} losses do not fall: {losses.tolist()}")
-    train_step_kinds(lambda: step(params, state, opt, x, y, TRAIN_LR), ms)
+    train_step_kinds(one, ms)
     return {"ms": ms, "bound_ms": bound, "peak_gib": peak}
 
 
@@ -3025,6 +3076,409 @@ def phase_train_w64(card):
     return launches[k1.NAME]
 
 
+# -- phases 23-24: recognizer and textness-head training -------------------------
+
+
+OCR_TRAIN_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_ocrtrain.npz")
+OCR_TRAIN_LR = 3e-4   # the fixture's recognizer steps, at a constant lr
+TX_TRAIN_LR = 2e-3    # the textness steps: textness.train's cosine decay over 3 steps
+OCR_TRAIN_STEPS = 120  # phase 24's train() run: the 100 warmup steps and 20 more
+TX_BATCH = 32          # textness.train's batch, tiled from the fixture's 8 pages
+
+
+def ocr_train_fixture():
+    with np.load(OCR_TRAIN_FIXTURE) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _leaf_stats(grads, keys, idx):
+    """{keystr: gradient} → (norms (L,), the sampled elements (L, 16))."""
+    g = [grads[str(k)].astype(np.float64) for k in keys]
+    return (np.array([np.linalg.norm(v) for v in g]),
+            np.stack([v.reshape(-1)[i] for v, i in zip(g, idx)]))
+
+
+def ocr_train_run(fix, device, steps=3):
+    """The port's recognizer ``make_train_step`` from the bundled weights on
+    the fixture's batch 0, ``steps`` steps at lr 3e-4: the numbers the
+    fixture stores, keyed as there."""
+    params, state, _, arch = rec_model.load_crnn_weights()
+    start = dict(keystr_items(rec_model.crnn_params_to_jax(params, state)[0]))
+    params, state = _copy_to(params, device), _copy_to(state, device)
+    opt = rec_train.make_optimizer(params)
+    step = rec_train.make_train_step(arch, device=device)
+    x = lines_to_tensor(fix["lines"], device)
+    skeys = [str(k) for k in fix["state_keys"]]
+    losses, bn = [], []
+    for i in range(steps):
+        params, state, loss = step(params, state, opt, x, fix["labels"], fix["label_pad"],
+                                   OCR_TRAIN_LR)
+        losses.append(loss)
+        sd = dict(keystr_items(rec_model.crnn_params_to_jax(params, state)[1]))
+        bn.append(np.concatenate([sd[k] for k in skeys]))
+        if i == 0:
+            grads = dict(keystr_items(rec_model.crnn_params_to_jax(
+                _tree_map(lambda t: t.grad, params), state)[0]))
+    after = dict(keystr_items(rec_model.crnn_params_to_jax(params, state)[0]))
+    norms, sample = _leaf_stats(grads, fix["param_keys"], fix["sample_idx"])
+    return {"losses": torch.stack(losses).cpu().numpy(), "grad_norms": norms,
+            "grad_sample": sample, "bn1": bn[0], "bn3": bn[-1], "grads": grads,
+            "step_norms": np.array([np.linalg.norm((after[k] - start[k]).astype(np.float64))
+                                    for k in map(str, fix["param_keys"])])}
+
+
+def textness_train_run(fix, device, steps=3):
+    """The port's textness ``make_train_step`` from the bundled head on the
+    fixture's 8 pages, ``steps`` steps of ``train``'s optimizer and schedule
+    at ``steps=3``: the numbers the fixture stores, keyed as there."""
+    params = ttex.load_textness()
+    start = dict(keystr_items(ttex.textness_params_to_jax(params)))
+    params = _copy_to(params, device)
+    opt = rec_train.make_optimizer(params)
+    step = ttex.make_train_step(device=device)
+    schedule = rec_train.cosine_decay(TX_TRAIN_LR, 3)
+    x, y = ttex.pages_to_batch(fix["pages"], fix["masks"], device)
+    losses = []
+    for i in range(steps):
+        params, loss = step(params, opt, x, y, schedule(i))
+        losses.append(loss)
+        if i == 0:
+            grads = dict(keystr_items(ttex.textness_params_to_jax(
+                _tree_map(lambda t: t.grad, params))))
+    after = dict(keystr_items(ttex.textness_params_to_jax(params)))
+    norms, sample = _leaf_stats(grads, fix["tx_keys"], fix["tx_sample_idx"])
+    return {"losses": torch.stack(losses).cpu().numpy(), "grad_norms": norms,
+            "grad_sample": sample, "grads": grads, "labels": y[:, 0].cpu().numpy(),
+            "step_norms": np.array([np.linalg.norm((after[k] - start[k]).astype(np.float64))
+                                    for k in map(str, fix["tx_keys"])])}
+
+
+# Phase 23's tolerances, as phase 21's (``TRAIN_TOLS``): each step-1 number is
+# held to the fixture's float64 step (``*_exact_*``) and to JAX's within JAX's
+# own distance from it plus the tolerance. XLA's CPU reductions add one
+# element after another, and E[x²] − E[x]² over a b64 32×256 BatchNorm
+# amplifies that: JAX's step-1 gradients are up to 1.3% of a leaf's norm from
+# exact (``['bn'][1]['scale']``), its loss 1.3e-4 from exact, its BN state
+# 1.7e-5; the port's on the CPU 6.0e-4, 3.8e-7 and 9.9e-8. So JAX's own
+# trajectory leaves the exact one, and the later steps are held to JAX's
+# more loosely. "loss": step 1 relative to exact; "later": steps 2 and 3
+# relative to JAX's (9.3e-4 for the recognizer on the CPU); "grad": a leaf's
+# norm and its 16 sampled elements, relative to the leaf's exact norm (the
+# lines' flat paper background ties pool windows and sets ReLUs near 0, so
+# the activations' last bit routes a float32 gradient; on the segmenter that
+# was 8.3e-3); "bn1"/"bn3": relative ‖·‖ of the BN running statistics after
+# steps 1 (to exact) and 3 (to JAX's: 1.6e-4 on the CPU); "step": a leaf's
+# step norm after 3 steps relative to JAX's (Adam's ±lr steps, but for
+# near-0 gradients), the kernels' (and the textness head's biases'); the
+# recognizer's 1-D leaves' step norms are held to Adam's bound 3·lr·√n;
+# "bias": the norm of a pre-BN conv bias's gradient (exactly 0) relative to
+# its kernel's exact one. The textness head has no BatchNorm.
+OCR_TRAIN_TOLS = {
+    "rec": dict(loss=1e-5, later=3e-3, grad=2e-2, bn1=1e-5, bn3=1e-3, step=1e-2, bias=1e-3),
+    "tx": dict(loss=1e-5, later=1e-3, grad=1e-3, step=1e-3),
+}
+
+
+def crnn_pre_bn_bias(key):
+    """A CRNN bias that train-mode BatchNorm follows: its exact gradient is 0."""
+    return key.startswith(("['conv']", "['ctx']")) and key.endswith("['bias']")
+
+
+def ocr_train_parity(fix, tag, got):
+    """Hold one model's numbers (``tag`` "rec": :func:`ocr_train_run`, "tx":
+    :func:`textness_train_run`) to the fixture's with ``OCR_TRAIN_TOLS[tag]``;
+    print each leaf's gradient and step norms beside JAX's and the exact
+    gradient norm, then the losses and each check's worst case. → the
+    failures (empty: it passed)."""
+    tol = OCR_TRAIN_TOLS[tag]
+    fails = []
+    jl, exact_loss = fix[f"{tag}_losses"], float(fix[f"{tag}_exact_loss"])
+    lerr = abs(float(got["losses"][0]) - exact_loss) / exact_loss
+    ljax = abs(float(got["losses"][0]) - float(jl[0])) / float(jl[0])
+    lown = abs(float(jl[0]) - exact_loss) / exact_loss
+    if lerr > tol["loss"] or ljax > lown * 1.01 + tol["loss"]:
+        fails.append(f"step 1 loss {got['losses'][0]:.8f} vs exact {exact_loss:.8f}, "
+                     f"JAX {jl[0]:.8f}")
+    for i, (a, b) in enumerate(zip(got["losses"][1:], jl[1:]), 2):
+        if abs(a - b) > tol["later"] * b:
+            fails.append(f"step {i} loss {a:.8f} vs JAX {b:.8f}")
+    keys = [str(k) for k in fix["param_keys" if tag == "rec" else "tx_keys"]]
+    ex, jn, gn = fix[f"{tag}_exact_grad_norms"], fix[f"{tag}_grad_norms"], got["grad_norms"]
+    es, js, gs = (fix[f"{tag}_exact_grad_sample"], fix[f"{tag}_grad_sample"],
+                  got["grad_sample"])
+    worst = {"grad": (0.0, ""), "step": (0.0, "")}
+    rows = []
+    for i, key in enumerate(keys):
+        step, jstep = got["step_norms"][i], fix[f"{tag}_step_norms"][i]
+        rows.append(f"    {tag} {key:24s} grad {gn[i]:.5e} JAX {jn[i]:.5e} exact "
+                    f"{ex[i]:.5e} | step {step:.5e} JAX {jstep:.5e}")
+        if tag == "rec" and crnn_pre_bn_bias(key):
+            kern = ex[keys.index(key.replace("['bias']", "['kernel']"))]
+            if gn[i] > tol["bias"] * kern:
+                fails.append(f"{key}: gradient norm {gn[i]:.3e} (exactly 0)")
+            continue
+        err = max(abs(gn[i] - ex[i]), np.abs(gs[i] - es[i]).max()) / ex[i]
+        jerr = max(abs(jn[i] - ex[i]), np.abs(js[i] - es[i]).max()) / ex[i]
+        vs_jax = max(abs(gn[i] - jn[i]), np.abs(gs[i] - js[i]).max()) / ex[i]
+        if err > tol["grad"] + jerr or vs_jax > jerr * 1.01 + tol["grad"]:
+            fails.append(f"{key}: gradient {err:.3e} from exact, {vs_jax:.3e} from JAX "
+                         f"(JAX {jerr:.3e} from exact)")
+        worst["grad"] = max(worst["grad"], (err, key))
+        if tag == "tx" or key.endswith("['kernel']"):
+            rel = abs(step - jstep) / jstep
+            worst["step"] = max(worst["step"], (rel, key))
+            if rel > tol["step"]:
+                fails.append(f"{key}: step norm {step:.4e} vs JAX {jstep:.4e}")
+        elif step > 3.03 * OCR_TRAIN_LR * np.sqrt(got["grads"][key].size):
+            fails.append(f"{key}: step norm {step:.4e} above Adam's bound")
+    line = (f"  {tag}: losses {np.round(got['losses'].astype(np.float64), 8).tolist()} vs JAX "
+            f"{np.round(jl.astype(np.float64), 8).tolist()} (exact step 1 {exact_loss:.8f}); "
+            f"step-1 gradient worst {worst['grad'][0]:.2e} of its norm from exact "
+            f"({worst['grad'][1]}); step norms worst {worst['step'][0]:.2e} from JAX's "
+            f"({worst['step'][1]})")
+    if tag == "rec":
+        bn1_exact = rel_dist(got["bn1"], fix["rec_exact_bn1"])
+        bn1_jax = rel_dist(got["bn1"], fix["rec_bn1"])
+        bn1_own = rel_dist(fix["rec_bn1"], fix["rec_exact_bn1"])
+        bn3 = rel_dist(got["bn3"], fix["rec_bn3"])
+        if bn1_exact > tol["bn1"] + bn1_own or bn1_jax > bn1_own * 1.01 + tol["bn1"]:
+            fails.append(f"BN state after step 1: {bn1_exact:.3e} from exact, "
+                         f"{bn1_jax:.3e} from JAX (JAX {bn1_own:.3e} from exact)")
+        if bn3 > tol["bn3"]:
+            fails.append(f"BN state after step 3: {bn3:.3e} from JAX")
+        line += (f"; BN after step 1 {bn1_exact:.2e} from exact, {bn1_jax:.2e} from JAX "
+                 f"(JAX {bn1_own:.2e}); after step 3 {bn3:.2e}")
+    print("\n".join(rows) + "\n" + line, flush=True)
+    return fails
+
+
+def ocr_eval_check(fix, device):
+    """``evaluate`` and the greedy texts of the bundled recognizer on the
+    fixture's eval batch: each text equal to JAX's unless its line has a
+    frame whose top-1/top-2 gap is at most ``OCR_NEAR_TIE``; exact-match and
+    CER equal to JAX's when every text is. → (texts differing, near-tie
+    lines, exact, cer)."""
+    params, state, charset, arch = rec_model.load_crnn_weights()
+    params, state = _copy_to(params, device), _copy_to(state, device)
+    texts = rec_train.greedy_texts(params, state, lines_to_tensor(fix["eval_lines"], device),
+                                   charset, arch)
+    exact, cer = rec_train.evaluate(params, state, [(fix["eval_lines"], fix["eval_texts"])],
+                                    charset, arch, device=device)
+    near = (fix["eval_gap"] <= OCR_NEAR_TIE).any(axis=1)
+    diff = [i for i, (a, b) in enumerate(zip(texts, fix["eval_greedy"])) if a != str(b)]
+    if any(not near[i] for i in diff):
+        raise AssertionError(f"greedy texts differ from JAX's away from near-ties at "
+                             f"{[(i, texts[i], str(fix['eval_greedy'][i])) for i in diff]}")
+    if not diff and (exact, cer) != (float(fix["eval_exact"]), float(fix["eval_cer"])):
+        raise AssertionError(f"evaluate: exact {exact}, cer {cer}; JAX's "
+                             f"{float(fix['eval_exact'])}, {float(fix['eval_cer'])}")
+    return len(diff), int(near.sum()), exact, cer
+
+
+def ctc_infeasible_check(device):
+    """``ctc_loss`` on crafted t32 rows (T = 32) whose labels do not fit the
+    frames (23 chars with doubled letters, 24 repeats of one char), beside
+    feasible ones, against its plain version: the losses within 1e-6 of
+    theirs relative, finite, and the gradients within 1e-3 of their norm
+    (the plain recursion runs at ε ≈ −1e5, where float32 keeps 3 decimals).
+    → (infeasible rows, max relative loss error, max gradient error)."""
+    g = torch.Generator().manual_seed(5)
+    logits = torch.randn((6, 32, 420), generator=g).to(device)
+    rows = ["AABBCCDDEEFFGGHHIIJJKKL", "A" * 24, "JJ-12345678", "AB12345678",
+            "OO0O0I1SS5BB8", "ZZ22QQ" * 3]
+    labels, pad, _ = encode_labels(rows, rec_charset.cjk_charset())
+    infeasible = int((~rec_train.ctc_feasible(labels, pad, 32)).sum())
+    a = logits.clone().requires_grad_()
+    b = logits.clone().requires_grad_()
+    la = rec_train.ctc_loss(a, labels, pad)
+    lb = rec_train.ctc_loss_plain(b, labels, pad)
+    la.mean().backward()
+    lb.mean().backward()
+    loss_err = float(((la - lb).abs() / lb.abs()).max().detach())
+    grad_err = float((a.grad - b.grad).norm() / b.grad.norm())
+    if infeasible < 2 or not torch.isfinite(la).all() or loss_err > 1e-6 or grad_err > 1e-3:
+        raise AssertionError(f"ctc_loss on infeasible rows: {infeasible} infeasible, losses "
+                             f"{la.tolist()} vs plain {lb.tolist()}, gradient {grad_err:.3e}")
+    return infeasible, loss_err, grad_err
+
+
+def phase_ocr_train_parity(card):
+    """Phase 23: the port's recognizer and textness train steps against the
+    JAX trainers' numbers, the bundled recognizer's greedy texts, and
+    ``ctc_loss`` on infeasible rows."""
+    fix = ocr_train_fixture()
+    device = torch.device("cuda")
+    print("  no kernel of the port on this path: cuDNN's convs, cuBLAS, PyTorch's CTC and "
+          "plain PyTorch, as the JAX trainers are plain XLA", flush=True)
+    fails = []
+    with tf32_off():
+        fails += [f"rec: {f}" for f in ocr_train_parity(fix, "rec", ocr_train_run(fix, device))]
+        tx = textness_train_run(fix, device)
+        if not np.array_equal(tx["labels"], fix["page_labels"]):
+            fails.append("textness labels differ from JAX's")
+        fails += [f"tx: {f}" for f in ocr_train_parity(fix, "tx", tx)]
+        ndiff, near, exact, cer = ocr_eval_check(fix, device)
+        infeasible, lerr, gerr = ctc_infeasible_check(device)
+    print(f"  bundled recognizer on the eval batch: greedy texts equal to JAX's on "
+          f"{len(fix['eval_greedy']) - ndiff} of {len(fix['eval_greedy'])} lines ({near} with "
+          f"a near-tie frame); exact {exact:.4f} cer {cer:.4f}, JAX {float(fix['eval_exact']):.4f} "
+          f"{float(fix['eval_cer']):.4f}", flush=True)
+    print(f"  ctc_loss on {infeasible} infeasible t32 rows beside feasible ones: losses within "
+          f"{lerr:.2e} of the plain recursion's, gradients within {gerr:.2e} [{card}]",
+          flush=True)
+    if fails:
+        raise AssertionError("OCR training parity:\n" + "\n".join(fails))
+
+
+def textness_layers(params, b, hw):
+    """The textness head's convs for ``b`` pages of ``hw``² → [(name,
+    params, input shape, multiply-adds)]."""
+    layers, h = [], hw
+    for i, p in enumerate(params):
+        co, ci, kh, kw = p["weight"].shape
+        out = h // 2 if i < 2 else h
+        layers.append((f"l{i}", p, (b, ci, h, h), b * out * out * co * ci * kh * kw))
+        h = out
+    return layers
+
+
+def recognizer_speed(fix, card):
+    """Phase 24's recognizer step at b64 t64 fp32 (TF32 off) on the fixture's
+    batch 0 from the bundled weights, beside its bound; the losses must
+    fall."""
+    device = torch.device("cuda")
+    params, state, _, arch = rec_model.load_crnn_weights()
+    params, state = _copy_to(params, device), _copy_to(state, device)
+    opt = rec_train.make_optimizer(params)
+    step = rec_train.make_train_step(arch, device=device)
+    x = lines_to_tensor(fix["lines"], device)
+    box = [params, state]
+
+    def one():
+        box[0], box[1], loss = step(box[0], box[1], opt, x, fix["labels"], fix["label_pad"],
+                                    OCR_TRAIN_LR)
+        return loss
+
+    ms, peak, losses = timed_steps(one)
+    n = x.shape[0]
+    layers, _ = ocr_layers(params, arch, n)
+    bound, by, flops = step_bound_ms(sum(lay[-1] for lay in layers), layers[0][-1],
+                                     param_count(params), x.numel() * 4)
+    print(f"  recognizer {arch} b{n} 32x256 fp32 (TF32 off), {param_count(params)} params, "
+          f"{params['head']['weight'].shape[0]} classes: {ms:.3f} ms a step "
+          f"(median of {TRAIN_TIMED}), {1e3 * n / ms:.1f} lines/s; bound {bound:.3f} ms by {by} "
+          f"({flops / 1e9:.1f} GFLOP at 67 TFLOP/s), {bound / ms:.3f} of it reached; peak "
+          f"memory {peak:.3f} GiB [{card}]", flush=True)
+    print(f"    losses {np.round(losses.astype(np.float64), 6).tolist()}", flush=True)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"recognizer losses do not fall: {losses.tolist()}")
+    train_step_kinds(one, ms)
+    return ms, bound
+
+
+def recognizer_train_serve(fix, tmp, card, device, steps=OCR_TRAIN_STEPS):
+    """``train()`` for ``steps`` steps from the bundled weights
+    (``resume_from``) over the fixture's pool, saved with ``save_weights``,
+    loaded into ``TorchOcrEngine(weights_dir=...)`` and read on phase 17's
+    fixture crops: the texts equal to an engine's built from the in-memory
+    params. → how many differ from the bundled weights' (JAX's) texts."""
+    from twinvoice_tpu_torch.ocr.torchocr.engine import TorchOcrEngine
+
+    charset = rec_charset.Charset(str(fix["charset"]))
+    out = os.path.join(tmp, "recognizer.npz")
+    t = time.perf_counter()
+    params, state, metrics = rec_train.train(
+        out, steps=steps, batches=(fix["lines"], fix["labels"], fix["label_pad"]),
+        eval_batches=[(fix["eval_lines"], [str(s) for s in fix["eval_texts"]])],
+        charset=charset, resume_from=rec_model.DEFAULT_WEIGHTS_PATH,
+        log=lambda m: print("   ", m, flush=True), device=device)
+    train_s = time.perf_counter() - t
+    ocr = ocr_fixture()
+    crops, modes = ocr["crop_list"], [str(m) for m in ocr["crop_modes"]]
+    saved = TorchOcrEngine(weights_dir=out, device=device)
+    if not saved.available() or saved.arch != "t64" or saved.charset.chars != charset.chars:
+        raise AssertionError(f"the saved recognizer does not load: {out}")
+    live = TorchOcrEngine(params=params, state=state, charset=charset, arch="t64",
+                          device=device)
+    got = [r.text for r in saved.read_batch(crops, modes=modes)]
+    want = [r.text for r in live.read_batch(crops, modes=modes)]
+    if got != want:
+        raise AssertionError(f"the saved weights read {got}, the in-memory ones {want}")
+    bundled = [str(t) for t in ocr["text_cascade"]]
+    ndiff = sum(a != b for a, b in zip(got, bundled))
+    print(f"  train() {steps} steps from the bundled weights on the fixture pool: "
+          f"{train_s:.2f} s, eval exact {metrics['exact']:.4f} cer {metrics['cer']:.4f}; saved "
+          f"{os.path.getsize(out) / 2 ** 20:.2f} MiB, served by TorchOcrEngine: {len(got)} "
+          f"crops read as by the in-memory params, {ndiff} differ from the bundled weights' "
+          f"texts [{card}]", flush=True)
+    return ndiff
+
+
+def textness_speed(fix, card):
+    """Phase 24's textness step at b32 256² (the fixture's 8 pages tiled),
+    beside its bound. → (ms, bound ms, the trained params)."""
+    device = torch.device("cuda")
+    reps = TX_BATCH // len(fix["pages"])
+    pages, masks = np.tile(fix["pages"], (reps, 1, 1)), np.tile(fix["masks"], (reps, 1, 1))
+    params = _copy_to(ttex.load_textness(), device)
+    opt = rec_train.make_optimizer(params)
+    step = ttex.make_train_step(device=device)
+    x, y = ttex.pages_to_batch(pages, masks, device)
+    schedule = rec_train.cosine_decay(TX_TRAIN_LR, TRAIN_WARMUP + TRAIN_TIMED)
+    count = [0]
+
+    def one():
+        _, loss = step(params, opt, x, y, schedule(count[0]))
+        count[0] += 1
+        return loss
+
+    ms, peak, losses = timed_steps(one)
+    layers = textness_layers(params, x.shape[0], x.shape[2])
+    bound, by, flops = step_bound_ms(sum(lay[-1] for lay in layers), layers[0][-1],
+                                     param_count(params), x.numel() * 4 + y.numel() * 4)
+    print(f"  textness head b{x.shape[0]} {x.shape[2]}^2 fp32 (TF32 off), "
+          f"{param_count(params)} params: {ms:.3f} ms a step (median of {TRAIN_TIMED}), "
+          f"{1e3 * x.shape[0] / ms:.1f} pages/s; bound {bound:.3f} ms by {by} "
+          f"({flops / 1e9:.1f} GFLOP at 67 TFLOP/s), {bound / ms:.3f} of it reached; peak "
+          f"memory {peak:.3f} GiB [{card}]", flush=True)
+    print(f"    losses {np.round(losses.astype(np.float64), 6).tolist()}", flush=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"textness losses {losses.tolist()}")
+    train_step_kinds(one, ms)
+    return ms, bound, params
+
+
+def textness_save_serve(fix, tmp, params, device):
+    """``save_textness``, ``load_textness`` and ``textness_map`` on a page
+    from the loaded and the in-memory params: equal."""
+    path = os.path.join(tmp, "textness.npz")
+    ttex.save_textness(path, params)
+    loaded = _copy_to(ttex.load_textness(path), device)
+    page = fix["pages"][0]
+    a = ttex.textness_map(page, loaded, device=device)
+    b = ttex.textness_map(page, params, device=device)
+    if a.shape != page.shape or a.dtype != bool or not np.array_equal(a, b):
+        raise AssertionError("textness_map from the saved head differs from the in-memory one")
+    print(f"  save_textness, load_textness, textness_map on a {page.shape} page: equal to the "
+          f"in-memory head's ({int(a.sum())} text pixels)", flush=True)
+
+
+def phase_ocr_train_speed(card):
+    """Phase 24: the recognizer's and the textness head's train steps timed,
+    ``train()`` saved and served."""
+    import tempfile
+
+    fix = ocr_train_fixture()
+    _build.build_dir().mkdir(parents=True, exist_ok=True)
+    device = torch.device("cuda")
+    with tf32_off(), tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp:
+        rec = recognizer_speed(fix, card)
+        recognizer_train_serve(fix, tmp, card, device)
+        *tx, params = textness_speed(fix, card)
+        textness_save_serve(fix, tmp, params, device)
+    return rec, tuple(tx)
+
+
 def main():
     ph = Phases()
     name, card = ph.run(1, "device", phase_device)
@@ -3107,6 +3561,16 @@ def main():
     launches[k1.NAME] += ph.run(22, "w64 training speed, fit, resume and serving",
                                 phase_train_w64, card)
     print(f"  launches of K1 on the main path and phases 19-20, 22: {launches[k1.NAME]}",
+          flush=True)
+    before = dict(_build.launches)
+    ph.run(23, "recognizer and textness training vs the JAX trainers on the card",
+           phase_ocr_train_parity, card)
+    ph.run(24, "recognizer and textness training speed, save and serve",
+           phase_ocr_train_speed, card)
+    if dict(_build.launches) != before:
+        raise AssertionError(f"phases 23-24 launched kernels of the port: {before} -> "
+                             f"{dict(_build.launches)}")
+    print("  launches in phases 23-24: none (the training paths run no kernel of the port)",
           flush=True)
 
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",

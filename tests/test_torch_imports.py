@@ -33,6 +33,13 @@ from twinvoice_tpu_torch.qr.detect import QrPipeline
 from twinvoice_tpu_torch.data.dataset import ArrayDataset, synthetic_dataset
 from twinvoice_tpu_torch.train import checkpoint, losses, metrics, schedule, visualize
 from twinvoice_tpu_torch.train.trainer import fit, make_train_step
+from twinvoice_tpu_torch.ocr.fonts import coverage, glyph_strokes, has_glyph
+from twinvoice_tpu_torch.ocr.torchocr.charset import cjk_charset
+from twinvoice_tpu_torch.ocr.torchocr.data import encode_labels, random_field_text
+from twinvoice_tpu_torch.ocr.torchocr.lm import CharNgramLM
+from twinvoice_tpu_torch.ocr.torchocr.model import crnn_params_to_jax, init_crnn
+from twinvoice_tpu_torch.ocr.torchocr.train import ctc_loss, save_weights, train
+from twinvoice_tpu_torch.ocr.torchocr.textness import init_textness, save_textness
 import chip_smoke
 loaded = [m for m, v in sys.modules.items()
           if v is not None and m.split(".")[0] in {BLOCKED!r}]
@@ -45,7 +52,7 @@ def test_port_and_chip_smoke_import_without_jax_pil_cv2():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 51  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 56  # every module was imported
 
 
 _READ_WITHOUT_CV2 = f"""
@@ -154,6 +161,58 @@ def test_fit_runs_without_jax_pil_cv2():
     dumps' PNGs, the checkpoints, the npz weights both ways) with JAX, the
     JAX package, Pillow and OpenCV blocked, as on the card's machine."""
     out = subprocess.run([sys.executable, "-c", _FIT_WITHOUT_CV2], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "trained"
+
+
+_OCR_TRAIN_WITHOUT_CV2 = f"""
+import os, sys, tempfile
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+import numpy as np
+import torch
+torch.set_num_threads(1)  # small ops: no thread pool to oversubscribe the cores
+from twinvoice_tpu_torch.ocr.torchocr import textness, train
+from twinvoice_tpu_torch.ocr.torchocr.charset import DEFAULT, cjk_charset
+from twinvoice_tpu_torch.ocr.torchocr.data import encode_labels, random_field_text
+from twinvoice_tpu_torch.ocr.torchocr.engine import TorchOcrEngine
+from twinvoice_tpu_torch.ocr.torchocr.lm import CharNgramLM
+from twinvoice_tpu_torch.ocr.torchocr.model import init_crnn
+d = tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+assert cjk_charset().num_classes == 420
+CharNgramLM.build(cjk_charset(), n_samples=200).save(os.path.join(d, "lm.json.gz"))
+p, s = init_crnn(torch.Generator().manual_seed(0), num_classes=DEFAULT.num_classes,
+                 channels=(8, 16, 16, 16), context=32)
+train.save_weights(os.path.join(d, "start.npz"), p, s, DEFAULT, arch="t32")
+labels, pad, texts = encode_labels([random_field_text(rng) for _ in range(16)])
+lines = rng.integers(0, 256, (16, 32, 256), dtype=np.uint8)
+train.train(os.path.join(d, "w.npz"), steps=101, batch_size=8, batches=(lines, labels, pad),
+            eval_batches=[(lines, texts)], arch="t32", resume_from=os.path.join(d, "start.npz"),
+            device="cpu", log=lambda m: None)
+eng = TorchOcrEngine(weights_dir=os.path.join(d, "w.npz"), device="cpu")
+assert eng.available() and eng.arch == "t32"
+eng.read_batch([lines[0]], modes=["text"])
+pages = rng.integers(200, 256, (4, 64, 64), dtype=np.uint8)
+masks = np.zeros((4, 64, 64), np.uint8)
+masks[:, 8:20, 4:60] = 255
+textness.train(steps=2, bs=4, pages=pages, masks=masks, device="cpu",
+               out_path=os.path.join(d, "t.npz"), log=lambda m: None)
+assert textness.load_textness(os.path.join(d, "t.npz")) is not None
+loaded = [m for m, v in sys.modules.items()
+          if v is not None and m.split(".")[0] in {BLOCKED!r}]
+assert not loaded, loaded
+print("trained")
+"""
+
+
+def test_ocr_training_runs_without_jax_pil_cv2():
+    """The recognizer's and the textness head's training end to end (the CJK
+    charset, an LM build and save, ``train`` from a saved file, its weights
+    read by the engine, ``textness.train`` and its file) with JAX, the JAX
+    package, Pillow and OpenCV blocked, as on the card's machine."""
+    out = subprocess.run([sys.executable, "-c", _OCR_TRAIN_WITHOUT_CV2], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-1] == "trained"

@@ -76,7 +76,7 @@ def _rows(seed, n=6):
 def _port_logits(p, s, x, arch):
     tp, ts = tm.crnn_params_from_jax(p, s)
     with torch.inference_mode():
-        return tm.crnn_apply(tp, ts, torch.from_numpy(x)[:, None], arch=arch).numpy()
+        return tm.crnn_apply(tp, ts, torch.from_numpy(x)[:, None], arch=arch)[0].numpy()
 
 
 def _assert_logits(got, want):
@@ -253,7 +253,7 @@ def test_load_crnn_weights_without_charset_or_arch(tmp_path):
     x = _rows(4, n=2)
     want = np.asarray(_jax_apply(jp, js, jnp.asarray(x[..., None]), "t32"))
     with torch.inference_mode():
-        got = tm.crnn_apply(tp, ts, torch.from_numpy(x)[:, None], arch=tarch).numpy()
+        got = tm.crnn_apply(tp, ts, torch.from_numpy(x)[:, None], arch=tarch)[0].numpy()
     _assert_logits(got, want)
 
 

@@ -6,8 +6,8 @@ The default covers the symbols on TW invoice *fields* (invoice numbers
 their charset string, so a loaded model always decodes with the alphabet it
 was trained on; the bundled recognizer carries a CJK charset that way. The
 decoders are host code, copied unchanged so the port decodes the same top-K
-arrays to the same strings. (``cjk_charset``, which reads the stroke fonts,
-stays with the training code of the JAX package.)
+arrays to the same strings. ``cjk_charset`` reads the port's copy of the
+stroke font (``twinvoice_tpu_torch.ocr.fonts``).
 """
 
 from __future__ import annotations
@@ -97,6 +97,14 @@ FIELD_PATTERNS = {
     "date": DATE_PATTERN,
     "amount": AMOUNT_PATTERN,
 }
+
+
+def cjk_charset() -> Charset:
+    """ASCII field charset + every glyph the stroke font covers."""
+    from twinvoice_tpu_torch.ocr.fonts import strokefont
+
+    cjk = "".join(sorted(strokefont.coverage()))
+    return Charset(CHARSET + cjk)
 
 
 def _epsilon_targets(slots, s):

@@ -79,7 +79,7 @@ def infer_rows(params, state, x, *, arch: str = "t32"):
     float32 → :func:`posteriors` of the CRNN's logits, on ``x``'s device.
     Call it with TF32 off (``torch.backends.cudnn.flags(enabled=True,
     allow_tf32=False)``)."""
-    return posteriors(crnn_apply(params, state, x, arch=arch))
+    return posteriors(crnn_apply(params, state, x, arch=arch)[0])
 
 
 def prepare_crop(image) -> Optional[np.ndarray]:

@@ -6,8 +6,9 @@ of the prior. Fused into CTC prefix beam search
 (:func:`.charset.beam_ctc_decode`) it disambiguates pure-vision ties (0↔O in
 a digit slot, spurious/dropped spaces). The bundled model,
 ``twinvoice_tpu/ocr/jaxocr/lm4.json.gz``, is read where it lies as a data
-file. Building and saving a model need the JAX package's text renderers and
-stay there. ``^``/``$`` mark string start/end.
+file. ``CharNgramLM.build`` makes it from the port's copy of the training
+text sampler (:func:`.data.random_field_text`) with a fixed seed, so the
+port rebuilds the bundled asset exactly. ``^``/``$`` mark string start/end.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ import gzip
 import json
 import math
 import os
+from collections import Counter, defaultdict
+
+import numpy as np
 
 MAX_ORDER = 4  # contexts of length 0..3
 DEFAULT_LM_PATH = os.path.join(
@@ -62,7 +66,35 @@ class CharNgramLM:
             self._cache[key] = v
         return v
 
-    # ------------------------------------------------------------- load
+    # ------------------------------------------------------------- build
+    @classmethod
+    def build(cls, charset=None, n_samples: int = 120000, seed: int = 1):
+        """Build from the training text generator (NOT from any eval set:
+        eval seeds are 7/4242/99+; the LM uses seed 1 samples only)."""
+        from twinvoice_tpu_torch.ocr.torchocr import data as D
+        from twinvoice_tpu_torch.ocr.torchocr.charset import DEFAULT
+
+        charset = charset or DEFAULT
+        rng = np.random.default_rng(seed)
+        raw = [defaultdict(Counter) for _ in range(MAX_ORDER)]
+        for _ in range(n_samples):
+            t = "^" + D.random_field_text(rng, charset) + "$"
+            for j in range(1, len(t)):
+                for k in range(MAX_ORDER):
+                    if j - k >= 0:
+                        raw[k][t[j - k:j]][t[j]] += 1
+        grams = [{ctx: (sum(d.values()), dict(d)) for ctx, d in g.items()}
+                 for g in raw]
+        return cls(grams, charset.num_classes + 2)
+
+    # --------------------------------------------------------- save/load
+    def save(self, path: str):
+        obj = {"V": self.V,
+               "grams": [{ctx: [tot, d] for ctx, (tot, d) in g.items()}
+                         for g in self.grams]}
+        with gzip.open(path, "wt", encoding="utf-8") as f:
+            json.dump(obj, f, ensure_ascii=False, separators=(",", ":"))
+
     @classmethod
     def load(cls, path: str = DEFAULT_LM_PATH):
         with gzip.open(path, "rt", encoding="utf-8") as f:
@@ -76,8 +108,16 @@ _default = None
 
 
 def default_lm() -> CharNgramLM:
-    """The bundled domain LM (loaded once per process)."""
+    """The bundled domain LM (loaded once per process). Without the asset it
+    is built from ``cjk_charset()`` at the defaults, which give the bundled
+    file's counts; the build is not written into the JAX package's
+    directory."""
     global _default
     if _default is None:
-        _default = CharNgramLM.load(DEFAULT_LM_PATH)
+        if os.path.exists(DEFAULT_LM_PATH):
+            _default = CharNgramLM.load(DEFAULT_LM_PATH)
+        else:
+            from twinvoice_tpu_torch.ocr.torchocr.charset import cjk_charset
+
+            _default = CharNgramLM.build(cjk_charset())
     return _default

@@ -7,7 +7,11 @@ The npz keys are JAX ``keystr`` paths under a ``p/`` (params) or ``s/``
 
 Layouts: a conv kernel is HWIO in JAX and OIHW here; a 2×2 stride-2
 transpose-conv kernel is (2,2,Ci,Co) in JAX and (Ci,Co,2,2) here, which is
-``torch.nn.ConvTranspose2d``'s weight layout.
+``torch.nn.ConvTranspose2d``'s weight layout. The recognizer's and the
+textness head's maps, both ways, sit beside their models
+(``ocr/torchocr/model.py:crnn_params_from_jax``/``crnn_params_to_jax``,
+``textness.py:textness_params_from_jax``/``textness_params_to_jax``) and
+use this module's conv helpers.
 """
 
 from __future__ import annotations
