@@ -180,6 +180,26 @@ Phases, each printing one line with its wall time:
     params; the textness head at b32 256² (the 8 pages tiled) beside its
     bound, then ``save_textness``, ``load_textness`` and ``textness_map``
     equal to the in-memory head's
+25. parallelism (``core.mesh``, ``core.collectives``, ``parallel``; no kernel of
+    its own: every collective is a ``dist.all_reduce``) on two gloo ranks that
+    share the card (NCCL refuses two ranks on one device), spawned with their
+    own deadline, each collective with a timeout: the bundled w64 at b4 512²
+    fp32 (TF32 off) on the training fixture, one SGD step under (a)
+    ``data=2``, (b) ``model=2`` and (c) ``spatial=2``, each against the
+    one-rank step (loss, every gradient and the BN running statistics within
+    ``TRAIN_TOLS["fp32"]``); under (a) also one finite AdamW step and
+    ``fit(mesh)`` for 2 epochs of one step from the bundled weights, whose
+    first loss is the one-rank step's; (d) ``spatial_unet_forward`` of the
+    folded w64 on a 1024² frame (the four pages in a 2×2 mosaic) equal to the
+    dense forward at JAX's 2e-4; (e) ``pipeline_apply`` on 2 stages, JAX's
+    tanh tower at 1e-5 and identity at 1e-6; which collectives gloo runs on
+    CUDA tensors; (f) NCCL at world size 1, the one NCCL group one card
+    allows: the collectives exact and the ``data=1`` step against the
+    one-rank step. Each 2-rank step's ms and the spatial forward's beside
+    the one-rank ones (context: two ranks on one card show no scaling).
+    Rank 0's ``best`` checkpoint (the whole tree) restored into the one-rank
+    template and served at bf16 through ``Segmenter``, which must launch K1,
+    against the plain path, as phase 22
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -194,8 +214,9 @@ So is each route of phase 19 and phase 20's timed calls: K1 once per
 segmenter call (two per chunked ``extract_batch``, one per ``extract``) and
 nothing else, and on the int8 "pallas" route K4a, K6 and K2 their route
 counts per segmenter call. Phase 22's serving of the trained w64 weights is
-driven the same way: K1 once. Phases 23-24 must leave every count as it
-was. The kernel rows' launches sum every such path.
+driven the same way: K1 once, and so is phase 25's serving of ``fit(mesh)``'s
+checkpoint. Phases 23-24 must leave every count as it was. The kernel rows'
+launches sum every such path.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
 only. Without a CUDA device, or if any phase fails, it exits non-zero and
@@ -206,6 +227,8 @@ one JSON object per kernel row, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import datetime
+import gc
 import json
 import os
 import subprocess
@@ -215,6 +238,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -224,9 +248,12 @@ from twinvoice_tpu_torch.config import (  # noqa: E402
     Config,
     FusionConfig,
     InferConfig,
+    MeshConfig,
     TrainConfig,
     replace,
 )
+from twinvoice_tpu_torch.core.collectives import copy_to, gather_from, sum_over  # noqa: E402
+from twinvoice_tpu_torch.core.mesh import Axis, Mesh, gather_tree, make_mesh  # noqa: E402
 from twinvoice_tpu_torch.data.dataset import ArrayDataset  # noqa: E402
 from twinvoice_tpu_torch.infer.pipeline import Segmenter, crop_fields  # noqa: E402
 from twinvoice_tpu_torch.infer.postprocess import (  # noqa: E402
@@ -242,6 +269,7 @@ from twinvoice_tpu_torch.models.pretrained import (  # noqa: E402
 )
 from twinvoice_tpu_torch.models.unet import (  # noqa: E402
     _tree_map,
+    fold_unet,
     param_count,
     tree_leaves,
     unet_apply,
@@ -258,6 +286,8 @@ from twinvoice_tpu_torch.ops import nhwc_conv as nhwc  # noqa: E402
 from twinvoice_tpu_torch.ops import qconv  # noqa: E402
 from twinvoice_tpu_torch.ops import qupsample as k6  # noqa: E402
 from twinvoice_tpu_torch.ops.image import normalize_uint8, resize_bilinear  # noqa: E402
+from twinvoice_tpu_torch.parallel.pipeline import pipeline_apply, stack_stage_params  # noqa: E402
+from twinvoice_tpu_torch.parallel.spatial import spatial_unet_forward  # noqa: E402
 from twinvoice_tpu_torch.train import checkpoint as ckpt  # noqa: E402
 from twinvoice_tpu_torch.train.trainer import (  # noqa: E402
     DTYPES,
@@ -266,6 +296,7 @@ from twinvoice_tpu_torch.train.trainer import (  # noqa: E402
     make_eval_step,
     make_optimizer,
     make_train_step,
+    shard_train_state,
     to_device_batch,
 )
 from twinvoice_tpu_torch.weights import keystr_items, load_npz, to_jax_params  # noqa: E402
@@ -2215,19 +2246,27 @@ def ocr_flags(cudnn, autotune):
         yield
 
 
-def device_kernels(fn, iters=3):
+def device_kernels(fn, iters=3, tries=3):
     """``torch.profiler`` (device activity only) over ``iters`` calls of
     ``fn()`` after one warm-up → [(device ms a call, kernel)], slowest first;
-    their sum is ``fn``'s device busy time a call."""
+    their sum is ``fn``'s device busy time a call. A profile that recorded no
+    kernel is taken again, up to ``tries`` times, then raises: on an H100 the
+    profiler once recorded none of a 1×1 conv's under cuDNN's autotuner,
+    whose calls run kernels."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sorted(((ev.self_device_time_total / iters / 1e3, ev.key)
-                   for ev in prof.key_averages() if ev.self_device_time_total),
-                  reverse=True)
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted(((ev.self_device_time_total / iters / 1e3, ev.key)
+                          for ev in prof.key_averages() if ev.self_device_time_total),
+                         reverse=True)
+        if kernels:
+            return kernels
+    raise AssertionError(f"the profiler recorded no device kernel in {tries} profiles")
 
 
 def ocr_conv_alone(cp, shape, fmt, cudnn, autotune):
@@ -3479,6 +3518,384 @@ def phase_ocr_train_speed(card):
     return rec, tuple(tx)
 
 
+# -- phase 25: data, tensor, spatial and pipeline parallelism -------------------
+
+
+PAR_RANKS = 2           # gloo ranks on the one card
+PAR_TIMEOUT_S = 60      # every collective's
+PAR_DEADLINE_S = 400    # the ranks' whole run
+# each mesh with the number of steps timed after its held one (a model=2 step
+# all-reduces ~4.4 GB of activations and input gradients through gloo: 5-7 s
+# on an H100)
+PAR_MESHES = (("data", MeshConfig(data=2), 3), ("model", MeshConfig(data=1, model=2), 1),
+              ("spatial", MeshConfig(data=1, spatial=2), 3))
+PAR_TIMED = 3           # timed forwards and one-rank steps
+SPATIAL_TOL = 2e-4      # JAX's (tests/distributed/test_spatial.py), atol and rtol
+PIPE_TOL, PIPE_ID_TOL = 1e-5, 1e-6   # JAX's (tests/distributed/test_pipeline.py)
+BLOCKED = ("jax", "jaxlib", "twinvoice_tpu")
+
+
+def _rank_entry(rank, world, workdir, fn, threads):
+    torch.set_num_threads(threads)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    try:
+        args = torch.load(os.path.join(workdir, "args.pt"), weights_only=False)
+        result = fn(rank, world, *args)
+        loaded = sorted(m for m, v in sys.modules.items()
+                        if v is not None and m.split(".")[0] in BLOCKED)
+        if loaded:
+            raise AssertionError(f"rank {rank} imported {loaded}")
+        torch.save(result, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world, workdir, args, *, threads=1, deadline=PAR_DEADLINE_S):
+    """``fn(rank, world, *args)`` in ``world`` spawned processes joined into a
+    gloo group over a ``file://`` store in the new directory
+    ``workdir`` (every collective times out after ``PAR_TIMEOUT_S``); → their
+    results in rank order. Raises with a failed rank's traceback, or when the
+    ranks outlast ``deadline`` seconds, after killing them all. The arguments
+    go through a file: a pipe's worth of them would hold each spawn until the
+    process before it has started. ``spawn``, because the caller may hold a
+    CUDA context, which a forked child cannot use."""
+    os.makedirs(workdir)
+    torch.save(args, os.path.join(workdir, "args.pt"))
+    ctx = torch.multiprocessing.start_processes(
+        _rank_entry, args=(world, workdir, fn, threads), nprocs=world, join=False,
+        start_method="spawn")
+    end = time.monotonic() + deadline
+    try:
+        while not ctx.join(timeout=max(end - time.monotonic(), 0.1)):
+            if time.monotonic() >= end:
+                raise TimeoutError(f"{fn.__name__} on {world} ranks outlasted {deadline} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(5)
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def par_frame(fix):
+    """One 1024×1024 camera-size frame: the fixture's four 512² pages in a
+    2×2 mosaic, → (1, 3, 1024, 1024) uint8."""
+    p = fix["pages"]
+    frame = np.concatenate([np.concatenate(p[:2], 1), np.concatenate(p[2:], 1)], 0)
+    return torch.from_numpy(np.ascontiguousarray(frame.transpose(2, 0, 1)[None]))
+
+
+def device_ms(fn, iters, device):
+    """Mean ms of ``iters`` calls of ``fn()`` after one: CUDA events on a
+    card, the host clock on the CPU (a rehearsal there)."""
+    if device.type == "cuda":
+        return cuda_ms(fn, iters, warmup=1)
+    fn()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return 1e3 * (time.perf_counter() - t) / iters
+
+
+def par_step(variant, fix, device, mesh=None, *, timed=PAR_TIMED):
+    """One SGD step (lr 1e-3: its update is linear in the gradient) of the
+    bundled ``variant`` on the fixture's b4 batch, on ``mesh`` (every rank
+    calls it) or alone, then ``timed`` more. → ({"loss", "grads", "bn"}
+    whole, on the CPU, of the first step; the mean ms of the others, or
+    None)."""
+    mcfg = VARIANTS[variant][1]
+    params, state = (_copy_to(t, device) for t in load_npz(variant_path(variant)))
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    ts = TrainState(params, state, torch.optim.SGD(leaves, lr=TRAIN_LR))
+    if mesh is not None:
+        ts = shard_train_state(ts, mesh)
+    step = make_train_step(mcfg, TrainConfig(), device=device, mesh=mesh)
+    x, y = train_batch(fix, torch.float32, device)
+    box = [ts.params, ts.bn_state]
+
+    def one():
+        box[0], box[1], loss = step(box[0], box[1], ts.optimizer, x, y, TRAIN_LR)
+        return loss
+
+    loss = float(one())
+    grads = _tree_map(lambda t: t.grad.detach().clone(), box[0])
+    bn = box[1]
+    if mesh is not None and ts.shardings is not None:
+        grads = gather_tree(grads, mesh, ts.shardings["params"])
+        bn = gather_tree(bn, mesh, ts.shardings["bn_state"])
+    held = {"loss": loss, "grads": _copy_to(grads, "cpu"), "bn": _copy_to(bn, "cpu")}
+    return held, device_ms(one, timed, device) if timed else None
+
+
+def par_compare(ref, got):
+    """A step's numbers against the one-rank step's, as phase 21 holds two
+    trainers (``TRAIN_TOLS["fp32"]``): the loss (relative), each gradient
+    (‖·‖ of the difference relative to the one-rank gradient's norm; a pre-BN
+    conv bias's, exactly 0, relative to its kernel's), the new BN running
+    statistics (relative ‖·‖, the ``bn1`` tolerance). → (line, failures)."""
+    tol = TRAIN_TOLS["fp32"]
+    fails = []
+    dl = abs(got["loss"] - ref["loss"]) / ref["loss"]
+    if dl > tol["loss"]:
+        fails.append(f"loss {got['loss']:.8f} vs {ref['loss']:.8f}")
+    rg, gg = dict(keystr_items(ref["grads"])), dict(keystr_items(got["grads"]))
+    worst = (0.0, "")
+    for key, want in rg.items():
+        have = gg[key].numpy()
+        if pre_bn_bias(key):
+            kern = np.linalg.norm(rg[key.replace("['bias']", "['weight']")].numpy())
+            if np.linalg.norm(have) > tol["bias"] * kern:
+                fails.append(f"{key}: gradient norm {np.linalg.norm(have):.3e} (exactly 0)")
+            continue
+        err = rel_dist(have, want.numpy())
+        worst = max(worst, (err, key))
+        if err > tol["grad"]:
+            fails.append(f"{key}: gradient {err:.3e} from the one-rank step's")
+    rb = dict(keystr_items(ref["bn"]))
+    bn = rel_dist(np.concatenate([t.numpy().ravel() for _, t in sorted(keystr_items(got["bn"]))]),
+                  np.concatenate([rb[k].numpy().ravel() for k in sorted(rb)]))
+    if bn > tol["bn1"]:
+        fails.append(f"BN state {bn:.3e} from the one-rank step's")
+    line = (f"loss {got['loss']:.8f} vs {ref['loss']:.8f} ({dl:.2e}); gradients worst "
+            f"{worst[0]:.2e} of their norm ({worst[1]}); BN state within {bn:.2e}")
+    return line, fails
+
+
+def pipeline_cases(device):
+    """JAX's pipeline cases on ``PAR_RANKS`` stages (no JAX here: the
+    tower's weights from numpy): the tanh tower (dim 16, 6 microbatches of
+    2) against the sequential run, the identity of a ×2 and a ×0.5 stage.
+    → (worst |Δ| of each)."""
+    mesh = Mesh(("stage",), (PAR_RANKS,), timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    rng = np.random.default_rng(0)
+    tower = [{"w": torch.tensor(rng.standard_normal((16, 16)) * 0.3, dtype=torch.float32,
+                                device=device), "b": torch.zeros(16, device=device)}
+             for _ in range(PAR_RANKS)]
+    x = torch.tensor(rng.standard_normal((6, 2, 16)), dtype=torch.float32, device=device)
+    seq = x
+    for p in tower:
+        seq = torch.tanh(seq @ p["w"] + p["b"])
+    got = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"] + p["b"]),
+                         stack_stage_params(tower), x, mesh)
+    ident = [{"w": torch.eye(8, device=device) * 2.0}, {"w": torch.eye(8, device=device) * 0.5}]
+    xi = torch.tensor(rng.standard_normal((3, 8)), dtype=torch.float32, device=device)
+    out = pipeline_apply(lambda p, h: h @ p["w"], stack_stage_params(ident), xi, mesh)
+    return float((got - seq).abs().max()), float((out - xi).abs().max())
+
+
+def gloo_cuda_probe(device):
+    """Which collectives gloo runs on ``device``'s tensors: each on a group
+    of its own with a 10 s timeout (a rank whose peer raised times out
+    there). → {name: "ok" or the error's first line}. Not ``send``/``recv``:
+    on CUDA tensors gloo writes from device memory (``writev: Bad
+    address``), and where its transport thread does the write the error
+    aborts the process (four of seven runs of phase 25 on an H100)."""
+    out = {}
+    ops = {
+        "all_reduce": lambda g, t: dist.all_reduce(t, group=g),
+        "broadcast": lambda g, t: dist.broadcast(t, 0, group=g),
+        "all_gather": lambda g, t: dist.all_gather([torch.empty_like(t) for _ in
+                                                    range(PAR_RANKS)], t, group=g),
+        "all_to_all_single": lambda g, t: dist.all_to_all_single(torch.empty_like(t), t,
+                                                                 group=g),
+    }
+    for name, op in ops.items():
+        group = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=10))
+        try:
+            op(group, torch.ones(4, device=device))
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # the probe reports what raised; nothing depends on it
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
+    return out
+
+
+def par_rank(rank, world, workdir, device, variant):
+    """Phase 25 on one of ``PAR_RANKS`` gloo ranks sharing the card: cases
+    (a)-(e) (see :func:`phase_parallel`), then the gloo probe. Rank 0 holds
+    each result to the one-rank numbers in ``workdir/ref.pt``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device.index or 0)
+    fix = train_fixture()
+    ref = torch.load(os.path.join(workdir, "ref.pt"), weights_only=True)
+    mcfg = VARIANTS[variant][1]
+    out = {}
+    with tf32_off():
+        for name, cfg, timed in PAR_MESHES:
+            mesh = make_mesh(cfg)
+            got, ms = par_step(variant, fix, device, mesh, timed=timed)
+            out[name] = (par_compare(ref, got) if rank == 0 else None, ms)
+            if name == "data":
+                # (a) one AdamW step, then fit for 2 epochs from the bundled weights
+                params, bn = (_copy_to(t, device) for t in load_npz(variant_path(variant)))
+                ts = shard_train_state(TrainState(params, bn, make_optimizer(
+                    params, TrainConfig())), mesh)
+                x, y = train_batch(fix, torch.float32, device)
+                *_, loss = make_train_step(mcfg, TrainConfig(), device=device, mesh=mesh)(
+                    ts.params, ts.bn_state, ts.optimizer, x, y, TRAIN_LR)
+                out["adamw"] = (float(loss), all(bool(torch.isfinite(t).all())
+                                                 for t in tree_leaves(ts.params)))
+                del ts, params, bn
+                cfg_fit = Config(model=mcfg, train=TrainConfig(
+                    epochs=2, checkpoint_dir=os.path.join(workdir, "fit", "ckpt"),
+                    visualize_dir=os.path.join(workdir, "fit", "vis")))
+                t = time.perf_counter()
+                hist = fit(ArrayDataset(fix["pages"], fix["masks"]), cfg_fit, mesh=mesh,
+                           device=device, resume_dir=os.path.join(workdir, "start"),
+                           log=lambda m: print(f"    rank {rank}:", m, flush=True))[1]
+                out["fit"] = ([r["loss"] for r in hist], time.perf_counter() - t)
+            if name == "spatial":
+                # (d) the folded model H-sharded on the 1024² frame
+                folded = fold_unet(*load_npz(variant_path(variant)), cfg=mcfg, device=device)
+                frame = normalize_uint8(par_frame(fix).to(device), torch.float32)
+                with torch.no_grad():
+                    logits = spatial_unet_forward(folded, frame, mesh)
+                    ms = device_ms(lambda: spatial_unet_forward(folded, frame, mesh),
+                                   PAR_TIMED, device)
+                out["serve"] = (logits.cpu() if rank == 0 else None, ms)
+                del folded, frame, logits
+            if device.type == "cuda":
+                torch.cuda.empty_cache()  # the card is shared with the other rank
+        out["pipeline"] = pipeline_cases(device)
+    out["probe"] = gloo_cuda_probe(device)
+    return out
+
+
+def nccl_world1(ref, variant, fix, device, workdir):
+    """(f) NCCL at world size 1, the one NCCL group a one-card machine has:
+    the collectives of ``core.collectives`` on its group (all exact at one
+    rank, forward and backward) and the data-parallel step on
+    ``make_mesh(MeshConfig(data=1))`` against the one-rank step. → the
+    comparison's line."""
+    dist.init_process_group("nccl", init_method=f"file://{workdir}/nccl_store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    try:
+        ax = Axis("world", 1, 0, dist.group.WORLD)
+        x = torch.randn(2, 6, 5, device=device, requires_grad=True)
+        g = torch.randn(2, 6, 5, device=device)
+        for name, fn in (("sum_over", lambda t: sum_over(t, ax)),
+                         ("copy_to", lambda t: copy_to(t, ax)),
+                         ("gather_from", lambda t: gather_from(t, ax, 1)),
+                         ("halo gather", lambda t: gather_from(t, ax, 1, sum_grads=True))):
+            y = fn(x)
+            (gx,) = torch.autograd.grad(y, x, g)
+            if not (torch.equal(y, x) and torch.equal(gx, g)):
+                raise AssertionError(f"{name} under NCCL at world size 1 is not exact")
+        with tf32_off():
+            got, _ = par_step(variant, fix, device, make_mesh(MeshConfig(data=1)), timed=0)
+        line, fails = par_compare(ref, got)
+    finally:
+        dist.destroy_process_group()
+    if fails:
+        raise AssertionError("NCCL world size 1 step:\n" + "\n".join(fails))
+    return line
+
+
+def phase_parallel(card, device="cuda", variant="w64"):
+    """Phase 25: the bundled ``variant`` trained and served across ranks.
+    Two gloo ranks share the card (NCCL refuses two ranks on one device):
+    (a) ``data=2``: one SGD step against the one-rank step, one AdamW step,
+    ``fit(mesh)`` for 2 epochs of one step from the bundled weights; (b)
+    ``model=2`` and (c) ``spatial=2``: the same SGD step; (d) the folded model
+    H-sharded over the two ranks on a 1024² frame against the dense forward;
+    (e) the GPipe schedule on 2 stages; (f) NCCL at world size 1. Then
+    rank 0's ``fit`` checkpoint served through K1 against the plain path.
+    → K1's launches there."""
+    import tempfile
+
+    device = torch.device(device)
+    fix = train_fixture()
+    mcfg = VARIANTS[variant][1]
+    _build.build_dir().mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp:
+        with tf32_off():
+            ref, plain_ms = par_step(variant, fix, device)
+            torch.save(ref, os.path.join(tmp, "ref.pt"))
+            folded = fold_unet(*load_npz(variant_path(variant)), cfg=mcfg, device=device)
+            frame = normalize_uint8(par_frame(fix).to(device), torch.float32)
+            with torch.no_grad():
+                dense = unet_apply_folded(folded, frame)
+                dense_ms = device_ms(lambda: unet_apply_folded(folded, frame), PAR_TIMED,
+                                     device)
+            dense = dense.cpu()
+            del folded, frame
+        params, state = load_npz(variant_path(variant))
+        ckpt.save(os.path.join(tmp, "start"),
+                  TrainState(params, state, make_optimizer(params, TrainConfig())))
+        del params, state
+        if device.type == "cuda":
+            # the ranks share the card with this process, whose allocator
+            # still caches the earlier phases' blocks: a rank ran out of
+            # memory creating its cuBLAS handle after phases 1-24
+            gc.collect()
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info()
+            print(f"  before the ranks: {free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB free "
+                  f"on the card", flush=True)
+        t = time.perf_counter()
+        ranks = run_ranks(par_rank, PAR_RANKS, os.path.join(tmp, "ranks"),
+                          (os.path.join(tmp), str(device), variant), threads=2)
+        ranks_s = time.perf_counter() - t
+        r0 = ranks[0]
+        fails = []
+        print(f"  {PAR_RANKS} gloo ranks on one {device.type} device, {variant} b4 512^2 "
+              f"fp32 (TF32 off), {ranks_s:.2f} s for (a)-(e); one-rank SGD step "
+              f"{plain_ms:.3f} ms [{card}]", flush=True)
+        for case, (name, _, timed) in zip("abc", PAR_MESHES):
+            (line, f), ms = r0[name]
+            print(f"  ({case}) {name}=2 SGD step: {line}; {ms:.3f} ms a step (mean of "
+                  f"{timed}) beside the one-rank {plain_ms:.3f} ms", flush=True)
+            fails += [f"{name}=2: {x}" for x in f]
+        adamw_loss, finite = r0["adamw"]
+        fit_losses, fit_s = r0["fit"]
+        print(f"  (a) AdamW step on data=2: loss {adamw_loss:.8f}, params finite {finite}; "
+              f"fit(mesh) 2 epochs of one step from the bundled weights: losses "
+              f"{np.round(fit_losses, 6).tolist()} in {fit_s:.2f} s", flush=True)
+        if not (np.isfinite(adamw_loss) and finite):
+            fails.append("the AdamW step is not finite")
+        if abs(fit_losses[0] - ref["loss"]) > TRAIN_TOLS["fp32"]["loss"] * ref["loss"]:
+            fails.append(f"fit(mesh) epoch 1 loss {fit_losses[0]:.8f} is not the bundled "
+                         f"weights' {ref['loss']:.8f}")
+        logits, spatial_ms = r0["serve"]
+        err = float((logits - dense).abs().max())
+        ok = torch.allclose(logits, dense, atol=SPATIAL_TOL, rtol=SPATIAL_TOL)
+        print(f"  (d) spatial_unet_forward on the 1024^2 frame over 2 ranks: max |diff| "
+              f"{err:.3e} from the dense forward (atol=rtol {SPATIAL_TOL:g}); {spatial_ms:.3f} "
+              f"ms beside the dense {dense_ms:.3f} ms", flush=True)
+        if not ok:
+            fails.append(f"spatial forward {err:.3e} from the dense one")
+        tower, ident = r0["pipeline"]
+        print(f"  (e) pipeline_apply on 2 stages: tanh tower {tower:.2e} from the sequential "
+              f"run (tol {PIPE_TOL:g}); identity {ident:.2e} (tol {PIPE_ID_TOL:g})", flush=True)
+        if tower > PIPE_TOL or ident > PIPE_ID_TOL:
+            fails.append(f"pipeline: tower {tower:.3e}, identity {ident:.3e}")
+        for rank, r in enumerate(ranks):
+            print(f"  gloo on 4-float {device.type} tensors, rank {rank}: {r['probe']}",
+                  flush=True)
+        if device.type == "cuda":
+            line = nccl_world1(ref, variant, fix, device, tmp)
+            print(f"  (f) NCCL at world size 1: the collectives exact; the data=1 step: "
+                  f"{line}", flush=True)
+        if fails:
+            raise AssertionError("parallelism:\n" + "\n".join(fails))
+        # rank 0's whole checkpoint restores into the one-rank template
+        params, state = load_npz(variant_path(variant))
+        best = ckpt.restore(os.path.join(tmp, "fit", "ckpt", "best"),
+                            TrainState(params, state, make_optimizer(params, TrainConfig())))
+        params, state = _tree_map(torch.Tensor.detach, best.params), best.bn_state
+    seg = Segmenter(params, state, mcfg, InferConfig(img_size=512), dtype=torch.bfloat16,
+                    device=device)
+    _, boxes, launches = served_vs_plain(seg, params, state, mcfg, fix["pages"])
+    if launches.get(k1.NAME, 0) != 1 or tuple(boxes.shape) != (4, 3, 4):
+        raise AssertionError(f"serving fit(mesh)'s checkpoint launched {launches}")
+    return launches[k1.NAME]
+
+
 def main():
     ph = Phases()
     name, card = ph.run(1, "device", phase_device)
@@ -3571,6 +3988,10 @@ def main():
         raise AssertionError(f"phases 23-24 launched kernels of the port: {before} -> "
                              f"{dict(_build.launches)}")
     print("  launches in phases 23-24: none (the training paths run no kernel of the port)",
+          flush=True)
+    launches[k1.NAME] += ph.run(25, "data, tensor, spatial and pipeline parallelism",
+                                phase_parallel, card)
+    print(f"  launches of K1 on the main path and phases 19-20, 22, 25: {launches[k1.NAME]}",
           flush=True)
 
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",

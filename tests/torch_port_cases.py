@@ -6,14 +6,14 @@ from twinvoice_tpu.config import UNetConfig as JaxUNetConfig
 from twinvoice_tpu_torch.ops import qconv
 
 
-def random_unet(seed, base_width=8):
+def random_unet(seed, base_width=8, depth=4):
     """Random U-Net ``(params, state)`` numpy trees with the structure of
     ``twinvoice_tpu.models.unet.init_unet`` (built in numpy: an eager JAX
     init costs tens of seconds on the CPU). Conv weights follow torch's
     default init bounds; BN statistics are random so folding is not the
     identity; the out bias is mixed so some fields are found and some not.
     → (JAX UNetConfig, params, state)."""
-    cfg = JaxUNetConfig(base_width=base_width)
+    cfg = JaxUNetConfig(base_width=base_width, depth=depth)
     rng = np.random.default_rng(seed)
 
     def f32(a):

@@ -1,8 +1,8 @@
 """Configuration for the ported slices: copies of ``twinvoice_tpu.config``'s
 ``UNetConfig``, ``LossConfig``, ``TrainConfig``, ``InferConfig``,
-``DataConfig``, ``FusionConfig``, ``Config`` and ``replace`` (the port imports
-nothing of the JAX package, so it keeps its own). Defaults are the same
-values. ``Config`` has no ``mesh``: the data-parallel path is not ported."""
+``DataConfig``, ``FusionConfig``, ``MeshConfig``, ``Config`` and ``replace``
+(the port imports nothing of the JAX package, so it keeps its own). Defaults
+are the same values."""
 
 from __future__ import annotations
 
@@ -120,12 +120,23 @@ class FusionConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Rank grid shape (``core.mesh.make_mesh``). Axis sizes of 1 collapse
+    that axis."""
+
+    data: int = -1        # -1: all remaining ranks
+    model: int = 1        # tensor-parallel conv out-channel sharding
+    spatial: int = 1      # spatial (H) sharding with halo exchange
+
+
+@dataclass(frozen=True)
 class Config:
     model: UNetConfig = field(default_factory=UNetConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     infer: InferConfig = field(default_factory=InferConfig)
     data: DataConfig = field(default_factory=DataConfig)
     fusion: FusionConfig = field(default_factory=FusionConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 def replace(cfg, **kw):

@@ -9,6 +9,10 @@ conv before it, once, and ``unet_apply_folded`` runs the conv+ReLU graph with
 the concat-free split decoder. Parameters are the torch-layout trees of
 ``weights.from_jax_params``. Defaults give the reference's
 31,043,651-parameter 3→3 class model.
+
+``unet_apply(mesh=...)`` is the sharded training forward that XLA derives for
+the JAX step from its shardings (``core.mesh``): each rank runs its block of
+the batch, with the slices of the model-sharded layers it holds.
 """
 
 from __future__ import annotations
@@ -18,8 +22,11 @@ from torch.utils.checkpoint import checkpoint
 
 from twinvoice_tpu_torch import resolve_device
 from twinvoice_tpu_torch.config import UNetConfig
+from twinvoice_tpu_torch.core.collectives import copy_to, gather_from
+from twinvoice_tpu_torch.core.mesh import model_sharded, parallel
 from twinvoice_tpu_torch.ops.conv import (
     conv1x1,
+    conv2d,
     conv3x3,
     conv_transpose2x2,
     init_conv,
@@ -31,6 +38,7 @@ from twinvoice_tpu_torch.ops.norm import (
     fold_batchnorm_into_conv,
     init_batchnorm,
 )
+from twinvoice_tpu_torch.parallel.spatial import halo_exchange_h
 
 # ---------------------------------------------------------------------------
 # init
@@ -88,23 +96,73 @@ def init_unet(generator, cfg: UNetConfig = UNetConfig(), *, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 
-def _double_conv(p, s, x, *, train, momentum, eps, fast_norm):
-    x = conv3x3(x, p["conv1"])
+class _Sharded:
+    """How one rank runs the layers of the sharded forward on a mesh.
+
+    A layer whose out-channels are sharded over ``model`` (``core.mesh``'s
+    rule) takes its input through ``copy_to`` (its input gradient is partial
+    on each rank), computes its slice of the channels (BatchNorm on them,
+    statistics over the ``batch`` axis) and gathers them after its ReLU. A 3×3
+    conv over H-sharded rows first takes a halo row from each neighbour.
+    Pooling, the transpose conv and the skip concat are row-local."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.model, self.spatial = mesh.axis("model"), mesh.axis("spatial")
+        self.batch = mesh.axis("batch")
+
+    def sharded(self, co):
+        return model_sharded(self.mesh, co)
+
+    def conv(self, x, p, co, k):
+        pad = 0
+        if k == 3:
+            x, pad = halo_exchange_h(x, self.spatial, 1), (0, 1)
+        if self.sharded(co):
+            x = copy_to(x, self.model)
+        return conv2d(x, p["weight"], p.get("bias"), padding=pad)
+
+    def gather(self, x, co):
+        return gather_from(x, self.model, 1) if self.sharded(co) else x
+
+    def up(self, x, p, co):
+        if self.sharded(co):
+            x = copy_to(x, self.model)
+        return self.gather(conv_transpose2x2(x, p), co)
+
+
+def _double_conv(p, s, x, *, train, momentum, eps, fast_norm, par=None, co=None):
+    def conv(x, cp):
+        return conv3x3(x, cp) if par is None else par.conv(x, cp, co, 3)
+
+    group = None if par is None else par.batch
+    x = conv(x, p["conv1"])
     x, s1 = batchnorm_apply(x, p["bn1"], s["bn1"], train=train, momentum=momentum,
-                            eps=eps, norm_in_compute_dtype=fast_norm)
+                            eps=eps, norm_in_compute_dtype=fast_norm, group=group)
     x = torch.relu(x)
-    x = conv3x3(x, p["conv2"])
+    if par is not None:
+        x = par.gather(x, co)
+    x = conv(x, p["conv2"])
     x, s2 = batchnorm_apply(x, p["bn2"], s["bn2"], train=train, momentum=momentum,
-                            eps=eps, norm_in_compute_dtype=fast_norm)
+                            eps=eps, norm_in_compute_dtype=fast_norm, group=group)
     x = torch.relu(x)
+    if par is not None:
+        x = par.gather(x, co)
     return x, {"bn1": s1, "bn2": s2}
 
 
 def unet_apply(params, state, x, *, cfg: UNetConfig = UNetConfig(), train=False,
-               remat=False, fast_norm=False):
+               remat=False, fast_norm=False, mesh=None):
     """Forward pass. ``x``: (N,Cin,H,W) with H, W divisible by 2^depth.
 
     Returns ``(logits (N,num_classes,H,W) in x's dtype, new_state)``.
+
+    ``mesh`` (a ``core.mesh.Mesh`` of more than one rank): ``x`` is this
+    rank's block of the global batch (``core.mesh.shard_batch``), its local H
+    divisible by 2^depth, and ``params``/``state`` this rank's slices
+    (``core.mesh.shard_tree``); the logits are this rank's block, the new
+    state its slices. With ``mesh=None`` or a mesh of one rank, the path is
+    the plain one.
 
     ``remat=True`` runs every DoubleConv under ``torch.utils.checkpoint``:
     the backward pass recomputes the block's insides instead of keeping them
@@ -115,34 +173,39 @@ def unet_apply(params, state, x, *, cfg: UNetConfig = UNetConfig(), train=False,
     statistics stay float32).
     """
     mom, eps = cfg.bn_momentum, cfg.bn_eps
+    par = _Sharded(mesh) if parallel(mesh) else None
 
-    def dc(p, s, h):
+    def dc(p, s, h, co):
+        kw = dict(train=train, momentum=mom, eps=eps, fast_norm=fast_norm, par=par, co=co)
         if remat:
-            return checkpoint(_double_conv, p, s, h, train=train, momentum=mom,
-                              eps=eps, fast_norm=fast_norm, use_reentrant=False)
-        return _double_conv(p, s, h, train=train, momentum=mom, eps=eps,
-                            fast_norm=fast_norm)
+            return checkpoint(_double_conv, p, s, h, use_reentrant=False, **kw)
+        return _double_conv(p, s, h, **kw)
 
+    widths = cfg.encoder_widths()
     new_state = {"enc": [], "dec": []}
     skips = []
     h = x
-    for p, s in zip(params["enc"], state["enc"]):
-        h, ns = dc(p, s, h)
+    for p, s, w in zip(params["enc"], state["enc"], widths):
+        h, ns = dc(p, s, h, w)
         new_state["enc"].append(ns)
         skips.append(h)
         h = max_pool2(h)
 
-    h, new_state["bottleneck"] = dc(params["bottleneck"], state["bottleneck"], h)
+    h, new_state["bottleneck"] = dc(params["bottleneck"], state["bottleneck"], h,
+                                    cfg.bottleneck_width())
 
-    for up_p, dec_p, dec_s, skip in zip(
-        params["up"], params["dec"], state["dec"], reversed(skips)
+    for up_p, dec_p, dec_s, skip, w in zip(
+        params["up"], params["dec"], state["dec"], reversed(skips), reversed(widths)
     ):
-        h = conv_transpose2x2(h, up_p)
+        h = conv_transpose2x2(h, up_p) if par is None else par.up(h, up_p, w)
         h = torch.cat([h, skip], dim=1)  # [upsampled, skip]: torch's cat order
-        h, ns = dc(dec_p, dec_s, h)
+        h, ns = dc(dec_p, dec_s, h, w)
         new_state["dec"].append(ns)
 
-    return conv1x1(h, params["out"]), new_state
+    if par is None:
+        return conv1x1(h, params["out"]), new_state
+    co = cfg.num_classes
+    return par.gather(par.conv(h, params["out"], co, 1), co), new_state
 
 
 def param_count(params) -> int:

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from twinvoice_tpu_torch.core.collectives import alone, sum_over
+
 
 def init_batchnorm(c, *, dtype=torch.float32, device=None):
     params = {"scale": torch.ones(c, dtype=dtype, device=device),
@@ -22,7 +24,7 @@ def init_batchnorm(c, *, dtype=torch.float32, device=None):
 
 
 def batchnorm_apply(x, params, state, *, train, momentum=0.1, eps=1e-5,
-                    norm_in_compute_dtype=False):
+                    norm_in_compute_dtype=False, group=None):
     """Returns ``(y, new_state)``; ``x`` is NCHW, statistics reduce over
     (N, H, W). Functional: ``state`` is never written, the new running
     statistics are returned (detached from the graph), so a recomputed
@@ -33,13 +35,25 @@ def batchnorm_apply(x, params, state, *, train, momentum=0.1, eps=1e-5,
     differently). ``norm_in_compute_dtype``: the statistics stay float32, but
     the normalise itself runs in ``x.dtype`` (bf16 training: no float32
     copy of the activation).
+
+    ``group``: a ``core.mesh.Axis`` over whose ranks the batch is split (the
+    mesh's ``batch`` axis). The statistics are then the global batch's, as
+    XLA's SPMD takes them in the JAX step: Σx and Σx² summed over the ranks
+    (``core.collectives.sum_over``), divided by the global count.
     """
     scale, bias = params["scale"], params["bias"]
     if train:
         x32 = x.to(torch.float32)
-        mean = torch.mean(x32, dim=(0, 2, 3))
-        var = torch.mean(torch.square(x32), dim=(0, 2, 3)) - torch.square(mean)
         n = x.shape[0] * x.shape[2] * x.shape[3]
+        if group is None or alone(group):
+            mean = torch.mean(x32, dim=(0, 2, 3))
+            var = torch.mean(torch.square(x32), dim=(0, 2, 3)) - torch.square(mean)
+        else:
+            n *= group.size
+            sums = sum_over(torch.stack([torch.sum(x32, dim=(0, 2, 3)),
+                                         torch.sum(torch.square(x32), dim=(0, 2, 3))]), group)
+            mean = sums[0] / n
+            var = sums[1] / n - torch.square(mean)
         with torch.no_grad():
             unbiased = var * (n / max(n - 1, 1))
             new_state = {

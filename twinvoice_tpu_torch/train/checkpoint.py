@@ -6,6 +6,11 @@ directory and comes back with ``torch.load(weights_only=True)``. The
 weights-only npz is the JAX package's format: ``save_params_npz`` writes its
 ``keystr`` layout (the JAX ``load_params_npz`` reads it), and
 ``load_params_npz`` is ``weights.load_npz``.
+
+A checkpoint always holds the whole tree: ``trainer.fit(mesh=...)`` saves a
+gathered state (``trainer.gather_train_state``), and ``restore`` into a
+sharded template (``trainer.shard_train_state``) slices it again, so either
+trainer resumes from the other's files.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import os
 import numpy as np
 import torch
 
+from twinvoice_tpu_torch.core.mesh import shard_leaf, shard_tree
 from twinvoice_tpu_torch.models.unet import _tree_map, tree_leaves
 from twinvoice_tpu_torch.weights import keystr_items, load_npz, to_jax_params
 
@@ -42,11 +48,27 @@ def has_checkpoint(path) -> bool:
     return os.path.isfile(os.path.join(path, _FILE))
 
 
-def restore(path, state):
+def map_optimizer_state(sd, fn):
+    """An optimizer ``state_dict`` with each per-parameter tensor that is not
+    a scalar (moments, momentum buffers) replaced by ``fn(index, tensor)``."""
+    state = {i: {k: fn(i, v) if torch.is_tensor(v) and v.dim() else v
+                 for k, v in st.items()} for i, st in sd["state"].items()}
+    return {"state": state, "param_groups": sd["param_groups"]}
+
+
+def restore(path, state, mesh=None):
     """Restore into a template ``TrainState`` of the same structure: the
     params are copied into the template's tensors (the optimizer holds
-    them), the BN state is replaced, the optimizer state loaded."""
+    them), the BN state is replaced, the optimizer state loaded. A template
+    sharded over ``mesh`` (its ``shardings`` set) gets this rank's slices."""
     got = torch.load(os.path.join(path, _FILE), map_location="cpu", weights_only=True)
+    if state.shardings is not None:
+        specs = state.shardings
+        got["params"] = shard_tree(got["params"], mesh, specs["params"])
+        got["bn_state"] = shard_tree(got["bn_state"], mesh, specs["bn_state"])
+        leaf_specs = tree_leaves(specs["params"])
+        got["optimizer"] = map_optimizer_state(
+            got["optimizer"], lambda i, t: shard_leaf(t, leaf_specs[i], mesh))
     mine, saved = tree_leaves(state.params), tree_leaves(got["params"])
     if [t.shape for t in mine] != [t.shape for t in saved]:
         raise ValueError(f"checkpoint {path} does not match the model")
