@@ -200,6 +200,26 @@ Phases, each printing one line with its wall time:
     Rank 0's ``best`` checkpoint (the whole tree) restored into the one-rank
     template and served at bf16 through ``Segmenter``, which must launch K1,
     against the plain path, as phase 22
+26. the serving edges and the gauntlet (``port``, ``compat``,
+    ``train.checkpoint.save_params``/``restore_params``, ``eval``; no kernel
+    of their own) against the JAX package: (a) the bundled w64 exported with
+    ``export_state_dict`` to a ``.pth``, saved with ``save_params`` and as a
+    ``fit`` ``train_state.pt``, served back through ``Segmenter.from_pth``,
+    ``compat.load_model`` (called twice: one object) and
+    ``Segmenter.from_checkpoint``, each at fp32 on the four fixture pages
+    (``segment_array_batch``) equal to the bundled w64's masks and crops
+    exactly; (b) ``run_segmenter_gauntlet`` with the bundled w16 at fp32 on
+    the nine perturbed cases of ``tests/data/torch_smoke_gauntlet.npz`` (one
+    a tier: clean, mild, hard, the four scenarios, and clean and mild on
+    held-out fonts), tier by tier, against JAX's per-case results stored
+    there: ok flags equal, boxes within one grid cell, each field's IoU
+    within ``GAUNTLET_IOU_TOL``, hits equal wherever the boxes are; (c) the
+    same for the w16 at bf16, the w16 int8 concat trunk on JAX's stored
+    scales, and the w64 at bf16, every differing case printed with its tier
+    and field, and each route's IoU/box-hit table by tier beside JAX's;
+    (d) ``run_e2e_gauntlet`` on the clean and mild training-font cases (the
+    w16 at bf16, ``TorchOcrEngine()``, no QR pass, no auto-rotate), each
+    case's fields equal to JAX's wherever the port's boxes are JAX's
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -215,8 +235,10 @@ segmenter call (two per chunked ``extract_batch``, one per ``extract``) and
 nothing else, and on the int8 "pallas" route K4a, K6 and K2 their route
 counts per segmenter call. Phase 22's serving of the trained w64 weights is
 driven the same way: K1 once, and so is phase 25's serving of ``fit(mesh)``'s
-checkpoint. Phases 23-24 must leave every count as it was. The kernel rows'
-launches sum every such path.
+checkpoint. Phases 23-24 must leave every count as it was. In phase 26,
+(a) and (d) are driven the same way (K1 once a segmenter call), and so is
+each route of (b)-(c): K1 once a tier, and on the int8 route K4a and K6
+their ``xla`` counts too. The kernel rows' launches sum every such path.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
 only. Without a CUDA device, or if any phase fails, it exits non-zero and
@@ -243,7 +265,7 @@ import torch.distributed as dist
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from twinvoice_tpu_torch import _build  # noqa: E402
+from twinvoice_tpu_torch import FIELDS, _build  # noqa: E402
 from twinvoice_tpu_torch.config import (  # noqa: E402
     Config,
     FusionConfig,
@@ -2132,8 +2154,6 @@ def ocr_chain(fix_pages, fix, eng, seg):
     """The chained path: the port's fp32 segment_batch on the pages, its
     crops, read_batch (invoice, date, amount). → rows (page, field, port
     box == JAX box, port text, JAX chain text)."""
-    from twinvoice_tpu_torch import FIELDS
-
     pages = fix_pages["pages"]
     rgb = np.repeat(pages[..., None], 3, axis=-1)
     _, boxes, ok = seg.segment_batch(rgb, pre_resized=False)
@@ -2418,8 +2438,6 @@ class NoFieldSegmenter:
     ``extract`` falls back to reading the whole page."""
 
     def segment_array(self, page):
-        from twinvoice_tpu_torch import FIELDS
-
         return {}, {f: None for f in FIELDS}
 
     segment_pil = segment_array
@@ -3896,6 +3914,316 @@ def phase_parallel(card, device="cuda", variant="w64"):
     return launches[k1.NAME]
 
 
+# -- phase 26: the serving edges and the gauntlet --------------------------------
+
+GAUNTLET_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_gauntlet.npz")
+# route → (bundled variant, dtype, int8 on the concat trunk with JAX's scales)
+GAUNTLET_ROUTES = {"w16_fp32": ("w16", torch.float32, False),
+                   "w16_bf16": ("w16", torch.bfloat16, False),
+                   "w16_int8": ("w16", torch.bfloat16, True),
+                   "w64_bf16": ("w64", torch.bfloat16, False)}
+# kernels one segment_batch call with masks launches on each route
+GAUNTLET_KERNELS = {"w16_fp32": {k1.NAME: 1}, "w16_bf16": {k1.NAME: 1},
+                    "w16_int8": ROUTE_KERNELS["xla"], "w64_bf16": {k1.NAME: 1}}
+# the most a case's per-field IoU at the grid may differ from JAX's, by
+# route. On the CPU the port gives JAX's masks exactly at float32 and int8,
+# and at bf16 moves at most 3 mask pixels a field (|ΔIoU| at most 1.3e-3 on
+# the w16, 6.1e-4 on the w64). On the card cuDNN sums each conv in another
+# order, which moves a float32 logit by ~1e-6 of its size and flips only
+# the pixels that close to a threshold; 0.01 lets 8 pixels flip on the
+# smallest field union of the cases (840 pixels). The int8 route's
+# trunk is JAX's to the bit, its float32 head is not: as float32. bf16
+# rounds each layer's output to 8 bits, so a flipped rounding carries into
+# the next layers: 0.02, 15× the CPU's largest difference.
+GAUNTLET_IOU_TOL = {"w16_fp32": 0.01, "w16_int8": 0.01, "w16_bf16": 0.02,
+                    "w64_bf16": 0.02}
+GAUNTLET_E2E = {"use_qr": False, "auto_rotate": False}  # eval_gauntlet.py --e2e's
+
+
+def sync(device=None):
+    """Wait for the card (``device`` None or CUDA); nothing on the CPU."""
+    if torch.device(device or "cuda").type == "cuda":
+        torch.cuda.synchronize()
+
+
+def gauntlet_fixture():
+    """The gauntlet fixture: its cases (``eval.load_cases``), tiers, JAX's
+    per-case results and summaries (``scripts/make_torch_smoke_gauntlet.py``)."""
+    from twinvoice_tpu_torch.eval import load_cases
+
+    with np.load(GAUNTLET_FIXTURE) as z:
+        fix = {k: z[k] for k in z.files if not k.startswith("case")}
+    for k in list(fix):
+        if k.endswith("_summary") or k == "e2e_records":
+            fix[k] = json.loads(str(fix[k]))
+    fix["cases"] = load_cases(GAUNTLET_FIXTURE)
+    fix["tiers"] = [str(t) for t in fix["tiers"]]
+    return fix
+
+
+def gauntlet_segmenter(route, fix, device=None):
+    """The bundled segmenter of a route at the 512² grid (int8: the concat
+    trunk on JAX's stored scales, so its int8 activations are JAX's)."""
+    variant, dtype, int8 = GAUNTLET_ROUTES[route]
+    kw = {"int8_scales": quant.scales_from_array(fix["int8_scales"])} if int8 else {}
+    return load_pretrained_segmenter(dtype, InferConfig(img_size=512), variant,
+                                     device=device, **kw)
+
+
+class Recorder:
+    """Passes ``segment_batch`` (a segmenter) or ``extract`` (an extractor)
+    on to ``inner`` and keeps each result, on the host."""
+
+    def __init__(self, inner):
+        self.inner, self.out = inner, []
+        self.cfg = inner.cfg
+
+    def segment_batch(self, imgs, sizes):
+        out = self.inner.segment_batch(imgs, sizes)
+        self.out.append(tuple(o.cpu().numpy() for o in out))
+        return out
+
+    def clear_cache(self):
+        self.inner.clear_cache()
+
+    def extract(self, page):
+        out = self.inner.extract(page)
+        self.out.append(out)
+        return out
+
+
+def gauntlet_run(seg, fix):
+    """``run_segmenter_gauntlet`` tier by tier, as ``eval_gauntlet.py`` runs
+    it. → {"summary": {tier: dict}, "iou", "hit", "boxes", "ok", "mask"} over
+    the cases, each case's scores the module's own (``_case_scores``), whose
+    tier means must be the dict's."""
+    from twinvoice_tpu_torch.eval import gauntlet
+
+    rec = Recorder(seg)
+    cases, tiers = fix["cases"], fix["tiers"]
+    summary, iou, hit = {}, [], []
+    for t in dict.fromkeys(tiers):
+        sel = [c for c, tt in zip(cases, tiers) if tt == t]
+        res = gauntlet.run_segmenter_gauntlet(rec, sel)
+        pred, boxes, ok = rec.out[-1]
+        gts = np.stack([gauntlet._resize_case(c, seg.cfg.img_size)[1] > 127 for c in sel])
+        i, h = gauntlet._case_scores(sel, gts, pred, boxes, ok)
+        if i.mean(0).tolist() != res["iou"] or h.mean(0).tolist() != res["box_hit"]:
+            raise AssertionError(f"{t}: per-case scores {i}, {h} do not give {res}")
+        summary[t] = res
+        iou.append(i)
+        hit.append(h)
+    pred, boxes, ok = (np.concatenate(a) for a in zip(*rec.out))
+    return {"summary": summary, "iou": np.concatenate(iou), "hit": np.concatenate(hit),
+            "boxes": boxes, "ok": ok, "mask": pred}
+
+
+def gauntlet_compare(route, fix, got):
+    """One route's per-case results against JAX's: ok flags equal, boxes
+    within one grid cell (``ok_check``, per case), IoU within
+    ``GAUNTLET_IOU_TOL``, hits equal wherever the boxes are; every case and
+    field that differs in any of these or in a mask pixel is printed. →
+    (max |ΔIoU|, differing mask pixels, fields with equal boxes, fields)."""
+    tol = GAUNTLET_IOU_TOL[route]
+    want_mask = np.unpackbits(fix[f"{route}_mask"]).reshape(got["mask"].shape).astype(bool)
+    size = got["mask"].shape[1]
+    bad, d_iou, eq_boxes = [], 0.0, 0
+    for i, (c, tier) in enumerate(zip(fix["cases"], fix["tiers"])):
+        h, w = c.image.shape[:2]
+        tol_px = -(-max(h, w) // size) + 1  # one grid cell in pixels, +1 for the floor
+        try:
+            ok_check(f"{route} case {i} ({tier})", torch.as_tensor(got["ok"][i]),
+                     torch.as_tensor(got["boxes"][i]), fix[f"{route}_ok"][i],
+                     fix[f"{route}_boxes"][i], tol_px)
+        except AssertionError as e:
+            bad.append(str(e))
+        for f, field in enumerate(FIELDS):
+            same_box = bool(np.array_equal(got["boxes"][i, f], fix[f"{route}_boxes"][i, f])
+                            and got["ok"][i, f] == fix[f"{route}_ok"][i, f])
+            eq_boxes += same_box
+            di = abs(float(got["iou"][i, f]) - float(fix[f"{route}_iou"][i, f]))
+            d_iou = max(d_iou, di)
+            px = int((got["mask"][i, ..., f] != want_mask[i, ..., f]).sum())
+            hit, jhit = bool(got["hit"][i, f]), bool(fix[f"{route}_hit"][i, f])
+            if px or not same_box or hit != jhit:
+                print(f"    {route} case {i} {tier} {field}: mask pixels differing {px}; "
+                      f"IoU {got['iou'][i, f]:.6f} vs JAX {fix[f'{route}_iou'][i, f]:.6f}; "
+                      f"box {got['boxes'][i, f].tolist()} ok {bool(got['ok'][i, f])} vs "
+                      f"JAX {fix[f'{route}_boxes'][i, f].tolist()} "
+                      f"{bool(fix[f'{route}_ok'][i, f])}; hit {hit} vs {jhit}", flush=True)
+            if di > tol:
+                bad.append(f"{route} case {i} {tier} {field}: IoU off JAX's by {di:.4g} "
+                           f"(tolerance {tol})")
+            if same_box and hit != jhit:
+                bad.append(f"{route} case {i} {tier} {field}: hit {hit} with JAX's box, "
+                           f"JAX's {jhit}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return d_iou, int((got["mask"] != want_mask).sum()), eq_boxes, got["ok"].size
+
+
+def gauntlet_table(rows):
+    """``scripts/eval_gauntlet.py``'s summary table: one row per (variant,
+    summary), each tier's mean IoU/hit."""
+    tiers = list(rows[0][1])
+    print("  | variant | grid | " + " | ".join(f"{t} IoU/hit" for t in tiers) + " |")
+    print("  |" + "---|" * (len(tiers) + 2))
+    for name, summary in rows:
+        cells = [f"{summary[t]['iou_mean']:.2f}/{summary[t]['box_hit_mean']:.2f}"
+                 for t in tiers]
+        print(f"  | {name} | 512 | " + " | ".join(cells) + " |", flush=True)
+
+
+def edges_check(fix_pages, card, device=None):
+    """(a): the bundled w64 exported to a ``.pth``, a ``save_params``
+    directory and a ``fit``-style ``train_state.pt``, served back through
+    ``Segmenter.from_pth``, ``compat.load_model`` (twice: one object) and
+    ``from_checkpoint``, each at fp32 on the four fixture pages equal to
+    ``load_pretrained_segmenter("w64", torch.float32)`` exactly. → launches
+    (none on the CPU)."""
+    import tempfile
+
+    from twinvoice_tpu_torch import compat
+    from twinvoice_tpu_torch.config import UNetConfig
+    from twinvoice_tpu_torch.port import export_state_dict, load_pth
+
+    pages = list(np.repeat(fix_pages[..., None], 3, axis=-1))
+    mcfg = UNetConfig(base_width=64)
+    params, state = load_npz(variant_path("w64"))
+    _build.build_dir().mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp, tf32_off():
+        pth = os.path.join(tmp, "best_unet_model.pth")
+        sd = export_state_dict(params, state, mcfg)
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
+        back, src = tree_leaves(list(load_pth(pth, mcfg))), tree_leaves([params, state])
+        if len(back) != len(src) or not all(map(torch.equal, back, src)):
+            raise AssertionError("load_pth(export_state_dict(w64)) is not the w64 tree")
+        ckpt.save_params(os.path.join(tmp, "params"), params, state)
+        ckpt.save(os.path.join(tmp, "fit"), TrainState(
+            _copy_to(params, "cpu"), _copy_to(state, "cpu"),
+            make_optimizer(_copy_to(params, "cpu"), TrainConfig())))
+        _build.launches.clear()
+        ref = load_pretrained_segmenter(torch.float32, variant="w64", device=device)
+        built = {
+            "from_pth": Segmenter.from_pth(pth, mcfg, device=device),
+            "compat.load_model": compat.load_model(pth, device=device),
+            "from_checkpoint(save_params)": Segmenter.from_checkpoint(
+                os.path.join(tmp, "params"), mcfg, device=device),
+            "from_checkpoint(train_state.pt)": Segmenter.from_checkpoint(
+                os.path.join(tmp, "fit"), mcfg, device=device),
+        }
+        if compat.load_model(pth, device=device) is not built["compat.load_model"]:
+            raise AssertionError("compat.load_model loaded the .pth twice")
+        want = ref.segment_array_batch(pages)
+        for name, seg in built.items():
+            got = seg.segment_array_batch(pages)
+            for i, ((gm, gc), (wm, wc)) in enumerate(zip(got, want)):
+                for f in wm:
+                    same = np.array_equal(gm[f], wm[f]) and (
+                        (gc[f] is None and wc[f] is None)
+                        or (gc[f] is not None and wc[f] is not None
+                            and np.array_equal(gc[f], wc[f])))
+                    if not same:
+                        raise AssertionError(f"{name}: page {i} {f} differs from the "
+                                             f"bundled w64's")
+        sync(device)
+        launches = dict(_build.launches)
+        pth_mib = os.path.getsize(pth) / 2 ** 20
+    n = sum(c is not None for _, crops in want for c in crops.values())
+    print(f"  (a) w64 exported to a .pth ({len(sd)} tensors, {pth_mib:.1f} MiB), a "
+          f"save_params directory and a fit train_state.pt: "
+          f"{', '.join(built)} equal to load_pretrained_segmenter('w64', fp32) on the "
+          f"4 pages (masks and {n} crops exactly); compat.load_model loaded once; "
+          f"launches {launches} [{card}]", flush=True)
+    want_k1 = {k1.NAME: len(built) + 1} if ref.device.type == "cuda" else {}
+    if launches != want_k1:
+        raise AssertionError(f"(a) launched {launches}, expected {want_k1}")
+    return launches
+
+
+def e2e_check(fix, card, device=None):
+    """(d): ``run_e2e_gauntlet`` on the clean and mild training-font cases,
+    the w16 at bf16, ``TorchOcrEngine()``, ``FusionConfig(use_qr=False,
+    auto_rotate=False)``; each case's record equal to JAX's wherever the
+    port's boxes are JAX's (the others counted). → launches (none on the
+    CPU)."""
+    from twinvoice_tpu_torch.eval import run_e2e_gauntlet
+    from twinvoice_tpu_torch.fusion.extract import InvoiceExtractor
+    from twinvoice_tpu_torch.ocr.torchocr.engine import TorchOcrEngine
+    from twinvoice_tpu_torch.ops.host_image import resize_pil_bicubic
+
+    seg = gauntlet_segmenter("w16_bf16", fix, device)
+    ex = Recorder(InvoiceExtractor(seg, None, [TorchOcrEngine(device=device)],
+                                   cfg=FusionConfig(**GAUNTLET_E2E)))
+    idx = [int(i) for i in fix["e2e_cases"]]
+    tiers = list(fix["e2e_summary"])
+    _build.launches.clear()
+    summary = {t: run_e2e_gauntlet(ex, [fix["cases"][i] for i in idx
+                                        if fix["tiers"][i] == t]) for t in tiers}
+    sync(device)
+    launches = dict(_build.launches)
+    if launches != ({k1.NAME: len(idx)} if seg.device.type == "cuda" else {}):
+        raise AssertionError(f"(d) launched {launches}, expected K1 once a case")
+    size = seg.cfg.img_size
+    other = []
+    for j, (i, out, want) in enumerate(zip(idx, ex.out, fix["e2e_records"])):
+        page = fix["cases"][i].image
+        _, boxes, ok = seg._segment_one(resize_pil_bicubic(page, size, size),
+                                        page.shape[1], page.shape[0])
+        got = fusion_record(*out)
+        m = got["meta"]
+        print(f"    case {i} {fix['tiers'][i]}: {m['invoice_no']}, {m['date']}, "
+              f"{m['total_amount']} (JAX {want['meta']['invoice_no']}, "
+              f"{want['meta']['date']}, {want['meta']['total_amount']}; truth "
+              f"{fix['cases'][i].invoice_no}, {fix['cases'][i].date}, "
+              f"{fix['cases'][i].amount})", flush=True)
+        if not (np.array_equal(boxes, fix["e2e_boxes"][j])
+                and np.array_equal(ok, fix["e2e_ok"][j])):
+            other.append(i)
+        elif got != want:
+            raise AssertionError(f"(d) case {i}: record {got} != JAX's {want}")
+    for t in tiers:
+        print(f"  (d) e2e {t}: port {summary[t]} JAX {fix['e2e_summary'][t]}", flush=True)
+    print(f"  (d) records equal to JAX's on the {len(idx) - len(other)} cases whose port "
+          f"boxes are JAX's (others, not held: {other or 'none'}); launches {launches} "
+          f"[{card}]", flush=True)
+    return launches
+
+
+def phase_gauntlet(fix_pages, card):
+    """Phase 26: the serving edges and the gauntlet against the JAX package
+    on the card. → the launches of every kernel in the phase."""
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    add(edges_check(fix_pages, card))
+    fix = gauntlet_fixture()
+    n_tiers = len(dict.fromkeys(fix["tiers"]))
+    rows = []
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for route in GAUNTLET_ROUTES:
+            seg = gauntlet_segmenter(route, fix)
+            got, n = counted(route, GAUNTLET_KERNELS[route], n_tiers,
+                             lambda: gauntlet_run(seg, fix))
+            add(n)
+            d_iou, px, eq, total = gauntlet_compare(route, fix, got)
+            label = "(b)" if route == "w16_fp32" else "(c)"
+            print(f"  {label} {route}: ok flags equal on {len(fix['cases'])} cases, boxes "
+                  f"within one grid cell ({eq}/{total} fields exactly equal), max |ΔIoU| "
+                  f"{d_iou:.3g} (tolerance {GAUNTLET_IOU_TOL[route]}), mask pixels "
+                  f"differing {px} of {got['mask'].size}; launches {n}", flush=True)
+            rows += [(f"{route} port", got["summary"]),
+                     (f"{route} JAX", fix[f"{route}_summary"])]
+            del seg
+    print(f"  {card}", flush=True)
+    gauntlet_table(rows)
+    add(e2e_check(fix, card))
+    return launches
+
+
 def main():
     ph = Phases()
     name, card = ph.run(1, "device", phase_device)
@@ -3993,6 +4321,16 @@ def main():
                                 phase_parallel, card)
     print(f"  launches of K1 on the main path and phases 19-20, 22, 25: {launches[k1.NAME]}",
           flush=True)
+    gauntlet_launches = ph.run(26, "serving edges and the gauntlet vs JAX on the card",
+                               phase_gauntlet, fix["pages"], card)
+    for k, v in gauntlet_launches.items():
+        if k == k1.NAME:
+            launches[k] += v
+        else:
+            int8_launches[k] = int8_launches.get(k, 0) + v
+    print(f"  launches in phase 26: {gauntlet_launches}; of K1 on the main path and phases "
+          f"19-20, 22, 25-26: {launches[k1.NAME]}; on the int8 routes (phases 9-10, 13-14, "
+          f"19, 26): {int8_launches}", flush=True)
 
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
              launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]

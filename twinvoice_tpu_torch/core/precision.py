@@ -8,8 +8,6 @@ from dataclasses import dataclass
 
 import torch
 
-from twinvoice_tpu_torch.models.unet import _tree_map
-
 
 @dataclass(frozen=True)
 class Policy:
@@ -26,6 +24,8 @@ class Policy:
         return Policy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
 
     def cast_params(self, params):
+        from twinvoice_tpu_torch.models.unet import _tree_map  # models imports core
+
         return _tree_map(lambda a: a.to(self.param_dtype), params)
 
     def cast_input(self, x):

@@ -174,6 +174,29 @@ class Segmenter:
             out_bias = self.qparams["out"]["bias"].cpu()
             self._thr_eff = (self._logit_thr - out_bias).to(self.device)
 
+    # -- constructors ------------------------------------------------------
+
+    @classmethod
+    def from_pth(cls, path, model_cfg=UNetConfig(), cfg=InferConfig(),
+                 dtype=torch.float32, *, device=None, **kw):
+        """A reference-schema ``.pth`` file (``port.load_pth``) → a
+        ``Segmenter``; ``device=None`` means ``"cuda"``, ``kw`` (``int8_calib``,
+        ...) pass on to the constructor."""
+        from twinvoice_tpu_torch.port import load_pth
+
+        params, state = load_pth(path, model_cfg)
+        return cls(params, state, model_cfg, cfg, dtype, device=device, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir, model_cfg=UNetConfig(), cfg=InferConfig(),
+                        dtype=torch.float32, *, device=None, **kw):
+        """A ``train.checkpoint.save_params`` directory, or ``fit``'s ``best``
+        or ``latest``, → a ``Segmenter`` (arguments as :meth:`from_pth`)."""
+        from twinvoice_tpu_torch.train.checkpoint import restore_params
+
+        params, state = restore_params(ckpt_dir, model_cfg)
+        return cls(params, state, model_cfg, cfg, dtype, device=device, **kw)
+
     # -- device graph ------------------------------------------------------
 
     def _forward(self, x, orig_sizes, return_masks):

@@ -85,3 +85,16 @@ def scale_and_pad_boxes(boxes, valid, orig_size, grid_size, pad_frac):
     ok = valid & (x2 > x1) & (y2 > y1)
     out = torch.stack([x1, y1, x2, y2], dim=-1).to(torch.int32)
     return out, ok
+
+
+def masks_and_boxes(prob, orig_size, thresholds, pad_frac):
+    """Single-image post-process: (H, W, C) probabilities → (mask (H, W, C)
+    bool, boxes (C, 4) int32 at the original size, ok (C,) bool).
+    ``orig_size``: (2,) int32 (ow, oh)."""
+    grid = prob.shape[0]
+    thr = torch.as_tensor(thresholds, dtype=prob.dtype, device=prob.device)
+    mask = prob > thr
+    gboxes, valid = bbox_from_probs(prob, thresholds)
+    size = torch.as_tensor(orig_size, device=prob.device)
+    boxes, ok = scale_and_pad_boxes(gboxes, valid, size, grid, pad_frac)
+    return mask, boxes, ok

@@ -27,6 +27,11 @@ VARIANTS = {
 }
 
 
+# the JAX package's aliases of the default variant
+SEGMENTER_SYNTH_W16 = os.path.join(WEIGHTS_DIR, VARIANTS["w16"][0])
+SEGMENTER_SYNTH_CFG = VARIANTS["w16"][1]
+
+
 def variant_path(variant: str) -> str:
     return os.path.join(WEIGHTS_DIR, VARIANTS[variant][0])
 

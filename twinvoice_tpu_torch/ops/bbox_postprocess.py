@@ -16,7 +16,6 @@ import ctypes
 import torch
 
 from twinvoice_tpu_torch import _build
-from twinvoice_tpu_torch.infer.postprocess import bbox_from_logits_fast
 
 NAME = "bbox_postprocess"
 MAX_CLASSES = 4  # kMaxClasses in the source
@@ -27,6 +26,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def bbox_postprocess_reference(logits, logit_thresholds):
     """The plain PyTorch version: (B,H,W,C) logits, (C,) logit-space
     thresholds → ((B,C,4) int32 grid boxes, (B,C) bool valid)."""
+    # imported here: the ``infer`` package imports this module
+    from twinvoice_tpu_torch.infer.postprocess import bbox_from_logits_fast
+
     return bbox_from_logits_fast(logits, logit_thresholds)
 
 

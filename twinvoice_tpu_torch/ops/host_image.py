@@ -366,6 +366,25 @@ def resize_nearest(x: np.ndarray, factor: int) -> np.ndarray:
     return np.repeat(np.repeat(x, factor, axis=0), factor, axis=1)
 
 
+def _cv_nearest_index(src: int, dst: int) -> np.ndarray:
+    """OpenCV's ``resizeNN`` sample of each of ``dst`` outputs from ``src``
+    inputs: ``min(floor(x · (1 / (dst / src))), src − 1)`` in double (its
+    ``ifx = 1./fx`` with ``fx = dsize/ssize``)."""
+    ifx = 1.0 / (dst / src)
+    return np.minimum(np.floor(np.arange(dst) * ifx).astype(np.int64), src - 1)
+
+
+def resize_nearest_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """(H, W) or (H, W, C) → (height, width[, C]) of the same dtype, as
+    ``cv2.resize(img, (width, height), interpolation=cv2.INTER_NEAREST)`` at
+    any size: each output takes the source sample at ``floor(x·src/dst)``.
+    This is not the half-pixel rule of ``ops.image.resize_nearest`` (JAX's
+    ``jax.image.resize``); :func:`resize_nearest` is the integer-factor case."""
+    _require_pixels(img, "resize_nearest_u8")
+    h, w = img.shape[:2]
+    return img[_cv_nearest_index(h, height)][:, _cv_nearest_index(w, width)]
+
+
 def erode2x2(img: np.ndarray) -> np.ndarray:
     """uint8 (H, W) → ``cv2.erode(img, np.ones((2, 2), np.uint8))``: the
     minimum over each pixel and its up, left and up-left neighbours (the

@@ -7,6 +7,13 @@ weights-only npz is the JAX package's format: ``save_params_npz`` writes its
 ``keystr`` layout (the JAX ``load_params_npz`` reads it), and
 ``load_params_npz`` is ``weights.load_npz``.
 
+``save_params``/``restore_params`` are the weights-only pair of the JAX
+package's orbax ``save_params``/``restore_params``, in the port's own format:
+one ``torch.save`` file of ``{"params", "bn_state"}`` in a directory.
+Orbax directories cannot be read here (orbax is a JAX library, and the card's
+machine has none); between the two packages the weights travel as the npz of
+``save_params_npz``/``load_params_npz``.
+
 A checkpoint always holds the whole tree: ``trainer.fit(mesh=...)`` saves a
 gathered state (``trainer.gather_train_state``), and ``restore`` into a
 sharded template (``trainer.shard_train_state``) slices it again, so either
@@ -20,11 +27,13 @@ import os
 import numpy as np
 import torch
 
+from twinvoice_tpu_torch.config import UNetConfig
 from twinvoice_tpu_torch.core.mesh import shard_leaf, shard_tree
 from twinvoice_tpu_torch.models.unet import _tree_map, tree_leaves
 from twinvoice_tpu_torch.weights import keystr_items, load_npz, to_jax_params
 
 _FILE = "train_state.pt"
+_PARAMS_FILE = "params.pt"
 
 load_params_npz = load_npz
 
@@ -92,3 +101,32 @@ def save_params_npz(path, params, state):
             flat[prefix + "/" + key] = leaf
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez_compressed(path, **flat)
+
+
+def save_params(path, params, bn_state):
+    """Weights-only checkpoint (the serving artifact) in the directory
+    ``path``: ``params.pt``, written to a temporary file first, then
+    renamed."""
+    os.makedirs(path, exist_ok=True)
+    payload = {"params": _tree_map(lambda t: t.detach().cpu(), params),
+               "bn_state": _tree_map(lambda t: t.detach().cpu(), bn_state)}
+    tmp = os.path.join(path, _PARAMS_FILE + ".tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, os.path.join(path, _PARAMS_FILE))
+
+
+def restore_params(path, cfg: UNetConfig = UNetConfig()):
+    """→ ``(params, bn_state)`` on the CPU from a :func:`save_params`
+    directory, or from a :func:`save` directory (``fit``'s ``best`` and
+    ``latest``), whose file holds the same two trees. Raises when the
+    weights are not ``cfg``'s architecture. Not orbax (module doc)."""
+    name = _PARAMS_FILE if os.path.isfile(os.path.join(path, _PARAMS_FILE)) else _FILE
+    got = torch.load(os.path.join(path, name), map_location="cpu", weights_only=True)
+    params, bn_state = got["params"], got["bn_state"]
+    widths = tuple(int(p["conv1"]["weight"].shape[0]) for p in params["enc"])
+    if (widths != cfg.encoder_widths()
+            or int(params["enc"][0]["conv1"]["weight"].shape[1]) != cfg.in_channels
+            or int(params["out"]["weight"].shape[0]) != cfg.num_classes):
+        raise ValueError(f"checkpoint {path} (encoder widths {widths}) does not "
+                         f"match {cfg}")
+    return params, bn_state
