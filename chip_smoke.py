@@ -220,6 +220,29 @@ Phases, each printing one line with its wall time:
     (d) ``run_e2e_gauntlet`` on the clean and mild training-font cases (the
     w16 at bf16, ``TorchOcrEngine()``, no QR pass, no auto-rotate), each
     case's fields equal to JAX's wherever the port's boxes are JAX's
+27. the QR locator, encoder, labelme core and CLI (``qr.locate``,
+    ``qr.encode``, ``data.labelme``, ``__main__``; no kernel of their own)
+    against the JAX package's outputs in ``tests/data/torch_smoke_qr.npz``:
+    (a) 40 ``encode_qr_matrix`` matrices equal to JAX's, each
+    ``render_qr`` read back by ``qr.native``; (b) ``enhance_qr_region`` on
+    three crops byte for byte equal to OpenCV's; (c) the numpy locator's
+    boxes against ``cv2.QRCodeDetector``'s on 14 pages (landscape, 0.45×,
+    0.5×, 0.55×, perspective, soft, 7°, low contrast, blank): each cv2 box
+    matched at IoU ≥ 0.7, none on the blank page, the host ms a call; (d)
+    the scan with the native decoder: payload sets equal to JAX's (on the
+    0.55× page JAX's ⊆ the port's ⊆ the truth), one payload on the 0.45×
+    pages as JAX's, the passes of each page; (e) ``auto_rotate_by_qr``'s
+    turn equal to JAX's on the four landscape pages; (f) ``extract`` with
+    the bundled w16 at fp32 (TF32 off) and ``TorchOcrEngine()`` on the
+    landscape and 0.45× pages, fields equal to JAX's wherever the port's
+    boxes are JAX's; (g) ``__main__.main(["train", "--epochs", "1",
+    "--resume", ...])`` from the bundled w64 with
+    ``data.dataset.load_invoice_dataset`` replaced by the training
+    fixture's ``ArrayDataset`` (no JPEG decoder on the card's machine), its
+    checkpoint served by ``Segmenter.from_checkpoint`` against the plain
+    path, fields found; (h) ``main(["train-ocr", ...])`` for 101 steps (the
+    fewest the trainer takes) on the OCR training fixture's pool; (i) ``rasterize_labelme`` and ``build_one``'s resizes
+    equal to JAX's
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -238,7 +261,9 @@ driven the same way: K1 once, and so is phase 25's serving of ``fit(mesh)``'s
 checkpoint. Phases 23-24 must leave every count as it was. In phase 26,
 (a) and (d) are driven the same way (K1 once a segmenter call), and so is
 each route of (b)-(c): K1 once a tier, and on the int8 route K4a and K6
-their ``xla`` counts too. The kernel rows' launches sum every such path.
+their ``xla`` counts too. Phase 27's ``extract`` calls are driven the same
+way (K1 once a page), and so is the serving of the CLI's checkpoint (K1
+once). The kernel rows' launches sum every such path.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
 only. Without a CUDA device, or if any phase fails, it exits non-zero and
@@ -2576,7 +2601,7 @@ def phase_fusion(fix8):
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         out = fusion_routes_check(fix, seg, qr, eng)
     passes = dict(qr_detect.passes)
-    if passes.get("regions", 0) or passes.get("regions_skipped", 0):
+    if passes.get("regions", 0):
         raise AssertionError(f"a page needed the QR region pass: {passes}")
     launches = {}
     for route, (got, other, n) in out.items():
@@ -3027,12 +3052,12 @@ def train_speed(fix, card, params, state, dtype):
     return {"ms": ms, "bound_ms": bound, "peak_gib": peak}
 
 
-def served_vs_plain(seg, params, state, mcfg, pages):
+def served_vs_plain(seg, params, state, mcfg, pages, *, label="the trained w64"):
     """The trained weights served through ``seg`` (K1, box-only) against the
     plain path on the same weights: eval-mode ``unet_apply`` at fp32 (TF32
-    off), ``bbox_from_probs`` and ``scale_and_pad_boxes``. The ok flags must
-    be equal and the boxes within one grid cell, and the plain path must find
-    fields. → (served ok, boxes, the launches of the served call)."""
+    off), ``bbox_from_probs`` and ``scale_and_pad_boxes``. The plain path
+    must find fields, the ok flags must be equal and the boxes within one
+    grid cell. → (served ok, boxes, the launches of the served call)."""
     icfg = seg.cfg
     sizes = torch.tensor([[pages.shape[2], pages.shape[1]]] * len(pages), dtype=torch.int32,
                          device="cuda")
@@ -3048,13 +3073,14 @@ def served_vs_plain(seg, params, state, mcfg, pages):
         gb, gv = bbox_from_probs(torch.sigmoid(logits).permute(0, 2, 3, 1), icfg.thresholds)
         ref_boxes, ref_ok = scale_and_pad_boxes(gb, gv, sizes, icfg.img_size, icfg.pad_frac)
     ref_ok, ref_boxes = ref_ok.cpu().numpy(), ref_boxes.cpu().numpy().astype(np.int64)
-    print(f"  the trained w64 served at bf16 on the 4 pages: ok {ok.cpu().numpy().tolist()}, "
+    print(f"  {label} served at {str(seg.dtype).split('.')[-1]} on the {len(pages)} pages: "
+          f"ok {ok.cpu().numpy().tolist()}, "
           f"boxes {boxes.cpu().numpy().tolist()}; plain fp32 boxes {ref_boxes.tolist()}; "
           f"launches {launches}", flush=True)
     if not ref_ok.any():
-        raise AssertionError("the trained w64 finds no field on the plain path")
+        raise AssertionError(f"{label} finds no field on the plain path")
     tol_px = -(-max(pages.shape[1:3]) // icfg.img_size) + 1
-    exact, n = ok_check("trained w64 bf16 vs plain fp32", ok, boxes, ref_ok, ref_boxes, tol_px)
+    exact, n = ok_check(f"{label} vs plain fp32", ok, boxes, ref_ok, ref_boxes, tol_px)
     print(f"  served vs plain: ok equal ({n} of {ref_ok.size} fields found); boxes exactly "
           f"equal {exact}/{n}, the rest within {tol_px} px", flush=True)
     return ok, boxes, launches
@@ -4224,6 +4250,324 @@ def phase_gauntlet(fix_pages, card):
     return launches
 
 
+# -- phase 27: the QR locator, encoder, labelme core and CLI ---------------------
+
+
+QR_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_qr.npz")
+QR_IOU_MIN = 0.7      # each cv2 box against the port's best box on its page
+QR_LOCATE_REPS = 5    # locator calls a page, the median timed
+# pages where the scan's payloads are not JAX's: the port's locator finds a
+# code that cv2's misses, and its region pass reads both payloads where JAX's
+# scan reads one. Held to JAX's payloads ⊆ the port's ⊆ the true ones. An
+# open gap (ROADMAP.md queue 3), measured on 82 pages by
+# tests/test_torch_qr_locate.py::test_scan_sweep_against_jax (16 such pages).
+QR_PORT_READS_MORE = ("s0_x0.55",)
+
+
+def qr_fixture():
+    """``tests/data/torch_smoke_qr.npz`` (``scripts/make_torch_smoke_qr.py``)
+    with its pages rebuilt (a landscape page is ``np.rot90`` of a portrait
+    one) and its JSON lists read."""
+    with np.load(QR_FIXTURE) as z:
+        raw = {k: z[k] for k in z.files}
+    names = [str(n) for n in raw["names"]]
+    pages = []
+    for i in range(len(names)):
+        if f"turned_{i}" in raw:
+            seed, k = (int(v) for v in raw[f"turned_{i}"])
+            pages.append(np.ascontiguousarray(np.rot90(raw[f"portrait_{seed}"], k)))
+        else:
+            pages.append(raw[f"page_{i}"])
+    fix = {k: v for k, v in raw.items() if not k.startswith(("page_", "turned_"))}
+    for key in ("truth", "cv2_boxes", "jax_native", "jax_default", "jax_noregion",
+                "jax_extract", "encode", "lm_json"):
+        fix[key] = json.loads(str(raw[key]))
+    fix.update(names=names, pages=pages)
+    return fix
+
+
+def qr_encode_check(fix):
+    """(a) Every encoder case's matrix equal to JAX's; each case's
+    ``render_qr`` read back to its payload by ``qr.native``. → cases."""
+    from twinvoice_tpu_torch.qr import native
+    from twinvoice_tpu_torch.qr.encode import encode_qr_matrix, render_qr
+
+    for case in fix["encode"]:
+        n, payload = case["side"], case["payload"]
+        m = encode_qr_matrix(payload, level=case["level"], mask=case["mask"],
+                             version=case["version"])
+        bits = np.unpackbits(np.frombuffer(bytes.fromhex(case["bits"]), np.uint8))
+        if m.shape != (n, n) or not np.array_equal(m, bits[:n * n].reshape(n, n).astype(bool)):
+            raise AssertionError(f"encode_qr_matrix{payload, case['level'], case['mask'], case['version']} "
+                                 f"differs from JAX's")
+        got = native.decode(render_qr(payload, level=case["level"], mask=case["mask"]))
+        if got != [payload]:
+            raise AssertionError(f"render_qr({payload!r}) decodes to {got}")
+    return len(fix["encode"])
+
+
+def qr_enhance_check(fix):
+    """(b) ``enhance_qr_region`` on the fixture crops byte for byte equal to
+    OpenCV's (its own code path: the fixture script turns IPP off). → crops."""
+    from twinvoice_tpu_torch.qr.detect import enhance_qr_region
+
+    i = 0
+    while f"enhance_in_{i}" in fix:
+        got, want = enhance_qr_region(fix[f"enhance_in_{i}"]), fix[f"enhance_out_{i}"]
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"enhance_qr_region crop {i}: "
+                                 f"{int((got != want).sum()) if got.shape == want.shape else got.shape} "
+                                 f"differs from cv2's {want.shape}")
+        i += 1
+    return i
+
+
+def box_iou(a, b):
+    ix = max(0, min(a[2], b[2]) - max(a[0], b[0]))
+    iy = max(0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / union if union > 0 else 0.0
+
+
+def qr_locate_check(fix):
+    """(c) The locator's boxes against cv2's on every page: each cv2 box has
+    a port box with IoU ≥ ``QR_IOU_MIN``, the blank page gives none. →
+    {page: (IoUs, boxes, median host ms of a call)}."""
+    from twinvoice_tpu_torch.qr.detect import detect_qr_regions
+
+    out = {}
+    for name, page, want in zip(fix["names"], fix["pages"], fix["cv2_boxes"]):
+        times = []
+        for _ in range(QR_LOCATE_REPS):
+            t = time.perf_counter()
+            boxes = detect_qr_regions(page)
+            times.append(time.perf_counter() - t)
+        ious = [max([box_iou(w, b) for b in boxes] or [0.0]) for w in want]
+        if any(v < QR_IOU_MIN for v in ious):
+            raise AssertionError(f"locator on {name}: cv2 boxes {want}, port's {boxes}, "
+                                 f"IoU {ious}")
+        if name == "blank" and boxes:
+            raise AssertionError(f"locator found {boxes} on the blank page")
+        out[name] = (ious, boxes, 1e3 * sorted(times)[len(times) // 2])
+    return out
+
+
+def qr_scan_check(fix):
+    """(d) ``QrPipeline(decoders=[native_decode]).scan`` against JAX's: the
+    payload set equal on every page (on ``QR_PORT_READS_MORE``: JAX's ⊆ the
+    port's ⊆ the truth), a single payload on the 0.45× pages as JAX's. →
+    {page: (payloads, passes)}."""
+    from twinvoice_tpu_torch.qr import detect
+
+    pipe = detect.QrPipeline(decoders=[detect.native_decode])
+    out = {}
+    for name, page, want, truth in zip(fix["names"], fix["pages"], fix["jax_native"],
+                                       fix["truth"]):
+        detect.passes.clear()
+        got = pipe.scan(page)
+        passes = dict(detect.passes)
+        if name in QR_PORT_READS_MORE:
+            if not set(want) <= set(got) <= set(truth):
+                raise AssertionError(f"scan of {name}: {got}; JAX's {want}, truth {truth}")
+        elif set(got) != set(want):
+            raise AssertionError(f"scan of {name}: {got} != JAX's {want}")
+        if "x0.45" in name and len(got) != 1:
+            raise AssertionError(f"scan of {name}: {got}, JAX's single payload {want}")
+        out[name] = (got, passes)
+    return out
+
+
+def qr_turn_check(fix):
+    """(e) ``auto_rotate_by_qr`` on each landscape page turned as JAX's. →
+    {page: np.rot90's k}."""
+    from twinvoice_tpu_torch.fusion.extract import auto_rotate_by_qr
+
+    out = {}
+    for name, page, k in zip(fix["names"], fix["pages"], fix["jax_turn"]):
+        if page.shape[1] <= page.shape[0]:
+            continue
+        got = auto_rotate_by_qr(page)
+        if not np.array_equal(got, np.rot90(page, int(k))):
+            raise AssertionError(f"auto_rotate_by_qr on {name}: not JAX's turn {int(k)}")
+        out[name] = int(k)
+    return out
+
+
+def qr_extract_check(fix, seg, eng, expect_k1=True):
+    """(f) ``InvoiceExtractor.extract`` (``QrPipeline()``, auto-rotate on) on
+    the landscape and 0.45× pages against JAX's: ``qr_raw`` and ``items``
+    equal on every page, every meta field on the pages whose port boxes
+    (``segment_array`` on the page ``extract`` segments) are JAX's; driven
+    with the launch counts zeroed just before and read just after: K1 once
+    a page (``expect_k1=False``: none, the CPU). → (records, pages off
+    JAX's boxes, launches)."""
+    from twinvoice_tpu_torch.fusion.extract import InvoiceExtractor
+    from twinvoice_tpu_torch.ops.host_image import resize_pil_bicubic
+    from twinvoice_tpu_torch.qr.detect import QrPipeline
+
+    idx = [int(i) for i in fix["extract_pages"]]
+    pages = [fix["pages"][i] for i in idx]
+    size = seg.cfg.img_size
+    same = []
+    for j, (i, page) in enumerate(zip(idx, pages)):
+        seen = np.ascontiguousarray(np.rot90(page, int(fix["jax_turn"][i])))
+        _, b, o = seg._segment_one(resize_pil_bicubic(seen, size, size),
+                                   seen.shape[1], seen.shape[0])
+        same.append(bool(np.array_equal(b, fix["extract_boxes"][j])
+                         and np.array_equal(o, fix["extract_ok"][j])))
+    ex = InvoiceExtractor(seg, QrPipeline(), [eng], cfg=FusionConfig())
+    _build.launches.clear()
+    got = [fusion_record(*ex.extract(p)) for p in pages]
+    launches = dict(_build.launches)
+    want = {k1.NAME: len(pages)} if expect_k1 else {}
+    if launches != want:
+        raise AssertionError(f"extract on the QR pages: launches {launches}, expected {want}")
+    other = fusion_check({"jax_extract": fix["jax_extract"]}, "extract", got, same)
+    return got, [fix["names"][idx[j]] for j in other], launches
+
+
+def labelme_check(fix):
+    """(i) ``rasterize_labelme`` and ``build_one``'s two resizes on the
+    fixture's JSON and image equal to JAX's mask and OpenCV's resizes. →
+    the resized shape."""
+    from twinvoice_tpu_torch.data.labelme import rasterize_labelme
+    from twinvoice_tpu_torch.ops.host_image import resize_linear_u8, resize_nearest_u8
+
+    meta, img = fix["lm_json"], fix["portrait_5"]
+    h, w = img.shape[:2]
+    mask = rasterize_labelme(meta["shapes"], (h, w),
+                             (w / meta["imageWidth"], h / meta["imageHeight"]))
+    th, tw = fix["lm_img_r"].shape[:2]
+    for what, got, want in (("mask", mask, fix["lm_mask"]),
+                            ("image resize", resize_linear_u8(img, tw, th), fix["lm_img_r"]),
+                            ("mask resize", resize_nearest_u8(mask, tw, th), fix["lm_mask_r"])):
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"labelme {what} differs from JAX's")
+    return th, tw
+
+
+def cli_train_check(tmp, card):
+    """(g) ``python -m twinvoice_tpu_torch train --epochs 1 --resume START``
+    through ``__main__.main`` on the training fixture's pages, START the
+    bundled w64 saved as a checkpoint at epoch 0 (as phase 22 starts), so
+    that the checkpoint it writes finds fields; that checkpoint served by
+    ``Segmenter.from_checkpoint`` through K1 against the plain path on the
+    same weights. → K1's launches."""
+    from twinvoice_tpu_torch import __main__ as cli
+    from twinvoice_tpu_torch.config import UNetConfig
+    from twinvoice_tpu_torch.data import dataset
+
+    fix = train_fixture()
+    ds = ArrayDataset(fix["pages"], fix["masks"])
+    print(f"  (g) data.dataset.load_invoice_dataset is replaced by the training fixture's "
+          f"ArrayDataset ({len(ds)} pages of {fix['pages'].shape[1]}²): the card's machine "
+          f"has no JPEG decoder for cv2.imread", flush=True)
+    ckpt_dir, start = os.path.join(tmp, "checkpoints"), os.path.join(tmp, "start")
+    bundled = load_npz(variant_path("w64"))
+    params, state = _copy_to(bundled[0], "cpu"), _copy_to(bundled[1], "cpu")
+    ckpt.save(start, TrainState(params, state, make_optimizer(params, TrainConfig())))
+    del bundled, params, state
+    cwd, real = os.getcwd(), dataset.load_invoice_dataset
+    dataset.load_invoice_dataset = lambda img_dir, mask_dir: ds
+    os.chdir(tmp)  # fit writes its visual dumps under ./visualize, as JAX's CLI does
+    try:
+        t = time.perf_counter()
+        cli.main(["train", "--epochs", "1", "--checkpoint-dir", ckpt_dir, "--resume", start])
+        dt = time.perf_counter() - t
+    finally:
+        os.chdir(cwd)
+        dataset.load_invoice_dataset = real
+    best = os.path.join(ckpt_dir, "best")
+    mcfg = UNetConfig()
+    seg = Segmenter.from_checkpoint(best, mcfg, InferConfig(img_size=512), torch.float32)
+    params, state = ckpt.restore_params(best, mcfg)
+    with tf32_off():
+        _, boxes, launches = served_vs_plain(seg, params, state, mcfg, fix["pages"],
+                                             label="the CLI's w64")
+    if launches.get(k1.NAME, 0) != 1 or tuple(boxes.shape) != (4, 3, 4):
+        raise AssertionError(f"serving the CLI's checkpoint launched {launches}")
+    print(f"  (g) train --epochs 1 --resume (the bundled w64, b4 512², one step): {dt:.2f} s, "
+          f"checkpoint "
+          f"{sorted(os.listdir(ckpt_dir))} served by Segmenter.from_checkpoint [{card}]",
+          flush=True)
+    return launches[k1.NAME]
+
+
+def cli_train_ocr_check(tmp, steps, device=None):
+    """(h) ``python -m twinvoice_tpu_torch train-ocr`` on the OCR training
+    fixture's pool for ``steps`` steps; the weights it writes load, finite,
+    in the fixture's charset. → seconds."""
+    from twinvoice_tpu_torch import __main__ as cli
+
+    out = os.path.join(tmp, "recognizer.npz")
+    argv = ["train-ocr", "--pool", OCR_TRAIN_FIXTURE, "--out", out, "--steps", str(steps)]
+    t = time.perf_counter()
+    cli.main(argv + (["--device", str(device)] if device else []))
+    dt = time.perf_counter() - t
+    params, state, charset, arch = rec_train.load_weights_ex(out)
+    with np.load(OCR_TRAIN_FIXTURE) as z:
+        want = str(z["charset"])
+    if arch != "t64" or charset.chars != want:
+        raise AssertionError(f"train-ocr wrote arch {arch!r} and a charset of "
+                             f"{len(charset.chars)} characters")
+    if not all(torch.isfinite(t).all() for t in tree_leaves(params) + tree_leaves(state)):
+        raise AssertionError("train-ocr wrote non-finite weights")
+    return dt
+
+
+def phase_qr_cli(card):
+    """Phase 27: the QR locator, scan, auto-rotate and encoder, the labelme
+    core and the CLI on the card's machine against the JAX package. → K1's
+    launches in (f) and (g)."""
+    import tempfile
+
+    from twinvoice_tpu_torch.ocr.torchocr.engine import TorchOcrEngine
+
+    fix = qr_fixture()
+    n = qr_encode_check(fix)
+    print(f"  (a) {n} encoder matrices equal to JAX's (levels L/M/Q/H, masks 0-7, versions "
+          f"1-10, 12, 15 and 20); each render_qr read back by qr.native", flush=True)
+    print(f"  (b) {qr_enhance_check(fix)} enhance_qr_region crops equal to OpenCV's byte for "
+          f"byte", flush=True)
+    located = qr_locate_check(fix)
+    for name, (ious, boxes, ms) in located.items():
+        print(f"  (c) {name}: IoU with cv2's boxes {np.round(ious, 4).tolist()}; port boxes "
+              f"{boxes}; {ms:.2f} ms a call on the host", flush=True)
+    all_ms = [v[2] for v in located.values()]
+    print(f"  (c) locator: median {sorted(all_ms)[len(all_ms) // 2]:.2f} ms a page, "
+          f"{min(all_ms):.2f}-{max(all_ms):.2f} over {len(all_ms)} pages [{card}]", flush=True)
+    for name, (got, passes) in qr_scan_check(fix).items():
+        print(f"  (d) {name}: {len(got)} payloads, passes {passes}", flush=True)
+    print(f"  (e) auto_rotate_by_qr turns as JAX's: {qr_turn_check(fix)}", flush=True)
+    seg = load_pretrained_segmenter(torch.float32)
+    eng = TorchOcrEngine()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got, other, launches = qr_extract_check(fix, seg, eng)
+    for rec, i in zip(got, fix["extract_pages"]):
+        m = rec["meta"]
+        print(f"    {fix['names'][int(i)]}: {m['invoice_no']} ({m['source']}), {m['date']}, "
+              f"{m['total_amount']}; items {rec['items']}", flush=True)
+    print(f"  (f) extract on {len(got)} pages: qr_raw and items equal to JAX's; every meta "
+          f"field equal on the pages on JAX's boxes (others: {other or 'none'}); launches "
+          f"{launches}", flush=True)
+    del seg, eng
+    k1_launches = launches[k1.NAME]
+    _build.build_dir().mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp:
+        k1_launches += cli_train_check(tmp, card)
+        before = dict(_build.launches)
+        dt = cli_train_ocr_check(tmp, 101)
+        if dict(_build.launches) != before:
+            raise AssertionError("train-ocr launched a kernel of the port")
+        print(f"  (h) train-ocr --steps 101 on the OCR training fixture's pool: {dt:.2f} s; the "
+              f"weights load, finite [{card}]", flush=True)
+    th, tw = labelme_check(fix)
+    print(f"  (i) rasterize_labelme and build_one's resizes to {tw}×{th} equal to JAX's",
+          flush=True)
+    return k1_launches
+
+
 def main():
     ph = Phases()
     name, card = ph.run(1, "device", phase_device)
@@ -4331,6 +4675,11 @@ def main():
     print(f"  launches in phase 26: {gauntlet_launches}; of K1 on the main path and phases "
           f"19-20, 22, 25-26: {launches[k1.NAME]}; on the int8 routes (phases 9-10, 13-14, "
           f"19, 26): {int8_launches}", flush=True)
+    qr_launches = ph.run(27, "QR locator, encoder, labelme core and CLI on the card",
+                         phase_qr_cli, card)
+    launches[k1.NAME] += qr_launches
+    print(f"  launches of K1 in phase 27: {qr_launches}; on the main path and phases 19-20, "
+          f"22, 25-27: {launches[k1.NAME]}", flush=True)
 
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
              launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]

@@ -14,6 +14,7 @@ random base-width-8 U-Net at 64².
 
 import hashlib
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from chip_smoke import NoFieldSegmenter, fusion_record
 from tests.torch_port_cases import random_unet
 from twinvoice_tpu.config import FusionConfig as JaxFusionConfig
 from twinvoice_tpu.config import InferConfig as JaxInferConfig
+from twinvoice_tpu.data.synthetic import render_invoice
 from twinvoice_tpu.fusion import extract as jextract
 from twinvoice_tpu.infer.pipeline import Segmenter as JaxSegmenter
 from twinvoice_tpu.ocr.base import OcrResult as JaxOcrResult
@@ -285,21 +287,32 @@ def test_auto_rotate_equals_pillow(box, turn):
 
 
 def test_auto_rotate_in_extract(monkeypatch):
-    """The default locator on a landscape page with no QR (cv2 present: no
-    turn, as JAX); without cv2 the locator is skipped with a warning and
-    counted."""
+    """The default locator on a landscape page with no QR: no turn, as JAX.
+    With cv2 blocked in the port, a rendered invoice turned a quarter each
+    way is turned back as JAX's cv2 locator turns it, by the numpy locator,
+    with no warning and no skip: the scan stub reads the payloads only from
+    the upright page."""
     page = _pages(1, size=(100, 50), seed=10)[0]
     make = lambda r: [FakeEngine(r, "3")]  # noqa: E731
     jex, tex, _, _ = _both(ALL, StubQr([]), make, cfg={"auto_rotate": True})
-    jres = jex.extract(Image.fromarray(page))
-    _same(jres, tex.extract(page))
-    monkeypatch.setitem(sys.modules, "cv2", None)
-    tdetect.passes.clear()
-    _, tex, _, _ = _both(ALL, StubQr([]), make, cfg={"auto_rotate": True})
-    with pytest.warns(UserWarning, match="auto-rotate"):
-        tres = tex.extract(page)
-    _same(jres, tres)
-    assert tdetect.passes["autorotate_skipped"] == 1
+    _same(jex.extract(Image.fromarray(page)), tex.extract(page))
+    invoice = np.asarray(render_invoice(seed=0)[0].convert("RGB"))
+    payloads = ["AB123456781140909" + "x" * 10, "**奶茶:2:30"]
+    qr = StubQr([], by_page={_page_key(invoice): payloads})
+    for k in (1, -1):
+        turned = np.ascontiguousarray(np.rot90(invoice, k))
+        jex, _, _, _ = _both(ALL, qr, make, cfg={"auto_rotate": True})
+        jres = jex.extract(Image.fromarray(turned))
+        with monkeypatch.context() as m:
+            m.setitem(sys.modules, "cv2", None)
+            tdetect.passes.clear()
+            _, tex, _, _ = _both(ALL, qr, make, cfg={"auto_rotate": True})
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                tres = tex.extract(turned)
+        _same(jres, tres)
+        assert tres[2] == payloads  # read from the upright page
+        assert not any(name.endswith("_skipped") for name in tdetect.passes)
 
 
 def test_pages_must_be_rgb_uint8():

@@ -1,5 +1,6 @@
 """PyTorch port: what the card's machine lacks is never imported (the
-recognition stack, bulk extraction and training run end to end without it),
+recognition stack, bulk extraction, training, the QR locator and the CLI run
+end to end without it),
 and the kernel build finds nvcc, hashes its sources and reports failures."""
 
 import os
@@ -282,6 +283,48 @@ def test_gauntlet_and_serving_edges_run_without_jax_pil_cv2():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-1] == "scored"
+
+
+_QR_CLI_WITHOUT_CV2 = f"""
+import sys, warnings
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+import numpy as np
+import chip_smoke
+from twinvoice_tpu_torch import __main__ as cli
+from twinvoice_tpu_torch.fusion.extract import auto_rotate_by_qr
+from twinvoice_tpu_torch.qr import detect
+fix = chip_smoke.qr_fixture()
+i = fix["names"].index("s0_x0.45")
+detect.passes.clear()
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")  # the opencv_decode backend's skips
+    got = detect.QrPipeline().scan(fix["pages"][i])
+assert got == fix["jax_native"][i] and len(got) == 1, got
+assert detect.passes["regions"] == 1 and detect.passes["enhanced"] == 2, dict(detect.passes)
+j = fix["names"].index("s0_rot90")
+page = fix["pages"][j]
+assert np.array_equal(auto_rotate_by_qr(page), np.rot90(page, int(fix["jax_turn"][j])))
+parser = cli.build_parser()
+for argv in (["build-dataset"], ["train", "--device", "cpu"],
+             ["train-ocr", "--pool", "p.npz", "--out", "w.npz"]):
+    assert parser.parse_args(argv).cmd == argv[0]
+loaded = [m for m, v in sys.modules.items()
+          if v is not None and m.split(".")[0] in {BLOCKED!r}]
+assert not loaded, loaded
+print("located")
+"""
+
+
+def test_qr_locator_autorotate_and_cli_run_without_jax_pil_cv2():
+    """The QR scan's region pass and enhanced retries (the numpy locator,
+    ``equalizeHist`` and the cubic upscale), auto-rotate of a landscape page
+    and every CLI subcommand's parser run with JAX, the JAX package, Pillow
+    and OpenCV blocked, as on the card's machine."""
+    out = subprocess.run([sys.executable, "-c", _QR_CLI_WITHOUT_CV2], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "located"
 
 
 def test_find_nvcc_names_every_place_it_looked(monkeypatch, tmp_path):

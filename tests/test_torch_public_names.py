@@ -39,8 +39,6 @@ PACKAGES = {
 
 # (JAX package, name) → why the port's counterpart does not export it
 NOT_PORTED = {
-    ("data", "build_dataset_from_labelme"): "dataset builder, ROADMAP.md queue 1, item 4",
-    ("data", "rasterize_labelme"): "dataset builder, ROADMAP.md queue 1, item 4",
     ("eval", "make_base_cases"): "host-side renderer (Pillow, TrueType); its "
                                  "cases reach the port through save_cases",
     ("eval", "perturb_cases"): "host-side perturbation (OpenCV, JPEG)",

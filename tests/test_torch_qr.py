@@ -140,9 +140,10 @@ def test_scan_equals_jax_with_cv2(invoices):
 
 def test_scan_without_cv2(invoices, monkeypatch):
     """cv2 blocked: the same payloads where the first pass suffices, no
-    warning; where it does not (a page under 420 px, a blank page), the
-    region pass and the opencv backend are skipped with a warning and
-    counted, and the numpy passes still read what they can."""
+    warning; on a page under 420 px the numpy region pass runs, is counted
+    and reads both codes, nothing skipped; on a blank page every pass runs
+    and only the opencv_decode backend is skipped, with a warning and a
+    count."""
     jq = jdetect.QrPipeline()
     want = [jq.scan(p) for p in invoices]
     small = invoices[4][::2, ::2].copy()  # 320×220: no 0.75× pass
@@ -157,12 +158,15 @@ def test_scan_without_cv2(invoices, monkeypatch):
         assert [tq.scan(p) for p in invoices] == want
     assert dict(tdetect.passes) == {"gray_0.75": len(invoices)}
     tdetect.passes.clear()
-    with pytest.warns(UserWarning, match="skipped the QR region pass"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         got = tq.scan(small)
     assert sorted(got) == sorted(want_small) and len(got) == 2
-    assert tdetect.passes["regions_skipped"] == 1 and tdetect.passes["full_frame"] == 1
+    assert dict(tdetect.passes) == {"regions": 1, "region_crop": 2}
     tdetect.passes.clear()
-    with pytest.warns(UserWarning, match="opencv_decode"):
+    with pytest.warns(UserWarning, match="opencv_decode") as record:
         assert tq.scan(np.full((440, 300, 3), 250, np.uint8)) == []
-    assert tdetect.passes["regions_skipped"] == 1 and tdetect.passes["upscale_2x"] == 1
-    assert tdetect.passes["opencv_decode_skipped"] == 5  # every candidate
+    assert all("opencv_decode" in str(w.message) for w in record)
+    assert dict(tdetect.passes) == {"gray_0.75": 1, "regions": 1, "full_frame": 1,
+                                    "half_tile": 2, "upscale_2x": 1,
+                                    "opencv_decode_skipped": 5}  # every candidate

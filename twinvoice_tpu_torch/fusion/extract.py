@@ -40,11 +40,7 @@ from twinvoice_tpu_torch.config import FusionConfig
 from twinvoice_tpu_torch.fusion.amount import extract_amount
 from twinvoice_tpu_torch.fusion.items import adjust_items_to_total
 from twinvoice_tpu_torch.ops.host_image import pil_luma
-from twinvoice_tpu_torch.qr.detect import (
-    cv2_available,
-    detect_qr_regions,
-    skip_without_cv2,
-)
+from twinvoice_tpu_torch.qr.detect import detect_qr_regions
 from twinvoice_tpu_torch.qr.parse import parse_header_qr, parse_items_qr
 from twinvoice_tpu_torch.utils.errors import FailureLog
 from twinvoice_tpu_torch.utils.tracing import trace_span
@@ -128,18 +124,11 @@ def auto_rotate_by_qr(page: np.ndarray, qr_regions_fn=None) -> np.ndarray:
     anticlockwise when it lies left of 40% of the width, clockwise right of
     60% (Pillow's ``rotate(±90, expand=True)``). Never rotates when no QR is
     found or the page is already portrait. ``qr_regions_fn`` (page → boxes)
-    defaults to ``qr.detect.detect_qr_regions``, which needs OpenCV: without
-    it a landscape page is left as it is, with a warning."""
+    defaults to ``qr.detect.detect_qr_regions``, the port's numpy locator."""
     h, w = page.shape[:2]
     if w <= h:
         return page
-    if qr_regions_fn is None:
-        if not cv2_available():
-            skip_without_cv2("autorotate", "auto-rotate of a landscape page "
-                             "(its QR locator is cv2.QRCodeDetector)")
-            return page
-        qr_regions_fn = detect_qr_regions
-    regions = qr_regions_fn(page)
+    regions = (qr_regions_fn or detect_qr_regions)(page)
     if not regions:
         return page
     x1, _, x2, _ = regions[0]

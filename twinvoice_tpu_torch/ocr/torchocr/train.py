@@ -165,7 +165,8 @@ def cosine_decay(init_value: float, decay_steps: int):
     evaluation rounds it: count → init·0.5·(1 + cos(π·min(count, T)/T)), as
     a Python float."""
     if not decay_steps > 0:
-        raise ValueError(f"cosine_decay requires positive decay_steps, got {decay_steps}")
+        raise ValueError(f"The cosine_decay_schedule requires positive decay_steps, got "
+                         f"decay_steps={decay_steps}.")
     f32, cosf = np.float32, _libm_cosf()
     pi, steps, init = f32(np.pi), f32(decay_steps), f32(init_value)
 
@@ -350,25 +351,34 @@ def train(out_dir, steps: int = 3000, batch_size: int = 64, lr: float = 3e-4, se
     return params, state, {"exact": acc, "cer": cer}
 
 
+def train_from_npz(src, out, steps: int = 3000, batch_size: int = 64, lr: float = 3e-4,
+                   *, arch: str = "t64", resume_from=None, wide: bool = False, device=None,
+                   log=print):
+    """:func:`train` on a file of pre-rendered lines (``read_line_npz``'s
+    keys, the held-out ones under ``eval_``; its ``charset`` if it has one),
+    saving to ``out``."""
+    with np.load(src) as z:
+        charset = Charset(str(z["charset"])) if "charset" in z.files else DEFAULT
+    lines, labels, pad, _ = read_line_npz(src)
+    eval_lines, _, _, eval_texts = read_line_npz(src, prefix="eval_")
+    return train(out, steps=steps, batch_size=batch_size, lr=lr,
+                 batches=(lines, labels, pad),
+                 eval_batches=[(eval_lines[i:i + batch_size], eval_texts[i:i + batch_size])
+                               for i in range(0, len(eval_lines), batch_size)],
+                 charset=charset, arch=arch, resume_from=resume_from, wide=wide,
+                 device=device, log=log)
+
+
 def main(argv):
     args = [a for a in argv if not a.startswith("--")]
     opts = dict(a[2:].split("=", 1) if "=" in a else (a[2:], "1")
                 for a in argv if a.startswith("--"))
     if len(args) < 2:
         raise SystemExit(__doc__)
-    src, out = args[0], args[1]
-    steps = int(args[2]) if len(args) > 2 else 3000
-    with np.load(src) as z:
-        charset = Charset(str(z["charset"])) if "charset" in z.files else DEFAULT
-    lines, labels, pad, _ = read_line_npz(src)
-    eval_lines, _, _, eval_texts = read_line_npz(src, prefix="eval_")
-    bs = int(opts.get("batch", 64))
-    train(out, steps=steps, batch_size=bs, lr=float(opts.get("lr", 3e-4)),
-          batches=(lines, labels, pad),
-          eval_batches=[(eval_lines[i:i + bs], eval_texts[i:i + bs])
-                        for i in range(0, len(eval_lines), bs)],
-          charset=charset, arch="t32" if "t32" in opts else "t64",
-          resume_from=opts.get("resume"), wide="wide" in opts, device=opts.get("device"))
+    train_from_npz(args[0], args[1], steps=int(args[2]) if len(args) > 2 else 3000,
+                   batch_size=int(opts.get("batch", 64)), lr=float(opts.get("lr", 3e-4)),
+                   arch="t32" if "t32" in opts else "t64", resume_from=opts.get("resume"),
+                   wide="wide" in opts, device=opts.get("device"))
 
 
 if __name__ == "__main__":

@@ -170,6 +170,91 @@ def resize_linear_u8(img: np.ndarray, width: int = None, height: int = None, *,
     return _two_tap_resize(img, _linear_taps(w, width, ix), _linear_taps(h, height, iy))
 
 
+# cv2.INTER_CUBIC: Keys' kernel at A = -0.75, four taps; its uint8 vertical
+# pass runs OpenCV's SSE vector loop (8 outputs a step) in float32
+_CUBIC_A = -0.75
+_CUBIC_LANES = 8
+
+
+def _cubic_coef(f):
+    """float32 fractional offsets → OpenCV's ``interpolateCubic`` weights of
+    the taps at −1, 0, +1, +2 (float32, the last one 1 minus the others), as
+    ``saturate_cast<short>(w · 2048)``: (n, 4) int64."""
+    a, one = np.float32(_CUBIC_A), np.float32(1)
+    x = f.astype(np.float32)
+    x1 = x + one
+    c0 = ((a * x1 - np.float32(5) * a) * x1 + np.float32(8) * a) * x1 - np.float32(4) * a
+    c1 = ((a + np.float32(2)) * x - (a + np.float32(3))) * x * x + one
+    y = one - x
+    c2 = ((a + np.float32(2)) * y - (a + np.float32(3))) * y * y + one
+    c3 = one - c0 - c1 - c2
+    c = np.stack([c0, c1, c2, c3], axis=-1).astype(np.float32)
+    return np.clip(np.rint(c * np.float32(_COEF_SCALE)), -32768, 32767).astype(np.int64)
+
+
+def resize_cubic_u8(img: np.ndarray, width: int = None, height: int = None, *,
+                    fx: float = None, fy: float = None) -> np.ndarray:
+    """uint8 (H, W) or (H, W, C) → uint8 (height, width[, C]), as OpenCV's
+    own ``cv2.resize(img, (width, height), interpolation=cv2.INTER_CUBIC)``
+    (or with ``fx, fy`` in place of the size): half-pixel centres, Keys'
+    kernel at A = −0.75 with 11-bit weights, border samples clamped; a
+    horizontal pass into integer rows, then a vertical one that OpenCV's
+    SSE loop computes in float32 (``S0·b0 + (S1·b1 + (S2·b2 + S3·b3))``
+    with ``b = β / 2²²``, rounded half to even) for the first multiple of 8
+    values of each row and its scalar code (``(Σ Sβ + 2²¹) >> 22``) for the
+    rest. OpenCV builds with Intel IPP route this call to IPP by default,
+    whose float sums round some exact .5 ties the other way: this is the
+    result with ``cv2.ipp.setUseIPP(False)``."""
+    _require_pixels(img, "resize_cubic_u8")
+    width, height, ix, iy = _dsize(img, width, height, fx, fy)
+    h, w = img.shape[:2]
+    sx, fxs = _linear_taps(w, width, ix)
+    sy, fys = _linear_taps(h, height, iy)
+    a, b = _cubic_coef(fxs), _cubic_coef(fys)
+    extra = (None,) * (img.ndim - 2)
+    src = img.astype(np.int64)
+    rows = 0
+    for k in range(4):
+        rows = rows + src[:, np.clip(sx + k - 1, 0, w - 1)] * a[(slice(None), k) + extra]
+    taps = [rows[np.clip(sy + k - 1, 0, h - 1)] for k in range(4)]
+    cols = (slice(None), None) + extra
+    exact = sum(t * b[(slice(None), k)][cols] for k, t in enumerate(taps))
+    out = (exact + (1 << (2 * _COEF_BITS - 1))) >> (2 * _COEF_BITS)
+    beta = (b.astype(np.float32) * np.float32(1.0 / (_COEF_SCALE * _COEF_SCALE)))
+    acc = taps[3].astype(np.float32) * beta[(slice(None), 3)][cols]
+    for k in (2, 1, 0):
+        acc = taps[k].astype(np.float32) * beta[(slice(None), k)][cols] + acc
+    vec = np.rint(acc)
+    row_len = width * int(np.prod(img.shape[2:], dtype=np.int64))
+    n_vec = row_len // _CUBIC_LANES * _CUBIC_LANES
+    flat_out = out.reshape(height, row_len)
+    flat_out[:, :n_vec] = vec.reshape(height, row_len)[:, :n_vec]
+    return np.clip(flat_out, 0, 255).astype(np.uint8).reshape(out.shape)
+
+
+def equalize_hist_u8(gray: np.ndarray) -> np.ndarray:
+    """uint8 (H, W) → ``cv2.equalizeHist(gray)``: with ``i`` the first
+    non-empty histogram bin, ``lut[j] = round_half_even(cumsum(hist)[i+1..j]
+    · float32(255 / (total − hist[i])))``, ``lut[i] = 0``; a constant image
+    maps to itself."""
+    _require_pixels(gray, "equalize_hist_u8")
+    hist = np.bincount(gray.ravel(), minlength=256).astype(np.int64)
+    i = int(np.argmax(hist > 0))
+    total = gray.size
+    if hist[i] == total:
+        return gray.copy()
+    scale = np.float32(255.0) / np.float32(total - hist[i])
+    cum = np.cumsum(hist) - hist[: i + 1].sum()
+    lut = np.clip(np.rint(cum.astype(np.float32) * scale), 0, 255).astype(np.uint8)
+    lut[: i + 1] = 0
+    return lut[gray]
+
+
+def gray_to_rgb(gray: np.ndarray) -> np.ndarray:
+    """uint8 (H, W) → (H, W, 3), as ``cv2.cvtColor(gray, cv2.COLOR_GRAY2RGB)``."""
+    return np.repeat(gray[..., None], 3, axis=-1)
+
+
 @functools.lru_cache(maxsize=32)
 def _area_tab(ssize: int, dsize: int, scale: float):
     """OpenCV's ``computeResizeAreaTab``: each output cell's source samples

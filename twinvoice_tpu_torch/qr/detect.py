@@ -5,15 +5,16 @@ The same cascade, early stop and payload filter as the JAX ``QrPipeline``
 decoder (``qr.native``), ``cv2.QRCodeDetector``, or any callable ``ndarray
 -> list[str]``.
 
-The passes that need no OpenCV run on ``ops.host_image``'s numpy, exact to
-the OpenCV calls of the JAX package: the 0.75× INTER_AREA gray (pass 1), the
-full frame, the two half tiles and the 2× linear last resort. The region
-pass (``detect_qr_regions``), its enhanced retries (``enhance_qr_region``)
-and the ``opencv_decode`` backend rest on ``cv2.QRCodeDetector``, which the
-port cannot reproduce: they import cv2 inside, and ``QrPipeline`` runs them
-only where cv2 imports. Where it does not, it skips them with a
-``UserWarning`` naming what it skipped. ``passes`` counts each pass a scan
-ran (a candidate image handed to the decoders) and each skip, by name.
+Every pass runs on numpy, on any machine: the 0.75× INTER_AREA gray (pass
+1), the region pass on the port's own locator (``qr.locate``, the
+counterpart of ``cv2.QRCodeDetector``'s detection), the full frame, the
+enhanced region retries (``ops.host_image``'s ``equalizeHist`` and 3×
+INTER_CUBIC), the two half tiles and the 2× linear last resort. The one
+OpenCV step left is the ``opencv_decode`` backend, cv2's own decoder: the
+default decoders add it where cv2 imports; where it does not, a candidate
+the native decoder did not read is counted ``opencv_decode_skipped`` with a
+``UserWarning``. ``passes`` counts each pass a scan ran (a candidate image
+handed to the decoders) and each skip, by name.
 """
 
 from __future__ import annotations
@@ -26,11 +27,15 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from twinvoice_tpu_torch.ops.host_image import (
+    equalize_hist_u8,
+    gray_to_rgb,
     resize_area_u8,
+    resize_cubic_u8,
     resize_linear_u8,
     rgb_to_gray,
 )
 from twinvoice_tpu_torch.qr import native
+from twinvoice_tpu_torch.qr.locate import locate_qr_boxes
 from twinvoice_tpu_torch.qr.parse import is_text_qr_payload, parse_header_qr
 
 QrDecodeFn = Callable[[np.ndarray], List[str]]
@@ -39,7 +44,7 @@ MIN_PAYLOAD_LEN = 20  # reference keeps only >20-char strings (app_camera.py:542
 
 # pass name → candidates scanned (or skips) since it was last cleared: "gray_0.75",
 # "regions" (a locator call), "region_crop", "full_frame", "enhanced",
-# "half_tile", "upscale_2x", and "<name>_skipped" for each OpenCV step skipped
+# "half_tile", "upscale_2x", and "opencv_decode_skipped"
 passes: collections.Counter = collections.Counter()
 _passes_lock = threading.Lock()  # scans run from extract_batch's thread pool
 
@@ -57,27 +62,17 @@ def cv2_available() -> bool:
     return True
 
 
-def skip_without_cv2(name: str, what: str):
-    """Count ``<name>_skipped`` and warn that ``what`` did not run."""
-    count_pass(f"{name}_skipped")
-    warnings.warn(f"OpenCV is not importable: skipped {what}", UserWarning,
-                  stacklevel=3)
-
-
 def detect_qr_regions(rgb: np.ndarray) -> List[Tuple[int, int, int, int]]:
-    """Locate likely QR bounding boxes (x1, y1, x2, y2) in an RGB array with
-    ``cv2.QRCodeDetector`` (frames wider than ``_DETECT_MAX_DIM`` are first
-    scanned at a downscale; fewer than 2 boxes there falls back to the full
-    resolution). Boxes are in full-resolution coordinates. Needs OpenCV."""
-    import cv2
-
-    gray = cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY)
+    """Locate likely QR bounding boxes (x1, y1, x2, y2) in a uint8 RGB (or
+    gray) array with ``qr.locate``. Frames wider than ``_DETECT_MAX_DIM``
+    are first scanned at an INTER_AREA downscale; fewer than 2 boxes there
+    falls back to the full resolution. Boxes are in full-resolution
+    coordinates, scaled back as the JAX package scales cv2's."""
+    gray = rgb_to_gray(rgb) if rgb.ndim == 3 else rgb
     scale = max(gray.shape) / float(_DETECT_MAX_DIM)
     if scale > 1.0:
-        small = cv2.resize(
-            gray, (int(gray.shape[1] / scale), int(gray.shape[0] / scale)),
-            interpolation=cv2.INTER_AREA)
-        boxes = _detect_gray(small, cv2)
+        small = resize_area_u8(gray, int(gray.shape[1] / scale), int(gray.shape[0] / scale))
+        boxes = locate_qr_boxes(small)
         if len(boxes) >= 2:
             return [
                 (int(x1 * scale), int(y1 * scale),
@@ -85,11 +80,11 @@ def detect_qr_regions(rgb: np.ndarray) -> List[Tuple[int, int, int, int]]:
                  min(int(y2 * scale + 1), gray.shape[0]))
                 for (x1, y1, x2, y2) in boxes
             ]
-    return _detect_gray(gray, cv2)
+    return locate_qr_boxes(gray)
 
 
-# only downscale genuinely large frames (phone photos): detectMulti needs
-# ~2 px per module
+# only downscale genuinely large frames (phone photos): finder detection
+# needs ~2 px per module
 _DETECT_MAX_DIM = 800
 
 
@@ -104,39 +99,12 @@ def _detector(cv2):
     return det
 
 
-def _detect_gray(gray, cv2) -> List[Tuple[int, int, int, int]]:
-    boxes = []
-    detector = _detector(cv2)
-    try:
-        ok, points = detector.detectMulti(gray)
-    except cv2.error:
-        ok, points = False, None
-    if not ok or points is None:
-        try:
-            ok1, pts1 = detector.detect(gray)
-            points = pts1[None] if ok1 and pts1 is not None else None
-        except cv2.error:
-            points = None
-    if points is None:
-        return boxes
-    for quad in points:
-        q = np.asarray(quad).reshape(-1, 2)
-        x1, y1 = q.min(axis=0)
-        x2, y2 = q.max(axis=0)
-        if x2 > x1 and y2 > y1:
-            boxes.append((int(x1), int(y1), int(x2), int(y2)))
-    return boxes
-
-
 def enhance_qr_region(rgb_crop: np.ndarray, upscale: int = 3) -> np.ndarray:
     """Contrast-equalize and upsample a QR crop (app_camera.py:351-365
-    behavior). Needs OpenCV."""
-    import cv2
-
-    gray = cv2.cvtColor(rgb_crop, cv2.COLOR_RGB2GRAY)
-    gray = cv2.equalizeHist(gray)
-    gray = cv2.resize(gray, None, fx=upscale, fy=upscale, interpolation=cv2.INTER_CUBIC)
-    return cv2.cvtColor(gray, cv2.COLOR_GRAY2RGB)
+    behavior): OpenCV's gray, ``equalizeHist``, ``upscale``× INTER_CUBIC
+    and gray → RGB, in numpy."""
+    gray = equalize_hist_u8(rgb_to_gray(rgb_crop))
+    return gray_to_rgb(resize_cubic_u8(gray, fx=upscale, fy=upscale))
 
 
 def opencv_decode(rgb: np.ndarray) -> List[str]:
@@ -203,8 +171,10 @@ class QrPipeline:
             if out:
                 break  # first backend that reads anything wins
         if not out and self._skipped_decoder:
-            skip_without_cv2("opencv_decode", "the opencv_decode backend on a "
-                             "candidate the native decoder did not read")
+            count_pass("opencv_decode_skipped")
+            warnings.warn("OpenCV is not importable: skipped the opencv_decode backend "
+                          "on a candidate the native decoder did not read", UserWarning,
+                          stacklevel=3)
         return out
 
     def scan(self, image) -> List[str]:
@@ -215,7 +185,6 @@ class QrPipeline:
         so the early stop skips their work too.
         """
         rgb = np.asarray(image.convert("RGB") if hasattr(image, "convert") else image)
-        use_cv2 = cv2_available()
 
         def candidates():
             # 0.75× INTER_AREA gray first: the native finder scan is
@@ -223,19 +192,18 @@ class QrPipeline:
             if max(rgb.shape[:2]) >= 420:
                 count_pass("gray_0.75")
                 yield resize_area_u8(rgb_to_gray(rgb), fx=0.75, fy=0.75)
+            # then detected-region crops (a full-res crop decodes in a few
+            # ms where the full frame may not), the misses kept for the
+            # enhanced retries
+            count_pass("regions")
             misses = []
-            if use_cv2:
-                count_pass("regions")
-                for (x1, y1, x2, y2) in detect_qr_regions(rgb):
-                    crop = rgb[y1:y2, x1:x2]
-                    n_before = len(found)
-                    count_pass("region_crop")
-                    yield crop
-                    if len(found) == n_before:
-                        misses.append(crop)
-            else:
-                skip_without_cv2("regions", "the QR region pass "
-                                 "(cv2.QRCodeDetector) and its enhanced retries")
+            for (x1, y1, x2, y2) in detect_qr_regions(rgb):
+                crop = rgb[y1:y2, x1:x2]
+                n_before = len(found)
+                count_pass("region_crop")
+                yield crop
+                if len(found) == n_before:
+                    misses.append(crop)
             count_pass("full_frame")
             yield rgb
             for crop in misses:
