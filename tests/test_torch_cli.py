@@ -4,7 +4,7 @@
 What is held: each subcommand's parser equals JAX's argument for argument,
 defaults included, but for the stated differences (``--device`` on
 ``train`` and ``train-ocr``; ``train-ocr`` reads a pool of pre-rendered lines,
-``--pool`` and ``--out``, with ``--batch-size``; no ``app`` yet); ``train``
+``--pool`` and ``--out``, with ``--batch-size``); ``train``
 hands ``fit`` the same ``Config`` and the same dataset as JAX's CLI does;
 ``train-ocr`` refuses a run inside the 100-step warmup with JAX's error, and
 trains for 101 steps on the CPU and writes weights that load.
@@ -56,8 +56,9 @@ def _subcommands(parser):
 def test_parsers_equal_jax(monkeypatch):
     want = _subcommands(_jax_parser(monkeypatch))
     got = _subcommands(tcli.build_parser())
-    assert set(want) - set(got) == {"app"} and set(got) <= set(want)  # app: the UI slice
+    assert set(got) == set(want)
     assert got["build-dataset"] == want["build-dataset"]
+    assert got["app"] == want["app"]
     device = (("--device",), None, None, False, None, None)  # None: the card
     assert got["train"] == dict(want["train"], device=device)
     assert got["train-ocr"] == {

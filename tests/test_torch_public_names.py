@@ -15,7 +15,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # JAX package (relative to twinvoice_tpu) → the port's (relative to
-# twinvoice_tpu_torch); None: no counterpart yet, with the reason
+# twinvoice_tpu_torch): every one has its counterpart
 PACKAGES = {
     "": "",
     "core": "core",
@@ -33,8 +33,8 @@ PACKAGES = {
     "qr": "qr",
     "train": "train",
     "utils": "utils",
-    "app": None,    # host-side UI (pandas, plotly, Streamlit): ROADMAP.md queue 1, item 6
-    "store": None,  # persistence: ROADMAP.md queue 1, item 6
+    "app": "app",
+    "store": "store",
 }
 
 # (JAX package, name) → why the port's counterpart does not export it
@@ -42,9 +42,6 @@ NOT_PORTED = {
     ("eval", "make_base_cases"): "host-side renderer (Pillow, TrueType); its "
                                  "cases reach the port through save_cases",
     ("eval", "perturb_cases"): "host-side perturbation (OpenCV, JPEG)",
-    ("ocr", "enhance_for_ocr"): "OpenCV enhancement for the network engine, "
-                                "ROADMAP.md queue 1, item 6",
-    ("ocr", "grayscale_for_ocr"): "as enhance_for_ocr, ROADMAP.md queue 1, item 6",
     ("ocr.fonts", "draw_text"): "host-side Pillow drawing of the stroke font",
     ("ocr.fonts", "render_char"): "host-side Pillow drawing of the stroke font",
     ("ocr.fonts", "render_text"): "host-side Pillow drawing of the stroke font",
@@ -78,8 +75,7 @@ def exported(package: str, rel: str):
     return {n for n in names if not n.startswith("__") or n == "__version__"}
 
 
-@pytest.mark.parametrize("jax_rel,port_rel",
-                         [(j, p) for j, p in PACKAGES.items() if p is not None])
+@pytest.mark.parametrize("jax_rel,port_rel", sorted(PACKAGES.items()))
 def test_port_exports_the_jax_names(jax_rel, port_rel):
     want = exported("twinvoice_tpu", jax_rel)
     got = exported("twinvoice_tpu_torch", port_rel)

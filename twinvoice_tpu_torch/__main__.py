@@ -4,6 +4,7 @@
     python -m twinvoice_tpu_torch train [--epochs N --batch-size B ... --device D]
     python -m twinvoice_tpu_torch train-ocr --pool LINES.npz --out W.npz
         [--steps N --batch-size B --device D]
+    python -m twinvoice_tpu_torch app
 
 ``build-dataset`` and ``train`` take the JAX CLI's arguments and defaults;
 ``train`` runs ``train.trainer.fit``. ``train-ocr`` trains the recognizer
@@ -11,8 +12,9 @@
 an npz (``read_line_npz``'s keys), where the JAX CLI renders its own: the
 port has no renderer. As JAX's, it refuses a run of at most 100 steps (the
 learning rate's warmup). ``--device`` picks the device of ``train`` and
-``train-ocr``; the default is the card. The JAX CLI's ``app`` (the
-Streamlit UI) has no counterpart yet.
+``train-ocr``; the default is the card. ``app`` launches the Streamlit UI
+(``app/main.py``) through ``python -m streamlit run``, as the JAX CLI's
+does.
 """
 
 from __future__ import annotations
@@ -63,6 +65,16 @@ def _cmd_train_ocr(args):
                          device=args.device)
 
 
+def _cmd_app(_args):
+    import subprocess
+
+    subprocess.run(
+        [sys.executable, "-m", "streamlit", "run",
+         __file__.replace("__main__.py", "app/main.py")],
+        check=True,
+    )
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="twinvoice_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -94,6 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--batch-size", type=int, default=64)
     o.add_argument("--device", default=None, help="torch device (default: the card)")
     o.set_defaults(fn=_cmd_train_ocr)
+
+    a = sub.add_parser("app", help="launch the Streamlit UI")
+    a.set_defaults(fn=_cmd_app)
     return p
 
 

@@ -19,9 +19,13 @@ Pages are uint8 RGB ndarrays (H, W, 3); a PIL image is converted to one on
 entry. One code path runs on the CPU and on the card. The JAX extractor
 reads each step through a different gray, and so does this one: the
 segmenter and the QR scan through OpenCV's luma (``ops.host_image``), the
-native decoder through its own float luma, and the OCR engines through
-Pillow's ``convert("L")`` (:func:`~twinvoice_tpu_torch.ops.host_image.pil_luma`),
-because the JAX extractor hands them PIL crops and pages.
+native decoder through its own float luma. The JAX extractor hands the OCR
+engines PIL crops, and each engine makes its own gray of one (Pillow's
+``convert("L")`` in the recognizer, OpenCV's luma of ``convert("RGB")`` in
+the network engines); this one hands them each crop as
+:class:`~twinvoice_tpu_torch.ops.host_image.PilPixels`, which converts as
+the PIL crop does, so every engine reads the bytes its JAX counterpart
+reads. The full-page fallback reads the page's Pillow luma.
 
 Results are memoized by image content hash on the extractor instance.
 """
@@ -39,7 +43,7 @@ from twinvoice_tpu_torch import FIELDS
 from twinvoice_tpu_torch.config import FusionConfig
 from twinvoice_tpu_torch.fusion.amount import extract_amount
 from twinvoice_tpu_torch.fusion.items import adjust_items_to_total
-from twinvoice_tpu_torch.ops.host_image import pil_luma
+from twinvoice_tpu_torch.ops.host_image import PilPixels, pil_luma
 from twinvoice_tpu_torch.qr.detect import detect_qr_regions
 from twinvoice_tpu_torch.qr.parse import parse_header_qr, parse_items_qr
 from twinvoice_tpu_torch.utils.errors import FailureLog
@@ -140,12 +144,12 @@ def auto_rotate_by_qr(page: np.ndarray, qr_regions_fn=None) -> np.ndarray:
     return page
 
 
-def _ocr_gray(crop):
-    """An RGB crop → its Pillow luma (what the JAX engines read of a PIL
-    crop); a gray crop or None passes through."""
+def _engine_crop(crop):
+    """An RGB crop → :class:`PilPixels` of it (what the JAX extractor hands
+    its engines: the PIL crop); a gray crop or None passes through."""
     if crop is None or crop.ndim == 2:
         return crop
-    return pil_luma(crop)
+    return PilPixels(crop)
 
 
 class InvoiceExtractor:
@@ -211,10 +215,10 @@ class InvoiceExtractor:
         # -- OCR engines over the 3 field crops ----------------------------
         # readings[field] = [engine0_text, engine1_text, ...] in priority order
         readings: Dict[str, List[str]] = {f: [] for f in FIELDS}
+        field_crops = [_engine_crop(crops.get(f)) for f in FIELDS]
+        modes = [_FIELD_MODES[f] for f in FIELDS]
         with trace_span("fusion.ocr"):
             for engine in self.engines:
-                field_crops = [_ocr_gray(crops.get(f)) for f in FIELDS]
-                modes = [_FIELD_MODES[f] for f in FIELDS]
                 if hasattr(engine, "read_batch"):
                     # one device call for all three field crops
                     results = log.guarded(
@@ -385,7 +389,7 @@ class InvoiceExtractor:
         # 3. OCR: one read_batch per engine over every (invoice, field) crop
         n_fields = len(FIELDS)
         flat_crops = [
-            _ocr_gray(crops.get(f)) for crops in all_crops for f in FIELDS
+            _engine_crop(crops.get(f)) for crops in all_crops for f in FIELDS
         ]
         modes = [_FIELD_MODES[f] for _ in all_crops for f in FIELDS]
         per_engine_texts = []

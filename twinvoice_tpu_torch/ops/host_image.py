@@ -372,6 +372,31 @@ def pil_luma(rgb: np.ndarray) -> np.ndarray:
     return ((y + 0x8000) >> 16).astype(np.uint8)
 
 
+class PilPixels:
+    """The pixels of an RGB PIL image, standing where the JAX package hands
+    an engine a PIL crop: ``convert("L")`` is Pillow's luma
+    (:func:`pil_luma`, computed once), ``convert("RGB")`` and
+    ``np.asarray`` are the pixels. So an engine reads the same bytes of it
+    that its JAX counterpart reads of the PIL crop, whichever gray it
+    makes."""
+
+    def __init__(self, rgb: np.ndarray):
+        self._rgb = rgb
+        self._luma = None
+
+    def convert(self, mode: str) -> np.ndarray:
+        if mode == "RGB":
+            return self._rgb
+        if mode == "L":
+            if self._luma is None:
+                self._luma = pil_luma(self._rgb)
+            return self._luma
+        raise ValueError(f"PilPixels converts to 'RGB' or 'L', not {mode!r}")
+
+    def __array__(self, dtype=None, copy=None):
+        return self._rgb if dtype is None else self._rgb.astype(dtype)
+
+
 # Pillow's resample.c: 8-bit coefficients in 22-bit fixed point
 _PIL_PRECISION_BITS = 32 - 8 - 2
 
@@ -559,3 +584,145 @@ def _background_stats(bg: np.ndarray):
         return [-1, np.iinfo(np.int32).max, 0, 0, 0]
     return [xs.min(), ys.min(), xs.max() - xs.min() + 1,
             ys.max() - ys.min() + 1, ys.size]
+
+
+def _reflect101_index(p: np.ndarray, n: int) -> np.ndarray:
+    """OpenCV's ``borderInterpolate(p, n, BORDER_REFLECT_101)`` of each index
+    ``p`` (reflected as often as it takes; any index maps to 0 when ``n`` is
+    1)."""
+    p = np.asarray(p, np.int64)
+    if n == 1:
+        return np.zeros_like(p)
+    period = 2 * (n - 1)
+    p = np.mod(p, period)
+    return np.where(p < n, p, period - p)
+
+
+def _pad_reflect101(img: np.ndarray, top: int, bottom: int, left: int,
+                    right: int) -> np.ndarray:
+    """``cv2.copyMakeBorder(img, top, bottom, left, right,
+    cv2.BORDER_REFLECT_101)`` of a 2-D array."""
+    h, w = img.shape
+    rows = _reflect101_index(np.arange(-top, h + bottom), h)
+    cols = _reflect101_index(np.arange(-left, w + right), w)
+    return img[rows][:, cols]
+
+
+def filter2d_3x3_u8(gray: np.ndarray, kernel) -> np.ndarray:
+    """uint8 (H, W) → ``cv2.filter2D(gray, -1, kernel)`` for a 3×3 kernel of
+    whole numbers (such as the sharpen kernel ``[[-1,-1,-1],[-1,9,-1],
+    [-1,-1,-1]]``): the correlation at the kernel's centre over
+    ``BORDER_REFLECT_101`` edges, saturated to uint8. OpenCV sums in float32;
+    with whole-number taps and uint8 pixels every partial sum is an exact
+    integer, so the integer sum here is its result."""
+    _require_pixels(gray, "filter2d_3x3_u8")
+    k = np.asarray(kernel, np.float64)
+    if k.shape != (3, 3) or not np.array_equal(k, np.round(k)):
+        raise ValueError(f"a 3×3 kernel of whole numbers, got {k.tolist()}")
+    k = k.astype(np.int64)
+    h, w = gray.shape
+    p = _pad_reflect101(gray.astype(np.int64), 1, 1, 1, 1)
+    acc = np.zeros((h, w), np.int64)
+    for dy in range(3):
+        for dx in range(3):
+            if k[dy, dx]:
+                acc += k[dy, dx] * p[dy:dy + h, dx:dx + w]
+    return np.clip(acc, 0, 255).astype(np.uint8)
+
+
+def clahe_u8(gray: np.ndarray, clip_limit: float = 40.0, tiles=(8, 8)) -> np.ndarray:
+    """uint8 (H, W) → ``cv2.createCLAHE(clipLimit=clip_limit,
+    tileGridSize=tiles).apply(gray)``, OpenCV's own code:
+
+    - a size that the tile grid (``tiles`` = (across, down)) does not divide
+      is padded on the right and bottom by ``BORDER_REFLECT_101``, each axis
+      by ``tiles − size % tiles`` (a whole tile on an axis that divides, when
+      the other does not); the histograms are the padded image's tiles;
+    - each tile's histogram is clipped at ``max(int(clip·area/256), 1)``, the
+      excess spread evenly over the 256 bins and its remainder one a bin
+      from bin 0 in steps of ``max(256 // remainder, 1)``;
+    - its LUT is ``saturate_cast<uchar>(cumsum · float32(255/area))``;
+    - each pixel blends the LUTs of the four nearest tile centres
+      bilinearly in float32, in OpenCV's order of operations, and is rounded
+      half to even.
+    """
+    _require_pixels(gray, "clahe_u8")
+    tx, ty = int(tiles[0]), int(tiles[1])
+    h, w = gray.shape
+    src = gray
+    if w % tx or h % ty:
+        src = _pad_reflect101(gray, 0, ty - h % ty, 0, tx - w % tx)
+    tw, th = src.shape[1] // tx, src.shape[0] // ty
+    area = tw * th
+    clip = max(int(clip_limit * area / 256), 1) if clip_limit > 0 else 0
+    # (ty, tx, 256) histograms of the tiles
+    tile_ids = (np.arange(src.shape[0])[:, None] // th) * tx + np.arange(src.shape[1])[None] // tw
+    hist = np.bincount((tile_ids.astype(np.int64) * 256 + src).ravel(),
+                       minlength=tx * ty * 256).reshape(tx * ty, 256)
+    if clip:
+        clipped = np.maximum(hist - clip, 0).sum(axis=1)
+        hist = np.minimum(hist, clip) + (clipped // 256)[:, None]
+        residual = clipped % 256
+        for t in np.nonzero(residual)[0]:
+            r = int(residual[t])
+            step = max(256 // r, 1)
+            hist[t, np.arange(0, 256, step)[:r]] += 1
+    scale = np.float32(255.0) / np.float32(area)
+    lut = np.clip(np.rint(np.cumsum(hist, axis=1).astype(np.float32) * scale), 0, 255)
+    lut = lut.astype(np.uint8).reshape(ty, tx, 256).astype(np.float32)
+
+    def _axis(n, tile, count):
+        f = np.arange(n, dtype=np.float32) * (np.float32(1.0) / np.float32(tile)) \
+            - np.float32(0.5)
+        i1 = np.floor(f).astype(np.int64)
+        a = (f - i1.astype(np.float32)).astype(np.float32)
+        return (np.maximum(i1, 0), np.minimum(i1 + 1, count - 1), a,
+                (np.float32(1.0) - a).astype(np.float32))
+
+    x1, x2, xa, xa1 = _axis(w, tw, tx)
+    y1, y2, ya, ya1 = _axis(h, th, ty)
+    v = gray.astype(np.int64)
+    r1, r2 = y1[:, None], y2[:, None]
+    l11, l12 = lut[r1, x1[None], v], lut[r1, x2[None], v]
+    l21, l22 = lut[r2, x1[None], v], lut[r2, x2[None], v]
+    top = l11 * xa1[None] + l12 * xa[None]
+    bottom = l21 * xa1[None] + l22 * xa[None]
+    res = top * ya1[:, None] + bottom * ya[:, None]
+    return np.clip(np.rint(res), 0, 255).astype(np.uint8)
+
+
+# cv2.COLOR_RGB2YCrCb / COLOR_YCrCb2RGB on uint8: 14-bit fixed point
+_YUV_SHIFT = 14
+_Y_R, _Y_G, _Y_B, _CR, _CB = 4899, 9617, 1868, 11682, 9241
+_CR2R, _CR2G, _CB2G, _CB2B = 22987, -11698, -5636, 29049
+
+
+def _descale(x, n=_YUV_SHIFT):
+    return (x + (1 << (n - 1))) >> n
+
+
+def rgb_to_ycrcb_u8(rgb: np.ndarray) -> np.ndarray:
+    """uint8 (H, W, 3) RGB → uint8 (H, W, 3) Y, Cr, Cb, as
+    ``cv2.cvtColor(rgb, cv2.COLOR_RGB2YCrCb)``: ``Y = (4899·R + 9617·G +
+    1868·B + 2¹³) >> 14``, ``Cr = ((R − Y)·11682 + 128·2¹⁴ + 2¹³) >> 14``,
+    ``Cb = ((B − Y)·9241 + 128·2¹⁴ + 2¹³) >> 14``, saturated."""
+    c = rgb.astype(np.int64)
+    r, g, b = c[..., 0], c[..., 1], c[..., 2]
+    y = _descale(r * _Y_R + g * _Y_G + b * _Y_B)
+    delta = 128 << _YUV_SHIFT
+    cr = _descale((r - y) * _CR + delta)
+    cb = _descale((b - y) * _CB + delta)
+    return np.clip(np.stack([y, cr, cb], axis=-1), 0, 255).astype(np.uint8)
+
+
+def ycrcb_to_rgb_u8(ycrcb: np.ndarray) -> np.ndarray:
+    """uint8 (H, W, 3) Y, Cr, Cb → uint8 (H, W, 3) RGB, as
+    ``cv2.cvtColor(ycrcb, cv2.COLOR_YCrCb2RGB)``: ``R = Y + ((Cr − 128)·22987
+    + 2¹³) >> 14``, ``G = Y + ((Cb − 128)·−5636 + (Cr − 128)·−11698 + 2¹³) >>
+    14``, ``B = Y + ((Cb − 128)·29049 + 2¹³) >> 14``, saturated."""
+    c = ycrcb.astype(np.int64)
+    y, cr, cb = c[..., 0], c[..., 1] - 128, c[..., 2] - 128
+    r = y + _descale(cr * _CR2R)
+    g = y + _descale(cb * _CB2G + cr * _CR2G)
+    b = y + _descale(cb * _CB2B)
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
