@@ -265,6 +265,20 @@ Phases, each printing one line with its wall time:
     fields equal to JAX's; the host ms of each ``extract`` and of the
     dashboard pass; (e) ``main(["app"])`` runs ``python -m streamlit run``
     on the port's ``app/main.py``
+29. the perturbation engine and augmented training on the card
+    (``data.augment`` on ``ops.host_warp``, ``host_filter``, ``host_draw``
+    and ``host_jpeg``; numpy on the host, no OpenCV): (a) the port's
+    ``eval.perturb_cases(..., seed=7)`` rebuilds the gauntlet fixture's
+    seven perturbed tiers from its two clean bases: masks byte for byte the
+    JAX package's, images within the tests' bound (at most 0.5% of the
+    bytes differ, by at most 16), each case's differing bytes, largest
+    |Δ| and host ms printed; (b) the four gauntlet routes of phase 26 on
+    the two clean bases and the port's seven cases, held to JAX's stored
+    per-case results as phase 26 holds them; (c) ``fit`` of the bundled
+    w64 (b4 512², phase 22's ``TrainConfig``, two epochs of one step) on
+    ``AugmentedDataset`` of the training fixture, every loss finite, its
+    last checkpoint served against the plain path; the host ms to augment
+    a b4 batch beside the epoch's seconds with and without augmentation
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -285,8 +299,9 @@ checkpoint. Phases 23-24 must leave every count as it was. In phase 26,
 each route of (b)-(c): K1 once a tier, and on the int8 route K4a and K6
 their ``xla`` counts too. Phase 27's ``extract`` calls are driven the same
 way (K1 once a page), and so is the serving of the CLI's checkpoint (K1
-once). So are phase 28's app ``extract`` calls (K1 once a page). The kernel
-rows' launches sum every such path.
+once). So are phase 28's app ``extract`` calls (K1 once a page), phase
+29's gauntlet routes (as phase 26's) and its serving of the augmented
+checkpoint (K1 once). The kernel rows' launches sum every such path.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
 only. Without a CUDA device, or if any phase fails, it exits non-zero and
@@ -5166,6 +5181,171 @@ def phase_app(card):
     return launches[k1.NAME]
 
 
+# -- phase 29: the perturbation engine and augmented training --------------------
+
+AUG_MAX_SHARE, AUG_MAX_DELTA = 0.005, 16  # tests/test_torch_augment.py's bound
+AUG_SEVERITY, AUG_P_CLEAN, AUG_SEED = 0.6, 0.3, 29  # scripts/train_synthetic_segmenter.py's
+GAUNTLET_PERTURB_SEED = 7  # scripts/make_torch_smoke_gauntlet.py's
+
+
+def perturb_tiers_check(fix):
+    """(a): the port's ``perturb_cases(..., seed=7)`` on the fixture's clean
+    bases, tier by tier, against the fixture's cases (the JAX package's).
+    Masks must be equal; images within ``AUG_MAX_SHARE``/``AUG_MAX_DELTA``.
+    → (the cases in the fixture's order, the clean ones its own; rows of
+    (tier, differing bytes, bytes, max |Δ|, host ms))."""
+    from twinvoice_tpu_torch.eval import perturb_cases
+
+    cases, tiers = fix["cases"], fix["tiers"]
+    bases = {t.partition("+")[2]: c for c, t in zip(cases, tiers)
+             if t.partition("+")[0] == "clean"}
+    out, rows, bad = [], [], []
+    for c, tier in zip(cases, tiers):
+        level, _, font = tier.partition("+")
+        if level == "clean":
+            out.append(c)
+            continue
+        t0 = time.perf_counter()
+        (got,) = perturb_cases([bases[font]], level, seed=GAUNTLET_PERTURB_SEED)
+        ms = (time.perf_counter() - t0) * 1e3
+        d = np.abs(got.image.astype(np.int16) - c.image.astype(np.int16))
+        n, delta = int((d > 0).sum()), int(d.max())
+        rows.append((tier, n, d.size, delta, ms))
+        if not np.array_equal(got.mask, c.mask):
+            bad.append(f"{tier}: mask differs from JAX's in {int((got.mask != c.mask).sum())} bytes")
+        if n > AUG_MAX_SHARE * d.size or delta > AUG_MAX_DELTA:
+            bad.append(f"{tier}: {n} image bytes differ (max |d| {delta}), above "
+                       f"{AUG_MAX_SHARE:.1%} or {AUG_MAX_DELTA}")
+        out.append(got)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out, rows
+
+
+def augment_batch_ms(pages, masks, reps=3):
+    """Host ms to draw one augmented b4 batch (``AugmentedDataset.batches``,
+    the training fixture at 512²), the median of ``reps`` fresh datasets."""
+    from twinvoice_tpu_torch.data.augment import AugmentedDataset
+
+    ms = []
+    for r in range(reps):
+        ds = AugmentedDataset(ArrayDataset(pages, masks), severity=AUG_SEVERITY,
+                              p_clean=AUG_P_CLEAN, seed=AUG_SEED + r)
+        t0 = time.perf_counter()
+        next(ds.batches(len(pages), rng=np.random.default_rng(r)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def augmented_fit(card):
+    """(c): ``fit`` of the bundled w64 on ``AugmentedDataset`` of the
+    training fixture and the same ``fit`` on the plain dataset, both from
+    the bundled weights; the augmented run's last checkpoint served against
+    the plain path. → K1's launches in the serving call."""
+    import tempfile
+
+    from twinvoice_tpu_torch.data.augment import AugmentedDataset
+
+    fix = train_fixture()
+    mcfg = VARIANTS["w64"][1]
+    bundled = load_npz(variant_path("w64"))
+    aug_ms = augment_batch_ms(fix["pages"], fix["masks"])
+    _build.build_dir().mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp, tf32_off():
+        start = os.path.join(tmp, "start")
+        tcfg = TrainConfig(epochs=2, checkpoint_dir=os.path.join(tmp, "ckpt"),
+                           visualize_dir=os.path.join(tmp, "vis"))
+        params, state = _copy_to(bundled[0], "cpu"), _copy_to(bundled[1], "cpu")
+        ckpt.save(start, TrainState(params, state, make_optimizer(params, tcfg)))
+        del params, state
+        runs = {}
+        # the plain run first, so that the cuDNN warm-up lands on it
+        for name, ds in (("plain", ArrayDataset(fix["pages"], fix["masks"])),
+                         ("augmented", AugmentedDataset(
+                             ArrayDataset(fix["pages"], fix["masks"]), severity=AUG_SEVERITY,
+                             p_clean=AUG_P_CLEAN, seed=AUG_SEED))):
+            cfg = Config(model=mcfg, train=replace(
+                tcfg, checkpoint_dir=os.path.join(tmp, name), visualize=False))
+            _, history = fit(ds, cfg, resume_dir=start,
+                             log=lambda m: print("   ", m, flush=True))
+            runs[name] = history
+        losses = [r["loss"] for r in runs["augmented"]]
+        if [r["epoch"] for r in runs["augmented"]] != [1, 2] or not np.isfinite(losses).all():
+            raise AssertionError(f"augmented fit: epochs {[r['epoch'] for r in runs['augmented']]}, "
+                                 f"losses {losses}")
+        sec = {k: [r["sec"] for r in v] for k, v in runs.items()}
+        # one step an epoch: the prefetch thread starts with the epoch, so the
+        # epoch's only batch waits for its augmentation
+        exposed_ms = 1e3 * (np.median(sec["augmented"]) - np.median(sec["plain"]))
+        print(f"  (c) fit w64 fp32 from the bundled weights on AugmentedDataset(severity "
+              f"{AUG_SEVERITY}, p_clean {AUG_P_CLEAN}) of the 4 training pages, b4 512^2, 2 "
+              f"epochs of 1 step: losses {np.round(losses, 6).tolist()} (plain dataset "
+              f"{np.round([r['loss'] for r in runs['plain']], 6).tolist()}); augmenting a b4 "
+              f"batch {aug_ms:.1f} ms on the host (median of 3); epoch seconds augmented "
+              f"{np.round(sec['augmented'], 3).tolist()}, plain "
+              f"{np.round(sec['plain'], 3).tolist()}: {exposed_ms:.0f} ms an epoch not "
+              f"hidden by the prefetch thread "
+              f"(one step an epoch leaves it nothing to overlap) [{card}]", flush=True)
+        params, state = _copy_to(bundled[0], "cpu"), _copy_to(bundled[1], "cpu")
+        latest = ckpt.restore(os.path.join(tmp, "augmented", "latest"),
+                              TrainState(params, state, make_optimizer(params, tcfg)))
+        if latest.epoch != 2:
+            raise AssertionError(f"the augmented checkpoint is at epoch {latest.epoch}")
+        npz = os.path.join(tmp, "augmented.npz")
+        ckpt.save_params_npz(npz, latest.params, latest.bn_state)
+        del latest
+        params, state = ckpt.load_params_npz(npz)
+    seg = Segmenter(params, state, mcfg, InferConfig(img_size=512), dtype=torch.bfloat16)
+    _, boxes, launches = served_vs_plain(seg, params, state, mcfg, fix["pages"],
+                                         label="the augmented w64")
+    if launches.get(k1.NAME, 0) != 1 or tuple(boxes.shape) != (4, 3, 4):
+        raise AssertionError(f"serving the augmented w64 launched {launches}")
+    return launches
+
+
+def phase_augment(card):
+    """Phase 29: the perturbation engine and augmented training on the card.
+    → the launches of every kernel in the phase."""
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    fix = gauntlet_fixture()
+    cases, rows = perturb_tiers_check(fix)
+    for tier, n, size, delta, ms in rows:
+        print(f"    {tier}: {n} of {size} image bytes differ from JAX's ({n / size:.4%}), "
+              f"max |d| {delta}; mask equal; {ms:.1f} ms on the host", flush=True)
+    from numpy._core._multiarray_umath import __cpu_features__ as cpu
+
+    simd = [f for f in ("AVX2", "FMA3", "AVX512F", "AVX512_SKX") if cpu.get(f)]
+    print(f"  (a) perturb_cases(seed={GAUNTLET_PERTURB_SEED}) rebuilt the {len(rows)} perturbed "
+          f"tiers: masks byte-equal, images within {AUG_MAX_SHARE:.1%} / {AUG_MAX_DELTA} "
+          f"(numpy {np.__version__}, the host's SIMD {simd}) [{card}]", flush=True)
+    port = dict(fix, cases=cases)
+    n_tiers = len(dict.fromkeys(fix["tiers"]))
+    table = []
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for route in GAUNTLET_ROUTES:
+            seg = gauntlet_segmenter(route, fix)
+            got, n = counted(route, GAUNTLET_KERNELS[route], n_tiers,
+                             lambda: gauntlet_run(seg, port))
+            add(n)
+            d_iou, px, eq, total = gauntlet_compare(route, port, got)
+            print(f"  (b) {route} on the port's cases: ok flags equal to JAX's on "
+                  f"{len(cases)} cases, boxes within one grid cell ({eq}/{total} fields "
+                  f"exactly equal), max |ΔIoU| {d_iou:.3g} (tolerance "
+                  f"{GAUNTLET_IOU_TOL[route]}), mask pixels differing {px} of "
+                  f"{got['mask'].size}; launches {n}", flush=True)
+            table += [(f"{route} port cases", got["summary"]),
+                      (f"{route} JAX", fix[f"{route}_summary"])]
+            del seg
+    gauntlet_table(table)
+    add(augmented_fit(card))
+    return launches
+
+
 def main():
     ph = Phases()
     name, card = ph.run(1, "device", phase_device)
@@ -5283,6 +5463,16 @@ def main():
     launches[k1.NAME] += app_launches
     print(f"  launches of K1 in phase 28: {app_launches}; on the main path and phases 19-20, "
           f"22, 25-28: {launches[k1.NAME]}", flush=True)
+    aug_launches = ph.run(29, "perturbation engine and augmented training on the card",
+                          phase_augment, card)
+    for k, v in aug_launches.items():
+        if k == k1.NAME:
+            launches[k] += v
+        else:
+            int8_launches[k] = int8_launches.get(k, 0) + v
+    print(f"  launches in phase 29: {aug_launches}; of K1 on the main path and phases 19-20, "
+          f"22, 25-29: {launches[k1.NAME]}; on the int8 routes (phases 9-10, 13-14, 19, 26, "
+          f"29): {int8_launches}", flush=True)
 
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
              launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]

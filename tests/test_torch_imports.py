@@ -54,6 +54,15 @@ from twinvoice_tpu_torch.train.trainer import gather_train_state, shard_train_st
 from twinvoice_tpu_torch.infer import Segmenter, masks_and_boxes
 from twinvoice_tpu_torch.port import load_pth, port_state_dict, export_state_dict
 from twinvoice_tpu_torch.eval import run_segmenter_gauntlet, run_e2e_gauntlet
+from twinvoice_tpu_torch.eval import perturb_cases
+from twinvoice_tpu_torch.data.augment import (AugmentedDataset, PerturbSpec, apply_spec,
+    boxes_from_mask, perturb, sample_spec)
+from twinvoice_tpu_torch.ops.host_warp import (get_perspective_transform, invert_3x3,
+    rotation_matrix_2d, warp_affine_f32, warp_perspective_u8)
+from twinvoice_tpu_torch.ops.host_filter import (filter2d_f32, gaussian_blur_f32,
+    gaussian_blur_u8, resize_cubic_f32)
+from twinvoice_tpu_torch.ops.host_draw import fill_rect_u8, line_u8
+from twinvoice_tpu_torch.ops.host_jpeg import jpeg_roundtrip_u8
 from twinvoice_tpu_torch.ocr import OcrEngine, FakeOcrEngine
 from twinvoice_tpu_torch.compat import load_model, preprocess, run_unet
 from twinvoice_tpu_torch.ops import resize_nearest, conv3x3

@@ -41,7 +41,6 @@ PACKAGES = {
 NOT_PORTED = {
     ("eval", "make_base_cases"): "host-side renderer (Pillow, TrueType); its "
                                  "cases reach the port through save_cases",
-    ("eval", "perturb_cases"): "host-side perturbation (OpenCV, JPEG)",
     ("ocr.fonts", "draw_text"): "host-side Pillow drawing of the stroke font",
     ("ocr.fonts", "render_char"): "host-side Pillow drawing of the stroke font",
     ("ocr.fonts", "render_text"): "host-side Pillow drawing of the stroke font",

@@ -9,10 +9,11 @@ Two measurements, the JAX package's formulas:
   ``segment_batch`` call of the cases resized to the grid;
 - end to end: the extractor's field exactness on the perturbed photos.
 
-The cases are made by the JAX package's ``make_base_cases`` and
-``perturb_cases``, which render with Pillow and TrueType fonts and perturb
-with OpenCV and JPEG; those renderers stay there. Their cases reach the port
-through :func:`save_cases`/:func:`load_cases` (an npz of uint8 arrays).
+The base cases are rendered by the JAX package's ``make_base_cases`` (Pillow
+and TrueType fonts, which stay there) and reach the port through
+:func:`save_cases`/:func:`load_cases` (an npz of uint8 arrays). The
+perturbed tiers are made here: :func:`perturb_cases` runs the port's
+perturbation engine (``data.augment``, numpy, no OpenCV) on those bases.
 The resizes are numpy, bit-equal to OpenCV's (``ops.host_image``), and the
 extractor takes the uint8 page arrays, so the card's machine needs neither
 library.
@@ -21,11 +22,13 @@ library.
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from twinvoice_tpu_torch.data import augment
+from twinvoice_tpu_torch.data.augment import boxes_from_mask
 from twinvoice_tpu_torch.ops.host_image import resize_linear_u8, resize_nearest_u8
 
 # severity per named level; None = untouched
@@ -34,6 +37,23 @@ LEVELS: Dict[str, Optional[float]] = {"clean": None, "mild": 0.35, "hard": 1.0}
 # real-photo scenario tiers: each applies one degradation family at
 # representative strength over a light photographic base
 SCENARIOS = ("printscan", "screenshot", "crumple", "thermal")
+
+
+def _scenario_spec(name: str, rng):
+    spec = augment.sample_spec(rng, 0.2)  # light base photography
+    spec.background = False               # isolate the scenario effect
+    if name == "printscan":
+        spec.halftone = float(rng.uniform(0.5, 0.8))
+        spec.halftone_cell = float(rng.uniform(2.4, 4.0))
+    elif name == "screenshot":
+        spec.screen_moire = float(rng.uniform(0.35, 0.6))
+    elif name == "crumple":
+        spec.crumple = float(rng.uniform(0.55, 0.95))
+    elif name == "thermal":
+        spec.thermal_fade = float(rng.uniform(0.5, 0.85))
+    else:
+        raise KeyError(name)
+    return spec
 
 # content seeds are offset far away from the training generator's seed space
 HELDOUT_SEED_BASE = 777_000
@@ -50,16 +70,31 @@ class GauntletCase:
     font: str = ""
 
 
-def boxes_from_mask(mask: np.ndarray) -> dict:
-    """Per-channel tight bbox of a (H,W,C) 0/255 mask → {ch: (x1,y1,x2,y2)}
-    (``twinvoice_tpu.data.augment.boxes_from_mask``). Channels with no
-    positive pixels are omitted (the field left the frame)."""
-    out = {}
-    for c in range(mask.shape[-1]):
-        ys, xs = np.nonzero(mask[..., c])
-        if len(ys) == 0:
-            continue
-        out[c] = (int(xs.min()), int(ys.min()), int(xs.max()), int(ys.max()))
+def perturb_cases(
+    cases: Sequence[GauntletCase], level: str, seed: int = 0
+) -> List[GauntletCase]:
+    """Apply one named perturbation level or scenario to every case (native
+    resolution). Levels are severity presets; scenarios (:data:`SCENARIOS`)
+    apply one real-photo degradation family at representative strength.
+    One seed gives the JAX package's cases: its masks byte for byte, its
+    images but where a float32 stage rounds otherwise."""
+    if level in SCENARIOS:
+        rng = np.random.default_rng(seed + sum(map(ord, level)))
+        out = []
+        for c in cases:
+            img, mask = augment.apply_spec(
+                c.image, c.mask, _scenario_spec(level, rng), rng
+            )
+            out.append(replace(c, image=img, mask=mask, level=level))
+        return out
+    sev = LEVELS[level]
+    if sev is None:
+        return [replace(c, level="clean") for c in cases]
+    rng = np.random.default_rng(seed + int(sev * 1000))
+    out = []
+    for c in cases:
+        img, mask = augment.perturb(c.image, c.mask, rng, sev)
+        out.append(replace(c, image=img, mask=mask, level=level))
     return out
 
 

@@ -508,31 +508,13 @@ def erode2x2(img: np.ndarray) -> np.ndarray:
     return out
 
 
-# cv2.GaussianBlur's bit-exact 8-bit kernel for ksize 3, sigma 0.8: Q8
-# fixed-point taps summing to 256
-_GAUSS3_08 = (61, 134, 61)
-
-
 def gaussian_blur3(img: np.ndarray) -> np.ndarray:
     """uint8 (H, W) → ``cv2.GaussianBlur(img, (3, 3), 0.8)``: OpenCV's
-    separable fixed-point filter (Q8 taps, the horizontal sums kept in 16
-    bits, the 2-D sum rounded half up from 16 fractional bits) with
-    ``BORDER_REFLECT_101`` edges."""
-    _require_pixels(img, "gaussian_blur3")
-    k0, k1, k2 = _GAUSS3_08
-    x = img.astype(np.int64)
-    h, w = x.shape
-    if w > 1:
-        p = np.pad(x, ((0, 0), (1, 1)), mode="reflect")
-    else:
-        p = np.pad(x, ((0, 0), (1, 1)), mode="edge")
-    hs = p[:, :-2] * k0 + p[:, 1:-1] * k1 + p[:, 2:] * k2
-    if h > 1:
-        q = np.pad(hs, ((1, 1), (0, 0)), mode="reflect")
-    else:
-        q = np.pad(hs, ((1, 1), (0, 0)), mode="edge")
-    vs = q[:-2] * k0 + q[1:-1] * k1 + q[2:] * k2
-    return np.clip((vs + (1 << 15)) >> 16, 0, 255).astype(np.uint8)
+    separable fixed-point filter (Q8 taps 61, 134, 61;
+    ``host_filter.gaussian_blur_u8``)."""
+    from twinvoice_tpu_torch.ops.host_filter import gaussian_blur_u8
+
+    return gaussian_blur_u8(img, 0.8, ksize=3)
 
 
 def connected_components_stats(binary: np.ndarray):
