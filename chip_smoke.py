@@ -7,7 +7,8 @@ Phases, each printing one line with its wall time:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit
 2. build every CUDA kernel of the port from ``twinvoice_tpu_torch/csrc``, and
-   the QR decoder from ``native/qrdecode.cpp`` beside them
+   the two host C++ libraries beside them: the QR decoder from
+   ``native/qrdecode.cpp`` and the image codec from ``csrc/host_codec.cpp``
 3. K1 (``ops.bbox_postprocess``) against its plain PyTorch version on the
    card: exact equality of boxes and valid flags on planted rectangles
    (float32 and bfloat16), all-below and all-above logits, H≠W, odd widths,
@@ -236,14 +237,16 @@ Phases, each printing one line with its wall time:
     turn equal to JAX's on the four landscape pages; (f) ``extract`` with
     the bundled w16 at fp32 (TF32 off) and ``TorchOcrEngine()`` on the
     landscape and 0.45× pages, fields equal to JAX's wherever the port's
-    boxes are JAX's; (g) ``__main__.main(["train", "--epochs", "1",
-    "--resume", ...])`` from the bundled w64 with
-    ``data.dataset.load_invoice_dataset`` replaced by the training
-    fixture's ``ArrayDataset`` (no JPEG decoder on the card's machine), its
-    checkpoint served by ``Segmenter.from_checkpoint`` against the plain
-    path, fields found; (h) ``main(["train-ocr", ...])`` for 101 steps (the
-    fewest the trainer takes) on the OCR training fixture's pool; (i) ``rasterize_labelme`` and ``build_one``'s resizes
-    equal to JAX's
+    boxes are JAX's; (g) the training fixture's pages written by
+    ``ops.host_imageio.imwrite_jpeg`` into ``fixed_images/`` and their masks
+    into ``fixed_masks/``, read back by ``data.dataset.load_invoice_dataset``
+    equal to ``jpeg_roundtrip_u8`` of each page, then
+    ``__main__.main(["train", "--epochs", "1", "--resume", ...])`` from the
+    bundled w64 on those files, its checkpoint served by
+    ``Segmenter.from_checkpoint`` against the plain path, fields found;
+    (h) ``main(["train-ocr", ...])`` for 101 steps (the fewest the trainer
+    takes) on the OCR training fixture's pool; (i) ``rasterize_labelme`` and
+    ``build_one``'s resizes equal to JAX's
 28. the store, the app, the network OCR engines and the CLI's ``app``
     (``store``, ``app``, ``ocr.enhance``, ``ocr.ocrspace``,
     ``ocr.easyocr_engine``; no kernel of their own) against the JAX
@@ -279,6 +282,23 @@ Phases, each printing one line with its wall time:
     ``AugmentedDataset`` of the training fixture, every loss finite, its
     last checkpoint served against the plain path; the host ms to augment
     a b4 batch beside the epoch's seconds with and without augmentation
+30. image files on the card's machine, which has neither OpenCV nor Pillow
+    (``ops.host_jpeg``, ``host_png``, ``host_imageio`` on the host C++
+    library ``csrc/host_codec.cpp``; no kernel), against OpenCV's and the
+    JAX package's outputs in ``tests/data/torch_smoke_codec.npz``: (a) every
+    fixture file (JPEGs at each sampling and gray, a restart interval, EXIF
+    orientations 1-8 in both byte orders; PNGs of every colour type and
+    depth, each row filter, Adam7, ``eXIf``) read by ``imread_rgb`` from a
+    file whose name says nothing of its format, byte-equal to cv2's RGB, and
+    two frames through ``encode_jpeg`` byte-equal to ``cv2.imencode``'s;
+    (b) the training fixture's first page resized to a 4032×3024 phone
+    photo, and the same under seeded noise and texture: ``encode_jpeg`` at
+    q95 and ``decode_jpeg`` of its bytes equal to ``jpeg_roundtrip_u8`` byte
+    for byte, the host ms of each (and of the C++ scan in each) and the
+    file's size; the median host ms of ``encode_jpeg`` on the 512² page;
+    (c) ``__main__.main(["build-dataset", ...])`` at 512² on the fixture's
+    labelme photo and JSON: the written ``.jpg`` byte-equal to
+    the JAX package's ``build_one`` output and the ``.npy`` mask equal
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -301,7 +321,8 @@ their ``xla`` counts too. Phase 27's ``extract`` calls are driven the same
 way (K1 once a page), and so is the serving of the CLI's checkpoint (K1
 once). So are phase 28's app ``extract`` calls (K1 once a page), phase
 29's gauntlet routes (as phase 26's) and its serving of the augmented
-checkpoint (K1 once). The kernel rows' launches sum every such path.
+checkpoint (K1 once). Phase 30 must leave every count as it was. The
+kernel rows' launches sum every such path.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
 only. Without a CUDA device, or if any phase fails, it exits non-zero and
@@ -319,6 +340,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 import numpy as np
@@ -475,16 +497,18 @@ def phase_device():
 
 
 def phase_build():
-    """The CUDA kernels (one nvcc each) and the QR decoder (the host C++
-    compiler), all at once."""
+    """The CUDA kernels (one nvcc each), the QR decoder and the image codec
+    (the host C++ compiler), all at once."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from twinvoice_tpu_torch.ops import host_imageio
     from twinvoice_tpu_torch.qr import native as qr_native
 
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        qr_lib = pool.submit(qr_native.build)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        host_libs = {"qrdecode": pool.submit(qr_native.build),
+                     "hostcodec": pool.submit(host_imageio.build_codec)}
         built = _build.build()
-        built["qrdecode"] = qr_lib.result()
+        built.update((name, lib.result()) for name, lib in host_libs.items())
     for name, path in built.items():
         print(f"built {name}: {os.path.relpath(path, ROOT)}", flush=True)
 
@@ -4537,37 +4561,64 @@ def labelme_check(fix):
     return th, tw
 
 
+def training_files(tmp, pages, masks):
+    """The layout ``build-dataset`` writes, from arrays: ``pages`` through
+    ``imwrite_jpeg`` into ``tmp/fixed_images``, ``masks`` into
+    ``tmp/fixed_masks``; read back by ``load_invoice_dataset``, each page
+    must equal its ``jpeg_roundtrip_u8`` at q95 and each mask itself.
+    → (the image directory, the mask directory, the host ms of the read)."""
+    from twinvoice_tpu_torch.data import dataset
+    from twinvoice_tpu_torch.ops.host_imageio import imwrite_jpeg
+    from twinvoice_tpu_torch.ops.host_jpeg import jpeg_roundtrip_u8
+
+    img_dir, mask_dir = os.path.join(tmp, "fixed_images"), os.path.join(tmp, "fixed_masks")
+    os.makedirs(img_dir)
+    os.makedirs(mask_dir)
+    for i, (page, mask) in enumerate(zip(pages, masks)):
+        imwrite_jpeg(os.path.join(img_dir, f"page{i}.jpg"), page)
+        np.save(os.path.join(mask_dir, f"page{i}.npy"), mask)
+    t0 = time.perf_counter()
+    ds = dataset.load_invoice_dataset(img_dir, mask_dir)
+    ms = (time.perf_counter() - t0) * 1e3
+    want = np.stack([jpeg_roundtrip_u8(p, 95) for p in pages])
+    if (ds.names != tuple(f"page{i}" for i in range(len(pages)))
+            or not np.array_equal(ds.images, want) or not np.array_equal(ds.masks, masks)):
+        raise AssertionError(f"load_invoice_dataset read back {ds.names}, images or masks "
+                             f"other than the files hold")
+    return img_dir, mask_dir, ms
+
+
 def cli_train_check(tmp, card):
     """(g) ``python -m twinvoice_tpu_torch train --epochs 1 --resume START``
-    through ``__main__.main`` on the training fixture's pages, START the
-    bundled w64 saved as a checkpoint at epoch 0 (as phase 22 starts), so
-    that the checkpoint it writes finds fields; that checkpoint served by
+    through ``__main__.main`` on the training fixture's pages written as
+    files (:func:`training_files`), START the bundled w64 saved as a
+    checkpoint at epoch 0 (as phase 22 starts), so that the checkpoint it
+    writes finds fields; that checkpoint served by
     ``Segmenter.from_checkpoint`` through K1 against the plain path on the
     same weights. → K1's launches."""
     from twinvoice_tpu_torch import __main__ as cli
     from twinvoice_tpu_torch.config import UNetConfig
-    from twinvoice_tpu_torch.data import dataset
 
     fix = train_fixture()
-    ds = ArrayDataset(fix["pages"], fix["masks"])
-    print(f"  (g) data.dataset.load_invoice_dataset is replaced by the training fixture's "
-          f"ArrayDataset ({len(ds)} pages of {fix['pages'].shape[1]}²): the card's machine "
-          f"has no JPEG decoder for cv2.imread", flush=True)
+    img_dir, mask_dir, read_ms = training_files(tmp, fix["pages"], fix["masks"])
+    print(f"  (g) the training fixture's {len(fix['pages'])} pages of "
+          f"{fix['pages'].shape[1]}² written by imwrite_jpeg, read back by "
+          f"load_invoice_dataset in {read_ms:.1f} ms on the host ({host_cpu()}): each equal to "
+          f"jpeg_roundtrip_u8(page, 95), masks equal", flush=True)
     ckpt_dir, start = os.path.join(tmp, "checkpoints"), os.path.join(tmp, "start")
     bundled = load_npz(variant_path("w64"))
     params, state = _copy_to(bundled[0], "cpu"), _copy_to(bundled[1], "cpu")
     ckpt.save(start, TrainState(params, state, make_optimizer(params, TrainConfig())))
     del bundled, params, state
-    cwd, real = os.getcwd(), dataset.load_invoice_dataset
-    dataset.load_invoice_dataset = lambda img_dir, mask_dir: ds
+    cwd = os.getcwd()
     os.chdir(tmp)  # fit writes its visual dumps under ./visualize, as JAX's CLI does
     try:
         t = time.perf_counter()
-        cli.main(["train", "--epochs", "1", "--checkpoint-dir", ckpt_dir, "--resume", start])
+        cli.main(["train", "--images", img_dir, "--masks", mask_dir, "--epochs", "1",
+                  "--checkpoint-dir", ckpt_dir, "--resume", start])
         dt = time.perf_counter() - t
     finally:
         os.chdir(cwd)
-        dataset.load_invoice_dataset = real
     best = os.path.join(ckpt_dir, "best")
     mcfg = UNetConfig()
     seg = Segmenter.from_checkpoint(best, mcfg, InferConfig(img_size=512), torch.float32)
@@ -4577,10 +4628,9 @@ def cli_train_check(tmp, card):
                                              label="the CLI's w64")
     if launches.get(k1.NAME, 0) != 1 or tuple(boxes.shape) != (4, 3, 4):
         raise AssertionError(f"serving the CLI's checkpoint launched {launches}")
-    print(f"  (g) train --epochs 1 --resume (the bundled w64, b4 512², one step): {dt:.2f} s, "
-          f"checkpoint "
-          f"{sorted(os.listdir(ckpt_dir))} served by Segmenter.from_checkpoint [{card}]",
-          flush=True)
+    print(f"  (g) train --epochs 1 --resume (the bundled w64, b4 512² from the files, one "
+          f"step): {dt:.2f} s, checkpoint {sorted(os.listdir(ckpt_dir))} served by "
+          f"Segmenter.from_checkpoint [{card}]", flush=True)
     return launches[k1.NAME]
 
 
@@ -5346,6 +5396,220 @@ def phase_augment(card):
     return launches
 
 
+# -- phase 30: image files on the card ------------------------------------------
+
+CODEC_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_codec.npz")
+PHONE_SIZE = (4032, 3024)  # (b)'s photos, width and height: a 12 MP phone camera's
+PHONE_QUALITY = 95
+PHONE_NOISE_SIGMA = 6.0  # (b)'s noisy photo: Gaussian noise on 0-255 values
+SMALL_ENCODES = 5  # (b)'s 512² encode: the median of this many
+
+
+def host_cpu() -> str:
+    """The host CPU, which every host time is printed beside: the model name
+    and the AVX2 and AVX-512 flags of ``/proc/cpuinfo``'s first processor,
+    its cores and numpy's version."""
+    model, flags = "model name not given", None
+    try:
+        with open("/proc/cpuinfo", encoding="utf-8") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                if key.strip() == "model name" and model == "model name not given":
+                    model = value.strip()
+                elif key.strip() == "flags" and flags is None:
+                    flags = value.split()
+    except OSError:
+        pass
+    simd = "/".join(f for f in ("avx2", "avx512f", "avx512bw") if f in (flags or ()))
+    return (f"{model}, {os.cpu_count()} cores, {simd or 'no AVX2 flag'}, "
+            f"numpy {np.__version__}")
+
+
+def codec_fixture():
+    with np.load(CODEC_FIXTURE) as z:
+        fix = {k: z[k] for k in z.files}
+    fix["names"] = [str(n) for n in fix["names"]]
+    return fix
+
+
+def codec_files_check(fix, tmp):
+    """(a) each fixture file written under ``tmp`` as ``<i>.bin`` (a name that
+    says nothing of its format) and read by ``imread_rgb``: byte-equal to
+    cv2's RGB; each of the two frames through ``encode_jpeg``: byte-equal
+    to ``cv2.imencode``'s bytes. → (files, host ms of all the reads, host ms
+    of both encodes)."""
+    from twinvoice_tpu_torch.ops.host_imageio import imread_rgb
+    from twinvoice_tpu_torch.ops.host_jpeg import encode_jpeg
+
+    bad, read_ms, enc_ms = [], 0.0, 0.0
+    for i, name in enumerate(fix["names"]):
+        path = os.path.join(tmp, f"{i}.bin")
+        fix[f"file_{i}"].tofile(path)
+        t0 = time.perf_counter()
+        got = imread_rgb(path)
+        read_ms += (time.perf_counter() - t0) * 1e3
+        want = fix[f"want_{i}"]
+        if got is None or got.shape != want.shape or not np.array_equal(got, want):
+            bad.append(f"{name}: {None if got is None else got.shape} against {want.shape}")
+    for i, q in enumerate(fix["enc_quality"]):
+        t0 = time.perf_counter()
+        data = encode_jpeg(fix[f"enc_frame_{i}"], int(q))
+        enc_ms += (time.perf_counter() - t0) * 1e3
+        if data != fix[f"enc_bytes_{i}"].tobytes():
+            bad.append(f"encode_jpeg of frame {i} at q{q}: {len(data)} bytes, not cv2's")
+    if bad:
+        raise AssertionError("codec against cv2: " + "; ".join(bad))
+    return len(fix["names"]), read_ms, enc_ms
+
+
+def phone_photos(page, size=PHONE_SIZE, seed=0):
+    """(b)'s two photos at ``size`` (width, height): ``page`` upscaled by
+    ``resize_linear_u8``, as smooth as a flat scan, and the same under seeded
+    Gaussian noise (σ ``PHONE_NOISE_SIGMA``) and a fine sine texture, as a
+    phone's sensor and the paper's grain give a real photo several times
+    the entropy-coded data. → {name: uint8 (H, W, 3)}."""
+    from twinvoice_tpu_torch.ops.host_image import resize_linear_u8
+
+    smooth = resize_linear_u8(page, *size)
+    h, w = smooth.shape[:2]
+    texture = 10 * np.sin(0.7 * np.arange(h))[:, None] * np.sin(0.9 * np.arange(w))[None]
+    noise = np.random.default_rng(seed).normal(0, PHONE_NOISE_SIGMA, smooth.shape)
+    noisy = np.clip(np.rint(smooth + noise + texture[..., None]), 0, 255).astype(np.uint8)
+    return {"upscaled page": smooth, "noisy page": noisy}
+
+
+@contextlib.contextmanager
+def scan_timer():
+    """Inside the block, ``host_jpeg``'s calls of the host C++ library's
+    ``jpeg_decode_scan`` and ``jpeg_encode_scan`` are timed. → a dict of
+    their summed host ms by name, filled as they run."""
+    from twinvoice_tpu_torch.ops import host_jpeg
+
+    lib, saved = host_jpeg.codec(), host_jpeg.codec
+    ms = {"jpeg_decode_scan": 0.0, "jpeg_encode_scan": 0.0}
+
+    def timed(name):
+        fn = getattr(lib, name)
+
+        def call(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                ms[name] += (time.perf_counter() - t0) * 1e3
+
+        return call
+
+    proxy = types.SimpleNamespace(**{name: timed(name) for name in ms})
+    host_jpeg.codec = lambda: proxy
+    try:
+        yield ms
+    finally:
+        host_jpeg.codec = saved
+
+
+def phone_photo_check(photo, quality=PHONE_QUALITY):
+    """(b) ``photo`` through ``encode_jpeg`` and ``decode_jpeg``: equal to
+    ``jpeg_roundtrip_u8`` of it, byte for byte. → (encode ms, of it the C++
+    scan's, decode ms, of it the C++ scan's, round-trip ms, the file's
+    bytes), each ms on the host."""
+    from twinvoice_tpu_torch.ops.host_jpeg import decode_jpeg, encode_jpeg, jpeg_roundtrip_u8
+
+    with scan_timer() as scan:
+        t0 = time.perf_counter()
+        data = encode_jpeg(photo, quality)
+        t1 = time.perf_counter()
+        got = decode_jpeg(data)
+        t2 = time.perf_counter()
+    want = jpeg_roundtrip_u8(photo, quality)
+    t3 = time.perf_counter()
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"decode_jpeg(encode_jpeg(photo)) differs from jpeg_roundtrip_u8 "
+                             f"in {int((got != want).sum())} bytes at {photo.shape}")
+    return ((t1 - t0) * 1e3, scan["jpeg_encode_scan"], (t2 - t1) * 1e3,
+            scan["jpeg_decode_scan"], (t3 - t2) * 1e3, len(data))
+
+
+def small_encode_ms(page, quality=PHONE_QUALITY, reps=SMALL_ENCODES):
+    """(b) the median host ms of ``reps`` ``encode_jpeg`` calls on ``page``
+    (a 512² training page, as ``build_one`` writes them). → (ms, bytes)."""
+    from twinvoice_tpu_torch.ops.host_jpeg import encode_jpeg
+
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        data = encode_jpeg(page, quality)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), len(data)
+
+
+def build_dataset_check(fix, tmp):
+    """(c) ``python -m twinvoice_tpu_torch build-dataset --size 512`` through
+    ``__main__.main`` on the fixture's labelme photo and JSON under ``tmp``:
+    the written ``.jpg`` byte-equal to the JAX package's ``build_one``
+    output, the ``.npy`` mask equal. → host ms."""
+    from twinvoice_tpu_torch import __main__ as cli
+
+    dirs = {k: os.path.join(tmp, k) for k in ("json", "images", "fixed_images", "fixed_masks")}
+    for k in ("json", "images"):
+        os.makedirs(dirs[k])
+    fix["lm_photo"].tofile(os.path.join(dirs["images"], "photo0.jpg"))
+    with open(os.path.join(dirs["json"], "photo0.json"), "w", encoding="utf-8") as f:
+        f.write(str(fix["lm_json"]))
+    t0 = time.perf_counter()
+    cli.main(["build-dataset", "--json-dir", dirs["json"], "--images-dir", dirs["images"],
+              "--out-images", dirs["fixed_images"], "--out-masks", dirs["fixed_masks"],
+              "--size", "512"])
+    ms = (time.perf_counter() - t0) * 1e3
+    with open(os.path.join(dirs["fixed_images"], "photo0.jpg"), "rb") as f:
+        jpg = f.read()
+    mask = np.load(os.path.join(dirs["fixed_masks"], "photo0.npy"))
+    if jpg != fix["lm_jpg"].tobytes():
+        raise AssertionError(f"build-dataset wrote a {len(jpg)}-byte JPEG, not JAX's "
+                             f"{fix['lm_jpg'].size} bytes")
+    if mask.shape != fix["lm_mask"].shape or not np.array_equal(mask, fix["lm_mask"]):
+        raise AssertionError("build-dataset wrote a mask other than JAX's")
+    return ms
+
+
+def phase_codec(card):
+    """Phase 30: the image file codec on the card's machine. It launches no
+    kernel of the port."""
+    import tempfile
+
+    cpu = host_cpu()
+    fix = codec_fixture()
+    before = dict(_build.launches)
+    _build.build_dir().mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp:
+        n, read_ms, enc_ms = codec_files_check(fix, tmp)
+        print(f"  (a) {n} files read by imread_rgb byte-equal to cv2's RGB in {read_ms:.1f} ms; "
+              f"{len(fix['enc_quality'])} encode_jpeg outputs byte-equal to cv2.imencode's in "
+              f"{enc_ms:.1f} ms (host: {cpu})", flush=True)
+        page = train_fixture()["pages"][0]
+        for kind, photo in phone_photos(page).items():
+            e_ms, e_scan, d_ms, d_scan, rt_ms, size = phone_photo_check(photo)
+            print(f"  (b) a {PHONE_SIZE[0]}×{PHONE_SIZE[1]} photo at q{PHONE_QUALITY}, {kind}: "
+                  f"encode_jpeg {e_ms:.1f} ms (the C++ scan {e_scan:.1f}; {size} bytes), "
+                  f"decode_jpeg {d_ms:.1f} ms (the C++ scan {d_scan:.1f}), equal to "
+                  f"jpeg_roundtrip_u8 ({rt_ms:.1f} ms) byte for byte (host: {cpu}) [{card}]",
+                  flush=True)
+            del photo
+        ms, size = small_encode_ms(page)
+        print(f"  (b) a {page.shape[1]}×{page.shape[0]} training page at q{PHONE_QUALITY}: "
+              f"encode_jpeg {ms:.2f} ms, the median of {SMALL_ENCODES} ({size} bytes; host: "
+              f"{cpu})", flush=True)
+        os.makedirs(os.path.join(tmp, "lm"))
+        ms = build_dataset_check(fix, os.path.join(tmp, "lm"))
+        print(f"  (c) build-dataset --size 512 on a {fix['lm_mask'].shape[1]}² target from the "
+              f"fixture's photo: the .jpg byte-equal to JAX's build_one output "
+              f"({fix['lm_jpg'].size} bytes), the mask equal, in {ms:.1f} ms (host: {cpu})",
+              flush=True)
+    if dict(_build.launches) != before:
+        raise AssertionError(f"phase 30 launched kernels of the port: {before} -> "
+                             f"{dict(_build.launches)}")
+
+
 def main():
     ph = Phases()
     name, card = ph.run(1, "device", phase_device)
@@ -5473,6 +5737,9 @@ def main():
     print(f"  launches in phase 29: {aug_launches}; of K1 on the main path and phases 19-20, "
           f"22, 25-29: {launches[k1.NAME]}; on the int8 routes (phases 9-10, 13-14, 19, 26, "
           f"29): {int8_launches}", flush=True)
+
+    ph.run(30, "image files without OpenCV: the codec against cv2, a phone photo, "
+               "build-dataset", phase_codec, card)
 
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
              launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]

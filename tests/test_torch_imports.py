@@ -34,7 +34,8 @@ from twinvoice_tpu_torch.ocr.torchocr import TorchOcrEngine
 from twinvoice_tpu_torch.ocr.torchocr.detector import detect_lines, read_page
 from twinvoice_tpu_torch.fusion.extract import InvoiceExtractor
 from twinvoice_tpu_torch.qr.detect import QrPipeline
-from twinvoice_tpu_torch.data.dataset import ArrayDataset, synthetic_dataset
+from twinvoice_tpu_torch.data.dataset import ArrayDataset, load_invoice_dataset, synthetic_dataset
+from twinvoice_tpu_torch.data.labelme import build_dataset_from_labelme, build_one
 from twinvoice_tpu_torch.train import checkpoint, losses, metrics, schedule, visualize
 from twinvoice_tpu_torch.train.trainer import fit, make_train_step
 from twinvoice_tpu_torch.ocr.fonts import coverage, glyph_strokes, has_glyph
@@ -62,7 +63,10 @@ from twinvoice_tpu_torch.ops.host_warp import (get_perspective_transform, invert
 from twinvoice_tpu_torch.ops.host_filter import (filter2d_f32, gaussian_blur_f32,
     gaussian_blur_u8, resize_cubic_f32)
 from twinvoice_tpu_torch.ops.host_draw import fill_rect_u8, line_u8
-from twinvoice_tpu_torch.ops.host_jpeg import jpeg_roundtrip_u8
+from twinvoice_tpu_torch.ops.host_jpeg import decode_jpeg, encode_jpeg, jpeg_roundtrip_u8
+from twinvoice_tpu_torch.ops.host_png import decode_png
+from twinvoice_tpu_torch.ops.host_imageio import (apply_orientation, build_codec, codec,
+    exif_orientation, imread_rgb, imwrite_jpeg)
 from twinvoice_tpu_torch.ocr import OcrEngine, FakeOcrEngine
 from twinvoice_tpu_torch.compat import load_model, preprocess, run_unet
 from twinvoice_tpu_torch.ops import resize_nearest, conv3x3

@@ -24,6 +24,7 @@ from twinvoice_tpu.qr import detect as jdetect
 from twinvoice_tpu.qr import native as jnative
 from twinvoice_tpu.qr import parse as jparse
 from twinvoice_tpu.qr.encode import render_qr
+from twinvoice_tpu_torch import _build
 from twinvoice_tpu_torch.qr import detect as tdetect
 from twinvoice_tpu_torch.qr import native as tnative
 from twinvoice_tpu_torch.qr import parse as tparse
@@ -103,7 +104,7 @@ def test_native_build_failure_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="QR decoder build failed"):
         tdetect.QrPipeline()
     monkeypatch.delenv("CXX")
-    monkeypatch.setattr(tnative.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     with pytest.raises(FileNotFoundError, match="no C\\+\\+ compiler"):
         tnative.build()
 

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's CUDA kernels with ``nvcc`` and its host libraries with the
+host C++ compiler, and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``<name>-<hash>.so`` for ``sm_90a`` (Hopper). The hash covers every
@@ -9,6 +10,10 @@ module is imported: the first launch of a kernel builds its library, and
 
 The build directory is ``twinvoice_tpu_torch/_cuda_build/`` (listed in
 ``.gitignore``); ``TWINVOICE_TORCH_BUILD_DIR`` moves it.
+
+Host libraries (the QR decoder, ``native/qrdecode.cpp``; the image codec,
+``csrc/host_codec.cpp``) are plain C++ built by :func:`build_host` into the
+same directory, each keyed by a hash of its one source and the flags.
 
 ``launches`` counts kernel launches by name: each op wrapper adds one where it
 launches its kernel and nowhere else, so a caller can zero it, drive a path
@@ -32,6 +37,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 NVCC_TIMEOUT_S = 600
+CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
+CXX_TIMEOUT_S = 300
 
 launches: collections.Counter = collections.Counter()
 
@@ -128,3 +135,41 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _libs[name] = lib
         return lib
+
+
+def find_cxx() -> str:
+    """``$CXX``, else ``c++``, ``g++`` or ``clang++`` on ``PATH``."""
+    cxx = os.environ.get("CXX")
+    if cxx:
+        return cxx
+    for name in ("c++", "g++", "clang++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise FileNotFoundError("no C++ compiler: $CXX is unset and none of c++, "
+                            "g++, clang++ is on PATH")
+
+
+def host_library_path(source: Path, stem: str) -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(Path(source).read_bytes())
+    return build_dir() / f"lib{stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(source: Path, stem: str, what: str) -> Path:
+    """Compile the host C++ ``source`` into ``lib<stem>-<hash>.so`` unless it
+    is built already. → the library's path. Raises with the compiler's
+    output (``"<what> build failed"``) if the build fails."""
+    out = host_library_path(source, stem)
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+    cmd = [find_cxx(), *CXX_FLAGS, "-o", str(tmp), str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=CXX_TIMEOUT_S)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{what} build failed ({' '.join(cmd)}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out

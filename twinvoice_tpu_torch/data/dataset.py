@@ -1,6 +1,7 @@
 """Invoice segmentation dataset: memory-resident arrays + batched iteration
-(``twinvoice_tpu.data.dataset``, copied; numpy only, OpenCV imported inside
-``load_invoice_dataset``).
+(``twinvoice_tpu.data.dataset``, copied; numpy only: ``load_invoice_dataset``
+reads its JPEG and PNG files with ``ops.host_imageio.imread_rgb``, the pixels
+``cv2.imread`` gives, without OpenCV).
 
 Pairs ``{img_dir}/{name}.jpg|png`` with ``{mask_dir}/{name}.npy`` (H,W,3
 uint8 0/255), image → float/255, mask → 0/1. Arrays are NHWC on the host (the
@@ -15,6 +16,8 @@ from dataclasses import dataclass
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+
+from twinvoice_tpu_torch.ops.host_imageio import imread_rgb
 
 
 @dataclass
@@ -67,8 +70,6 @@ class ArrayDataset:
 
 def load_invoice_dataset(img_dir="fixed_images", mask_dir="fixed_masks") -> ArrayDataset:
     """Load the on-disk layout that ``data.labelme`` writes."""
-    import cv2
-
     if not os.path.isdir(img_dir):
         return ArrayDataset(
             np.zeros((0, 512, 512, 3), np.uint8), np.zeros((0, 512, 512, 3), np.uint8)
@@ -84,12 +85,12 @@ def load_invoice_dataset(img_dir="fixed_images", mask_dir="fixed_masks") -> Arra
         for ext in (".jpg", ".png", ".jpeg"):
             p = os.path.join(img_dir, name + ext)
             if os.path.exists(p):
-                img = cv2.imread(p)
+                img = imread_rgb(p)
                 break
         mp = os.path.join(mask_dir, name + ".npy")
         if img is None or not os.path.exists(mp):
             continue
-        imgs.append(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
+        imgs.append(img)
         msks.append(np.load(mp))
         kept.append(name)
     if not imgs:

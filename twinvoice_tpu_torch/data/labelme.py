@@ -10,10 +10,10 @@ uint8 0/255).
 
 The polygon fill and the mask are numpy, copied. The two resizes are
 ``ops.host_image``'s, bit-equal to OpenCV's INTER_LINEAR and INTER_NEAREST.
-``build_one`` reads and writes the image files with OpenCV (``imread``,
-``imwrite`` and the BGR↔RGB swap), imported inside it: a machine without an
-image codec (the card's has none) builds no dataset from files, and runs
-``rasterize_labelme`` and the resizes on arrays.
+``build_one`` reads the photo with ``ops.host_imageio.imread_rgb`` (the
+pixels ``cv2.imread`` gives, EXIF orientation applied) and writes the JPEG
+with ``imwrite_jpeg`` (``cv2.imwrite``'s bytes at quality 95), so it needs
+no OpenCV.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 
 from twinvoice_tpu_torch.ops.host_image import resize_linear_u8, resize_nearest_u8
+from twinvoice_tpu_torch.ops.host_imageio import imread_rgb, imwrite_jpeg
 
 DEFAULT_LABELS = {"invoice_no": 0, "date": 1, "total_amount": 2}
 IMG_EXT_CANDIDATES = (".jpg", ".jpeg", ".JPG", ".png")
@@ -92,17 +93,13 @@ def _find_image(images_dir: str, base: str):
 
 def build_one(json_path: str, img_path: str, out_img_dir: str, out_mask_dir: str,
               train_size=(512, 512), label_to_channel=DEFAULT_LABELS):
-    """Process a single (JSON, image) pair; returns the sample base name.
-    Needs OpenCV for the image files."""
-    import cv2
-
+    """Process a single (JSON, image) pair; returns the sample base name."""
     with open(json_path, "r", encoding="utf-8") as f:
         meta = json.load(f)
 
-    img = cv2.imread(img_path)
+    img = imread_rgb(img_path)
     if img is None:
         raise FileNotFoundError(img_path)
-    img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
     h, w = img.shape[:2]
     sx = w / meta["imageWidth"]
     sy = h / meta["imageHeight"]
@@ -116,10 +113,7 @@ def build_one(json_path: str, img_path: str, out_img_dir: str, out_mask_dir: str
     os.makedirs(out_img_dir, exist_ok=True)
     os.makedirs(out_mask_dir, exist_ok=True)
     base = os.path.basename(img_path).rsplit(".", 1)[0]
-    cv2.imwrite(
-        os.path.join(out_img_dir, base + ".jpg"),
-        cv2.cvtColor(img_r, cv2.COLOR_RGB2BGR),
-    )
+    imwrite_jpeg(os.path.join(out_img_dir, base + ".jpg"), img_r)
     np.save(os.path.join(out_mask_dir, base + ".npy"), mask_r)
     return base
 

@@ -2,10 +2,9 @@
 the port's counterpart of ``twinvoice_tpu.qr.native``.
 
 The library is built from the source where it lies, with the host C++
-compiler, into the port's build directory (``_build.build_dir()``) at first
-use, keyed by a hash of the source and the flags, as ``_build`` keys the CUDA
-kernels. A library built elsewhere (``native/libqrdecode.so``) is never
-loaded. Unlike the JAX binding, which returns no payload when the library is
+compiler, into the port's build directory at first use
+(``_build.build_host``, keyed by a hash of the source and the flags). A
+library built elsewhere (``native/libqrdecode.so``) is never loaded. Unlike the JAX binding, which returns no payload when the library is
 missing, :func:`load` raises when it cannot build or load it, so a machine
 without a compiler fails loudly and not as "no QR found".
 """
@@ -13,10 +12,6 @@ without a compiler fails loudly and not as "no QR found".
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import List
@@ -26,49 +21,20 @@ import numpy as np
 from twinvoice_tpu_torch import _build
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "qrdecode.cpp"
-CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
-CXX_TIMEOUT_S = 300
 OUT_CAP = 1 << 16  # bytes of NUL-separated payloads a call may return
 
 _lock = threading.Lock()
 _lib = None
 
 
-def find_cxx() -> str:
-    """``$CXX``, else ``c++``, ``g++`` or ``clang++`` on ``PATH``."""
-    cxx = os.environ.get("CXX")
-    if cxx:
-        return cxx
-    for name in ("c++", "g++", "clang++"):
-        found = shutil.which(name)
-        if found:
-            return found
-    raise FileNotFoundError("no C++ compiler: $CXX is unset and none of c++, "
-                            "g++, clang++ is on PATH")
-
-
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return _build.build_dir() / f"libqrdecode-{h.hexdigest()[:16]}.so"
+    return _build.host_library_path(SOURCE, "qrdecode")
 
 
 def build() -> Path:
     """Compile the decoder unless it is built already. → the library's path.
     Raises with the compiler's output if the build fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    cmd = [find_cxx(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=CXX_TIMEOUT_S)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"QR decoder build failed ({' '.join(cmd)}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return out
+    return _build.build_host(SOURCE, "qrdecode", "QR decoder")
 
 
 def load() -> ctypes.CDLL:
