@@ -227,13 +227,16 @@ Phases, each printing one line with its wall time:
     against the JAX package's outputs in ``tests/data/torch_smoke_qr.npz``:
     (a) 40 ``encode_qr_matrix`` matrices equal to JAX's, each
     ``render_qr`` read back by ``qr.native``; (b) ``enhance_qr_region`` on
-    three crops byte for byte equal to OpenCV's; (c) the numpy locator's
-    boxes against ``cv2.QRCodeDetector``'s on 14 pages (landscape, 0.45×,
-    0.5×, 0.55×, perspective, soft, 7°, low contrast, blank): each cv2 box
-    matched at IoU ≥ 0.7, none on the blank page, the host ms a call; (d)
-    the scan with the native decoder: payload sets equal to JAX's (on the
-    0.55× page JAX's ⊆ the port's ⊆ the truth), one payload on the 0.45×
-    pages as JAX's, the passes of each page; (e) ``auto_rotate_by_qr``'s
+    three crops byte for byte equal to OpenCV's; (c) the locator
+    (``cv2.QRCodeDetector``'s own localisation in host C++) against cv2's
+    quads on 96 pages (14 fixture pages: landscape, 0.45×, 0.5×, 0.55×,
+    perspective, soft, 7°, low contrast, blank; the sweep's 82 INTER_AREA
+    downscales, 0.40–0.80×, rebuilt from the portrait pages), each call from
+    a generator seeded with 0 as cv2's were: the flag, count, order and int
+    boxes equal, corners within 1e-3 px, ``detect_qr_regions`` JAX's boxes,
+    the median and range of host ms a page; (d) the scan with the native
+    decoder on the same 96 pages: payload sets equal to JAX's, one payload
+    on the 0.45× pages as JAX's, the passes of each page; (e) ``auto_rotate_by_qr``'s
     turn equal to JAX's on the four landscape pages; (f) ``extract`` with
     the bundled w16 at fp32 (TF32 off) and ``TorchOcrEngine()`` on the
     landscape and 0.45× pages, fields equal to JAX's wherever the port's
@@ -497,16 +500,18 @@ def phase_device():
 
 
 def phase_build():
-    """The CUDA kernels (one nvcc each), the QR decoder and the image codec
-    (the host C++ compiler), all at once."""
+    """The CUDA kernels (one nvcc each), the QR decoder, the image codec and
+    the QR locator (the host C++ compiler), all at once."""
     from concurrent.futures import ThreadPoolExecutor
 
     from twinvoice_tpu_torch.ops import host_imageio
+    from twinvoice_tpu_torch.qr import locate as qr_locate
     from twinvoice_tpu_torch.qr import native as qr_native
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         host_libs = {"qrdecode": pool.submit(qr_native.build),
-                     "hostcodec": pool.submit(host_imageio.build_codec)}
+                     "hostcodec": pool.submit(host_imageio.build_codec),
+                     "hostqrlocate": pool.submit(qr_locate.build)}
         built = _build.build()
         built.update((name, lib.result()) for name, lib in host_libs.items())
     for name, path in built.items():
@@ -4368,14 +4373,9 @@ def phase_gauntlet(fix_pages, card):
 
 
 QR_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_qr.npz")
-QR_IOU_MIN = 0.7      # each cv2 box against the port's best box on its page
-QR_LOCATE_REPS = 5    # locator calls a page, the median timed
-# pages where the scan's payloads are not JAX's: the port's locator finds a
-# code that cv2's misses, and its region pass reads both payloads where JAX's
-# scan reads one. Held to JAX's payloads ⊆ the port's ⊆ the true ones. An
-# open gap (ROADMAP.md queue 3), measured on 82 pages by
-# tests/test_torch_qr_locate.py::test_scan_sweep_against_jax (16 such pages).
-QR_PORT_READS_MORE = ("s0_x0.55",)
+QR_LOCATE_REPS = 3    # locator calls a page, the median timed
+QR_QUAD_TOL = 1e-3    # px: the port's quad corners against cv2's float32 ones
+QR_SWEEP_SCALES = tuple(round(0.40 + 0.01 * i, 2) for i in range(41))
 
 
 def qr_fixture():
@@ -4393,8 +4393,8 @@ def qr_fixture():
         else:
             pages.append(raw[f"page_{i}"])
     fix = {k: v for k, v in raw.items() if not k.startswith(("page_", "turned_"))}
-    for key in ("truth", "cv2_boxes", "jax_native", "jax_default", "jax_noregion",
-                "jax_extract", "encode", "lm_json"):
+    for key in ("truth", "cv2_boxes", "cv2_quads", "sweep_quads", "sweep_native",
+                "jax_native", "jax_default", "jax_noregion", "jax_extract", "encode", "lm_json"):
         fix[key] = json.loads(str(raw[key]))
     fix.update(names=names, pages=pages)
     return fix
@@ -4436,55 +4436,94 @@ def qr_enhance_check(fix):
     return i
 
 
-def box_iou(a, b):
-    ix = max(0, min(a[2], b[2]) - max(a[0], b[0]))
-    iy = max(0, min(a[3], b[3]) - max(a[1], b[1]))
-    inter = ix * iy
-    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
-    return inter / union if union > 0 else 0.0
+def qr_sweep_pages(fix):
+    """The sweep's 82 pages, rebuilt: ``resize_area_u8`` of ``portrait_<seed>``
+    (the fixture script holds it equal to ``cv2.resize``'s INTER_AREA) at
+    ``QR_SWEEP_SCALES``. → {"<seed>_<scale>": uint8 RGB page}."""
+    from twinvoice_tpu_torch.ops.host_image import resize_area_u8
+
+    return {key: resize_area_u8(fix[f"portrait_{key.split('_')[0]}"], fx=float(key.split("_")[1]),
+                                fy=float(key.split("_")[1]))
+            for key in fix["sweep_quads"]}
+
+
+def qr_quads_equal(got, want):
+    """``locate_qr_quads``'s (found, quads) against cv2's stored ``[found,
+    quads]``: the flag, the count and order, JAX's int boxes and every corner
+    within ``QR_QUAD_TOL``. → the reason they differ, or None."""
+    ok, quads = got
+    want_ok, want_q = want
+    want_q = np.asarray(want_q, np.float32).reshape(-1, 4, 2)
+    got_q = np.zeros((0, 4, 2), np.float32) if quads is None else quads
+    if bool(ok) != bool(want_ok) or len(got_q) != len(want_q):
+        return f"found {ok} with {len(got_q)} quads, cv2's {want_ok} with {len(want_q)}"
+    def boxes(quads):  # JAX's int() of each quad's extremes
+        return [(int(q[:, 0].min()), int(q[:, 1].min()), int(q[:, 0].max()), int(q[:, 1].max()))
+                for q in quads]
+
+    if boxes(got_q) != boxes(want_q):
+        return f"boxes {boxes(got_q)}, cv2's {boxes(want_q)}"
+    if len(got_q) and float(np.abs(got_q - want_q).max()) > QR_QUAD_TOL:
+        return f"corners {float(np.abs(got_q - want_q).max())} px off cv2's"
+    return None
 
 
 def qr_locate_check(fix):
-    """(c) The locator's boxes against cv2's on every page: each cv2 box has
-    a port box with IoU ≥ ``QR_IOU_MIN``, the blank page gives none. →
-    {page: (IoUs, boxes, median host ms of a call)}."""
+    """(c) The locator on every fixture page and the sweep's 82 against cv2's
+    (``[found, quads]`` stored in the fixture, made from a generator seeded
+    with 0, as is the port's before each call): ``qr_quads_equal``; on the
+    fixture pages ``detect_qr_regions`` gives JAX's boxes. → {page: (quads,
+    boxes, median host ms of a call)}."""
+    from twinvoice_tpu_torch.ops.host_image import rgb_to_gray
     from twinvoice_tpu_torch.qr.detect import detect_qr_regions
+    from twinvoice_tpu_torch.qr.locate import locate_qr_boxes, locate_qr_quads, set_rng_seed
 
+    pages = list(zip(fix["names"], fix["pages"], fix["cv2_quads"], fix["cv2_boxes"]))
+    pages += [(f"sweep_{key}", page, fix["sweep_quads"][key], None)
+              for key, page in qr_sweep_pages(fix).items()]
     out = {}
-    for name, page, want in zip(fix["names"], fix["pages"], fix["cv2_boxes"]):
+    for name, page, want, want_boxes in pages:
+        gray = rgb_to_gray(page)
         times = []
         for _ in range(QR_LOCATE_REPS):
+            set_rng_seed(0)
             t = time.perf_counter()
-            boxes = detect_qr_regions(page)
+            got = locate_qr_quads(gray)
             times.append(time.perf_counter() - t)
-        ious = [max([box_iou(w, b) for b in boxes] or [0.0]) for w in want]
-        if any(v < QR_IOU_MIN for v in ious):
-            raise AssertionError(f"locator on {name}: cv2 boxes {want}, port's {boxes}, "
-                                 f"IoU {ious}")
-        if name == "blank" and boxes:
-            raise AssertionError(f"locator found {boxes} on the blank page")
-        out[name] = (ious, boxes, 1e3 * sorted(times)[len(times) // 2])
+        why = qr_quads_equal(got, want)
+        if why:
+            raise AssertionError(f"locator on {name}: {why}")
+        set_rng_seed(0)
+        boxes = locate_qr_boxes(gray)
+        if want_boxes is not None:
+            set_rng_seed(0)
+            regions = [list(b) for b in detect_qr_regions(page)]
+            if regions != want_boxes:
+                raise AssertionError(f"detect_qr_regions on {name}: {regions}, JAX's {want_boxes}")
+        out[name] = (0 if got[1] is None else len(got[1]), boxes,
+                     1e3 * sorted(times)[len(times) // 2])
     return out
 
 
 def qr_scan_check(fix):
-    """(d) ``QrPipeline(decoders=[native_decode]).scan`` against JAX's: the
-    payload set equal on every page (on ``QR_PORT_READS_MORE``: JAX's ⊆ the
-    port's ⊆ the truth), a single payload on the 0.45× pages as JAX's. →
+    """(d) ``QrPipeline(decoders=[native_decode]).scan`` against JAX's on every
+    fixture page and the sweep's 82, each from a generator seeded with 0: the
+    payload set equal, a single payload on the 0.45× pages as JAX's. →
     {page: (payloads, passes)}."""
     from twinvoice_tpu_torch.qr import detect
+    from twinvoice_tpu_torch.qr.locate import set_rng_seed
 
     pipe = detect.QrPipeline(decoders=[detect.native_decode])
+    pages = list(zip(fix["names"], fix["pages"], fix["jax_native"]))
+    pages += [(f"sweep_{key}", page, fix["sweep_native"][key])
+              for key, page in qr_sweep_pages(fix).items()]
     out = {}
-    for name, page, want, truth in zip(fix["names"], fix["pages"], fix["jax_native"],
-                                       fix["truth"]):
+    for name, page, want in pages:
         detect.passes.clear()
+        set_rng_seed(0)
         got = pipe.scan(page)
         passes = dict(detect.passes)
-        if name in QR_PORT_READS_MORE:
-            if not set(want) <= set(got) <= set(truth):
-                raise AssertionError(f"scan of {name}: {got}; JAX's {want}, truth {truth}")
-        elif set(got) != set(want):
+        if set(got) != set(want):
             raise AssertionError(f"scan of {name}: {got} != JAX's {want}")
         if "x0.45" in name and len(got) != 1:
             raise AssertionError(f"scan of {name}: {got}, JAX's single payload {want}")
@@ -4493,14 +4532,16 @@ def qr_scan_check(fix):
 
 
 def qr_turn_check(fix):
-    """(e) ``auto_rotate_by_qr`` on each landscape page turned as JAX's. →
-    {page: np.rot90's k}."""
+    """(e) ``auto_rotate_by_qr`` on each landscape page turned as JAX's (each
+    from a generator seeded with 0). → {page: np.rot90's k}."""
     from twinvoice_tpu_torch.fusion.extract import auto_rotate_by_qr
+    from twinvoice_tpu_torch.qr.locate import set_rng_seed
 
     out = {}
     for name, page, k in zip(fix["names"], fix["pages"], fix["jax_turn"]):
         if page.shape[1] <= page.shape[0]:
             continue
+        set_rng_seed(0)
         got = auto_rotate_by_qr(page)
         if not np.array_equal(got, np.rot90(page, int(k))):
             raise AssertionError(f"auto_rotate_by_qr on {name}: not JAX's turn {int(k)}")
@@ -4512,13 +4553,19 @@ def qr_extract_check(fix, seg, eng, expect_k1=True):
     """(f) ``InvoiceExtractor.extract`` (``QrPipeline()``, auto-rotate on) on
     the landscape and 0.45× pages against JAX's: ``qr_raw`` and ``items``
     equal on every page, every meta field on the pages whose port boxes
-    (``segment_array`` on the page ``extract`` segments) are JAX's; driven
-    with the launch counts zeroed just before and read just after: K1 once
-    a page (``expect_k1=False``: none, the CPU). → (records, pages off
-    JAX's boxes, launches)."""
+    (``segment_array`` on the page ``extract`` segments) are JAX's; each
+    extract from a locator generator seeded with 0, as JAX's; driven with the
+    launch counts zeroed just before and read just after: K1 once a page
+    (``expect_k1=False``: none, the CPU). → (records, pages off JAX's boxes,
+    launches)."""
     from twinvoice_tpu_torch.fusion.extract import InvoiceExtractor
     from twinvoice_tpu_torch.ops.host_image import resize_pil_bicubic
     from twinvoice_tpu_torch.qr.detect import QrPipeline
+    from twinvoice_tpu_torch.qr.locate import set_rng_seed
+
+    def seeded_extract(page):
+        set_rng_seed(0)
+        return fusion_record(*ex.extract(page))
 
     idx = [int(i) for i in fix["extract_pages"]]
     pages = [fix["pages"][i] for i in idx]
@@ -4532,7 +4579,7 @@ def qr_extract_check(fix, seg, eng, expect_k1=True):
                          and np.array_equal(o, fix["extract_ok"][j])))
     ex = InvoiceExtractor(seg, QrPipeline(), [eng], cfg=FusionConfig())
     _build.launches.clear()
-    got = [fusion_record(*ex.extract(p)) for p in pages]
+    got = [seeded_extract(p) for p in pages]
     launches = dict(_build.launches)
     want = {k1.NAME: len(pages)} if expect_k1 else {}
     if launches != want:
@@ -4671,14 +4718,21 @@ def phase_qr_cli(card):
     print(f"  (b) {qr_enhance_check(fix)} enhance_qr_region crops equal to OpenCV's byte for "
           f"byte", flush=True)
     located = qr_locate_check(fix)
-    for name, (ious, boxes, ms) in located.items():
-        print(f"  (c) {name}: IoU with cv2's boxes {np.round(ious, 4).tolist()}; port boxes "
-              f"{boxes}; {ms:.2f} ms a call on the host", flush=True)
-    all_ms = [v[2] for v in located.values()]
-    print(f"  (c) locator: median {sorted(all_ms)[len(all_ms) // 2]:.2f} ms a page, "
-          f"{min(all_ms):.2f}-{max(all_ms):.2f} over {len(all_ms)} pages [{card}]", flush=True)
-    for name, (got, passes) in qr_scan_check(fix).items():
-        print(f"  (d) {name}: {len(got)} payloads, passes {passes}", flush=True)
+    for name, (n, boxes, ms) in located.items():
+        if not name.startswith("sweep_"):
+            print(f"  (c) {name}: {n} quads, cv2's; boxes {boxes}; {ms:.2f} ms a call on the "
+                  f"host", flush=True)
+    all_ms = sorted(v[2] for v in located.values())
+    print(f"  (c) locator on {len(all_ms)} pages (14 fixture, {len(all_ms) - 14} sweep): quads, "
+          f"order and int boxes cv2's, corners within {QR_QUAD_TOL} px; host ms a page: median "
+          f"{all_ms[len(all_ms) // 2]:.2f}, range {all_ms[0]:.2f}-{all_ms[-1]:.2f} [{card}]",
+          flush=True)
+    scanned = qr_scan_check(fix)
+    for name, (got, passes) in scanned.items():
+        if not name.startswith("sweep_"):
+            print(f"  (d) {name}: {len(got)} payloads, passes {passes}", flush=True)
+    print(f"  (d) scans on {len(scanned)} pages: payload sets JAX's "
+          f"({sum(len(v[0]) == 2 for v in scanned.values())} with both codes read)", flush=True)
     print(f"  (e) auto_rotate_by_qr turns as JAX's: {qr_turn_check(fix)}", flush=True)
     seg = load_pretrained_segmenter(torch.float32)
     eng = TorchOcrEngine()

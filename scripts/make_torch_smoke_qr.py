@@ -11,12 +11,16 @@ The QR pages, rendered by the JAX package (``render_invoice(seed, layout_jitter
   under the 420 px of the scan's first pass; at 0.45× the region pass
   decides JAX's result (one payload, where the scan without it reads two);
 - ``s0_x0.55``: a 0.55× downscale where cv2's detector finds no code and
-  JAX's scan reads one payload; the port's locator finds both codes and its
-  scan reads both (held as JAX's payloads ⊆ the port's ⊆ the true ones);
+  JAX's scan reads one payload;
 - ``s0_persp`` (a perspective warp), ``s5_soft`` (0.5× down and back up,
   INTER_LINEAR), ``s0_r7`` (a 7° turn, bilinear, white fill), ``s5_lowc``
   (contrast ×0.3 + 150);
 - ``blank``: 440×640 of paper grey, no code.
+
+OpenCV's locator draws from its per-thread generator (``theRNG()``, which
+k-means++ seeds from), so every JAX call that runs it is preceded by
+``cv2.setRNGSeed(0)``; the port's checks call ``qr.locate.set_rng_seed(0)``
+before theirs.
 
 Stored (JSON strings hold the lists):
 
@@ -26,6 +30,13 @@ Stored (JSON strings hold the lists):
   page;
 - ``truth``: each page's true payloads;
 - ``cv2_boxes``: the JAX package's ``detect_qr_regions`` (``cv2.QRCodeDetector``);
+- ``cv2_quads``: for each page, the JAX scan's locator calls on its gray
+  (``detectMulti``, then ``detect`` where it fails): ``[found, quads]``, the
+  float32 quads (n, 4, 2) as lists;
+- ``sweep_quads`` and ``sweep_native``: the same, and the native-decoder
+  scan, on the sweep's 82 pages, keyed ``"<seed>_<scale>"``: the INTER_AREA
+  downscales of ``portrait_<seed>`` at ``SWEEP_SCALES`` (rebuilt from the
+  portrait pages where they are checked, not stored);
 - ``jax_native``: ``QrPipeline(decoders=[native_decode]).scan``;
   ``jax_default``: ``QrPipeline().scan`` (native, then cv2's decoder);
   ``jax_noregion``: the native scan with ``detect_qr_regions`` returning no
@@ -65,6 +76,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "tests", "data", "torch_smoke_qr.npz")
 SEEDS = (0, 5)
+SWEEP_SCALES = tuple(round(0.40 + 0.01 * i, 2) for i in range(41))
 LM_SIZE = (192, 256)  # build_one's train_size (width, height)
 
 
@@ -118,24 +130,71 @@ def qr_pages():
     return out
 
 
+def seeded(fn, *args):
+    """``fn(*args)`` after ``cv2.setRNGSeed(0)`` (module doc)."""
+    import cv2
+
+    cv2.setRNGSeed(0)
+    return fn(*args)
+
+
+def cv2_quads(rgb):
+    """``[found, quads]`` of the JAX scan's locator calls on ``rgb``'s gray
+    (``twinvoice_tpu/qr/detect.py:_detect_gray``): ``detectMulti``, then
+    ``detect``, from a seeded generator."""
+    import cv2
+
+    gray = cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY)
+    det = cv2.QRCodeDetector()
+    cv2.setRNGSeed(0)
+    ok, pts = det.detectMulti(gray)
+    if not ok or pts is None:
+        ok, pts = det.detect(gray)
+        ok = bool(ok) and pts is not None
+    quads = np.asarray(pts, np.float32).reshape(-1, 4, 2).tolist() if ok else []
+    return [bool(ok), quads]
+
+
 def scans(pages):
     """The JAX scans of each page (module doc) → dict of lists."""
     import twinvoice_tpu.qr.detect as jdetect
 
     native = jdetect.QrPipeline(decoders=[jdetect.native_decode])
     default = jdetect.QrPipeline()
-    res = {"cv2_boxes": [], "jax_native": [], "jax_default": [], "jax_noregion": []}
+    res = {"cv2_boxes": [], "cv2_quads": [], "jax_native": [], "jax_default": [],
+           "jax_noregion": []}
     for _, p, _ in pages:
-        res["cv2_boxes"].append([list(map(int, b)) for b in jdetect.detect_qr_regions(p)])
-        res["jax_native"].append(native.scan(p))
-        res["jax_default"].append(default.scan(p))
+        res["cv2_boxes"].append([list(map(int, b)) for b in seeded(jdetect.detect_qr_regions, p)])
+        res["cv2_quads"].append(cv2_quads(p))
+        res["jax_native"].append(seeded(native.scan, p))
+        res["jax_default"].append(seeded(default.scan, p))
         located = jdetect.detect_qr_regions
         jdetect.detect_qr_regions = lambda rgb: []
         try:
-            res["jax_noregion"].append(native.scan(p))
+            res["jax_noregion"].append(seeded(native.scan, p))
         finally:
             jdetect.detect_qr_regions = located
     return res
+
+
+def sweep():
+    """The sweep's cv2 quads and JAX native scans (module doc), the pages
+    checked equal to the port's ``resize_area_u8`` of the portrait pages."""
+    import cv2
+
+    import twinvoice_tpu.qr.detect as jdetect
+    from twinvoice_tpu_torch.ops.host_image import resize_area_u8
+
+    native = jdetect.QrPipeline(decoders=[jdetect.native_decode])
+    quads, scanned = {}, {}
+    for seed in SEEDS:
+        p, _ = render(seed)
+        for sc in SWEEP_SCALES:
+            page = cv2.resize(p, None, fx=sc, fy=sc, interpolation=cv2.INTER_AREA)
+            assert np.array_equal(page, resize_area_u8(p, fx=sc, fy=sc)), (seed, sc)
+            quads[f"{seed}_{sc}"] = cv2_quads(page)
+            scanned[f"{seed}_{sc}"] = seeded(native.scan, page)
+    return {"sweep_quads": quads, "sweep_native": scanned}
 
 
 def turn_of(page, turned):
@@ -152,7 +211,7 @@ def turns(pages):
 
     from twinvoice_tpu.fusion.extract import auto_rotate_by_qr
 
-    return [turn_of(p, np.asarray(auto_rotate_by_qr(Image.fromarray(p)).convert("RGB")))
+    return [turn_of(p, np.asarray(seeded(auto_rotate_by_qr, Image.fromarray(p)).convert("RGB")))
             if p.shape[1] > p.shape[0] else 0 for _, p, _ in pages]
 
 
@@ -175,7 +234,7 @@ def extract_runs(pages, idx, turn):
     records, boxes, ok = [], [], []
     for i in idx:
         page = pages[i][1]
-        records.append(fusion_record(*ex.extract(Image.fromarray(page))))
+        records.append(fusion_record(*seeded(ex.extract, Image.fromarray(page))))
         seen = np.ascontiguousarray(np.rot90(page, turn[i]))
         small = np.asarray(Image.fromarray(seen).resize((size, size)), np.uint8)[None]
         sz = np.asarray([[seen.shape[1], seen.shape[0]]], np.int32)
@@ -269,6 +328,7 @@ def main():
     sys.path.insert(0, ROOT)
     pages = qr_pages()
     res = scans(pages)
+    swept = sweep()
     turn = turns(pages)
     names = [n for n, _, _ in pages]
     idx = [i for i, n in enumerate(names) if "rot" in n or "x0.45" in n]
@@ -279,7 +339,8 @@ def main():
             data[f"turned_{i}"] = np.asarray([int(name[1]), 1 if name.endswith("rot90") else -1])
         else:
             data[f"page_{i}"] = p
-    data.update({k: np.asarray(json.dumps(v, ensure_ascii=False)) for k, v in res.items()})
+    data.update({k: np.asarray(json.dumps(v, ensure_ascii=False))
+                 for k, v in {**res, **swept}.items()})
     data.update(
         names=np.asarray(names), truth=np.asarray(json.dumps([t for _, _, t in pages],
                                                              ensure_ascii=False)),

@@ -1,8 +1,9 @@
 """PyTorch port: ``tests/data/torch_smoke_qr.npz`` (JAX's outputs, made by
 ``scripts/make_torch_smoke_qr.py``) against the port on the CPU, through the
 check functions of ``chip_smoke.py`` phase 27, with no JAX and no OpenCV in
-the port: the encoder's matrices, the enhanced crops, the locator's boxes
-against cv2's (IoU ≥ 0.7), the scans' payloads, the turns, ``extract`` with
+the port: the encoder's matrices, the enhanced crops, the locator's quads
+against cv2's on the fixture's 14 pages and the sweep's 82 (corners within
+1e-3 px, int boxes equal), the scans' payloads, the turns, ``extract`` with
 the port's bundled w16 at fp32 (fields equal wherever the port's boxes are
 JAX's: here on every page) and the labelme core. Tolerances as there.
 """
@@ -39,11 +40,12 @@ def test_encoder_and_enhance(fix, no_cv2):
 
 def test_locator_scan_and_turn(fix, no_cv2):
     located = chip_smoke.qr_locate_check(fix)
-    assert all(len(boxes) == (0 if name == "blank" else 2)
-               for name, (_, boxes, _) in located.items())
+    assert len(located) == 14 + 82
+    assert [[list(b) for b in located[n][1]] for n in fix["names"]] == fix["cv2_boxes"]
     scans = chip_smoke.qr_scan_check(fix)
+    assert len(scans) == 14 + 82
     assert [len(scans[n][0]) for n in fix["names"]] == [
-        1 if "x0.45" in n else 0 if n == "blank" else 2 for n in fix["names"]]
+        1 if "x0.45" in n or n == "s0_x0.55" else 0 if n == "blank" else 2 for n in fix["names"]]
     assert chip_smoke.qr_turn_check(fix) == {"s0_rot90": -1, "s0_rot-90": 1,
                                              "s5_rot90": -1, "s5_rot-90": 1}
 

@@ -38,7 +38,10 @@ from twinvoice_tpu_torch.data.dataset import ArrayDataset, load_invoice_dataset,
 from twinvoice_tpu_torch.data.labelme import build_dataset_from_labelme, build_one
 from twinvoice_tpu_torch.train import checkpoint, losses, metrics, schedule, visualize
 from twinvoice_tpu_torch.train.trainer import fit, make_train_step
-from twinvoice_tpu_torch.ocr.fonts import coverage, glyph_strokes, has_glyph
+from twinvoice_tpu_torch.ocr.fonts import (coverage, draw_text, glyph_strokes, has_glyph,
+    render_char, render_text)
+from twinvoice_tpu_torch.ocr.fonts.latin_glyphs import GLYPHS, LatinStyle, sample_style
+from twinvoice_tpu_torch.qr.locate import locate_qr_boxes, locate_qr_quads, set_rng_seed
 from twinvoice_tpu_torch.ocr.torchocr.charset import cjk_charset
 from twinvoice_tpu_torch.ocr.torchocr.data import encode_labels, random_field_text
 from twinvoice_tpu_torch.ocr.torchocr.lm import CharNgramLM
@@ -317,15 +320,16 @@ import numpy as np
 import chip_smoke
 from twinvoice_tpu_torch import __main__ as cli
 from twinvoice_tpu_torch.fusion.extract import auto_rotate_by_qr
-from twinvoice_tpu_torch.qr import detect
+from twinvoice_tpu_torch.qr import detect, locate
 fix = chip_smoke.qr_fixture()
 i = fix["names"].index("s0_x0.45")
 detect.passes.clear()
+locate.set_rng_seed(0)
 with warnings.catch_warnings():
     warnings.simplefilter("ignore")  # the opencv_decode backend's skips
     got = detect.QrPipeline().scan(fix["pages"][i])
 assert got == fix["jax_native"][i] and len(got) == 1, got
-assert detect.passes["regions"] == 1 and detect.passes["enhanced"] == 2, dict(detect.passes)
+assert detect.passes["regions"] == 1 and detect.passes["enhanced"] == 1, dict(detect.passes)
 j = fix["names"].index("s0_rot90")
 page = fix["pages"][j]
 assert np.array_equal(auto_rotate_by_qr(page), np.rot90(page, int(fix["jax_turn"][j])))
@@ -341,7 +345,7 @@ print("located")
 
 
 def test_qr_locator_autorotate_and_cli_run_without_jax_pil_cv2():
-    """The QR scan's region pass and enhanced retries (the numpy locator,
+    """The QR scan's region pass and enhanced retries (the host C++ locator,
     ``equalizeHist`` and the cubic upscale), auto-rotate of a landscape page
     and every CLI subcommand's parser run with JAX, the JAX package, Pillow
     and OpenCV blocked, as on the card's machine."""

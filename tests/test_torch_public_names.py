@@ -41,9 +41,6 @@ PACKAGES = {
 NOT_PORTED = {
     ("eval", "make_base_cases"): "host-side renderer (Pillow, TrueType); its "
                                  "cases reach the port through save_cases",
-    ("ocr.fonts", "draw_text"): "host-side Pillow drawing of the stroke font",
-    ("ocr.fonts", "render_char"): "host-side Pillow drawing of the stroke font",
-    ("ocr.fonts", "render_text"): "host-side Pillow drawing of the stroke font",
     ("ocr.jaxocr", "JaxOcrEngine"): "its counterpart is TorchOcrEngine",
 }
 

@@ -6,13 +6,15 @@ Tolerance: none. The parsers return equal values on the fuzz inputs of
 returns JAX's payloads on rendered invoices, gray and RGB; the scan returns
 JAX's payloads, in order, with OpenCV present, and where OpenCV is blocked
 on every page whose first pass (the 0.75× gray) suffices. Where it does not,
-the port skips the OpenCV region pass with a warning and counts the skip.
+the region pass runs on the port's locator (cv2's, rebuilt) and only the
+``opencv_decode`` backend is skipped, with a warning and a count.
 """
 
 import os
 import sys
 import warnings
 
+import cv2
 import numpy as np
 import pytest
 from hypothesis import given, settings
@@ -26,6 +28,7 @@ from twinvoice_tpu.qr import parse as jparse
 from twinvoice_tpu.qr.encode import render_qr
 from twinvoice_tpu_torch import _build
 from twinvoice_tpu_torch.qr import detect as tdetect
+from twinvoice_tpu_torch.qr import locate
 from twinvoice_tpu_torch.qr import native as tnative
 from twinvoice_tpu_torch.qr import parse as tparse
 
@@ -141,13 +144,15 @@ def test_scan_equals_jax_with_cv2(invoices):
 
 def test_scan_without_cv2(invoices, monkeypatch):
     """cv2 blocked: the same payloads where the first pass suffices, no
-    warning; on a page under 420 px the numpy region pass runs, is counted
-    and reads both codes, nothing skipped; on a blank page every pass runs
-    and only the opencv_decode backend is skipped, with a warning and a
-    count."""
+    warning; on a page under 420 px the region pass runs (cv2's one box,
+    as JAX's) and is counted, the full frame reads the other code, nothing
+    skipped; on a blank page every pass runs and only the opencv_decode
+    backend is skipped, with a warning and a count. The locator's
+    generators are seeded alike before each scan of the small page."""
     jq = jdetect.QrPipeline()
     want = [jq.scan(p) for p in invoices]
     small = invoices[4][::2, ::2].copy()  # 320×220: no 0.75× pass
+    cv2.setRNGSeed(0)
     want_small = jq.scan(small)
     monkeypatch.setitem(sys.modules, "cv2", None)
     assert not tdetect.cv2_available()
@@ -159,11 +164,12 @@ def test_scan_without_cv2(invoices, monkeypatch):
         assert [tq.scan(p) for p in invoices] == want
     assert dict(tdetect.passes) == {"gray_0.75": len(invoices)}
     tdetect.passes.clear()
+    locate.set_rng_seed(0)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         got = tq.scan(small)
     assert sorted(got) == sorted(want_small) and len(got) == 2
-    assert dict(tdetect.passes) == {"regions": 1, "region_crop": 2}
+    assert dict(tdetect.passes) == {"regions": 1, "region_crop": 1, "full_frame": 1}
     tdetect.passes.clear()
     with pytest.warns(UserWarning, match="opencv_decode") as record:
         assert tq.scan(np.full((440, 300, 3), 250, np.uint8)) == []

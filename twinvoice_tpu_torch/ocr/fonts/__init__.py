@@ -1,5 +1,13 @@
-"""The in-repo Traditional-Chinese stroke font: the port's copy of the
-glyph data and resolver of ``twinvoice_tpu/ocr/fonts`` (``strokefont``),
-which give the recognizer's CJK charset (``torchocr.charset.cjk_charset``)."""
+"""The in-repo stroke fonts: the port's copies of ``twinvoice_tpu/ocr/fonts``
+(``strokefont``, the Traditional-Chinese stroke font whose coverage gives the
+recognizer's CJK charset, ``torchocr.charset.cjk_charset``; ``latin_glyphs``,
+the parametric Latin typeface of the recognizer's training lines)."""
 
-from twinvoice_tpu_torch.ocr.fonts.strokefont import coverage, glyph_strokes, has_glyph  # noqa: F401
+from twinvoice_tpu_torch.ocr.fonts.strokefont import (  # noqa: F401
+    coverage,
+    draw_text,
+    glyph_strokes,
+    has_glyph,
+    render_char,
+    render_text,
+)

@@ -11,15 +11,18 @@ Stroke mini-language (coordinates 0–100, y down):
   ("p", (x,y), (x,y), ...)  polyline
 
 The drawing half (``draw_char``, ``draw_text``, ``render_char``,
-``render_text``) draws with Pillow, which the card's machine lacks; it stays
-in the JAX package with the line renderers that call it, so training lines
-are rendered there, on the host, into an npz.
+``render_text``) is the JAX module's too. ``draw_char`` and ``draw_text``
+draw with the caller's drawing object (Pillow's ``ImageDraw``) and import
+nothing; ``render_char`` and ``render_text`` import Pillow when called, so
+they run only where it is installed (the card's machine has none).
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
 from typing import List, Tuple
+
+import numpy as np
 
 from twinvoice_tpu_torch.ocr.fonts.tw_glyphs import COMPONENTS, COMPOSE
 
@@ -90,3 +93,80 @@ def coverage() -> frozenset:
         if len(k) == 1 and has_glyph(k):
             out.add(k)
     return frozenset(out)
+
+
+def draw_char(draw, xy, ch: str, size: int, fill=0, weight: float = 6.5,
+              style_rng=None, jitter: float = 0.03):
+    """Draw one glyph with Pillow's ``ImageDraw`` ``draw`` at pixel
+    position ``xy`` (top-left).
+
+    ``style_rng``/``jitter``: style randomization. Given a numpy Generator,
+    each stroke gets a correlated offset (whole-stroke translation, as a
+    component's placement varies), each point a smaller independent wobble,
+    and each stroke its own width multiplier, so the recognizer sees CJK
+    shape classes rather than one font's exact rendering. ``jitter`` is in
+    em fractions (0.03 ≈ 3% of the em square).
+    """
+    x0, y0 = xy
+    s = size / 100.0
+    w = max(1, int(round(size * weight / 100.0)))
+    for st in glyph_strokes(ch):
+        if style_rng is not None:
+            j = jitter * size
+            dx, dy = style_rng.normal(0.0, j, 2)          # stroke offset
+            wobble = style_rng.normal(0.0, 0.4 * j, (len(st) - 1, 2))
+            pts = [
+                (x0 + px * s + dx + wx, y0 + py * s + dy + wy)
+                for (px, py), (wx, wy) in zip(st[1:], wobble)
+            ]
+            wi = max(1, int(round(w * float(style_rng.uniform(0.7, 1.35)))))
+        else:
+            pts = [(x0 + px * s, y0 + py * s) for px, py in st[1:]]
+            wi = w
+        if len(pts) == 1:
+            pts = pts * 2
+        draw.line(pts, fill=fill, width=wi, joint="curve")
+
+
+def draw_text(draw, xy, text: str, size: int, fill=0, ascii_font=None,
+              spacing: float = 0.08, weight: float = 6.5,
+              style_rng=None, jitter: float = 0.03):
+    """Draw mixed ASCII/CJK text: CJK via this stroke font, everything else
+    via the given PIL font (or PIL default). Returns total advance width.
+    ``style_rng``/``jitter``: see :func:`draw_char`."""
+    x, y = xy
+    for ch in text:
+        if has_glyph(ch):
+            draw_char(draw, (x, y), ch, size, fill=fill, weight=weight,
+                      style_rng=style_rng, jitter=jitter)
+            x += size * (1.0 + spacing)
+        else:
+            if ascii_font is not None:
+                draw.text((x, y), ch, fill=fill, font=ascii_font)
+                adv = draw.textlength(ch, font=ascii_font)
+            else:
+                draw.text((x, y), ch, fill=fill)
+                adv = draw.textlength(ch)
+            x += adv
+    return x - xy[0]
+
+
+def render_char(ch: str, size: int = 64, pad: int = 4) -> np.ndarray:
+    """One glyph → uint8 grayscale (size+2pad)² image, dark on light."""
+    from PIL import Image, ImageDraw
+
+    img = Image.new("L", (size + 2 * pad, size + 2 * pad), 255)
+    draw_char(ImageDraw.Draw(img), (pad, pad), ch, size)
+    return np.asarray(img)
+
+
+def render_text(text: str, size: int = 48, pad: int = 6,
+                ascii_font=None, weight: float = 6.5) -> np.ndarray:
+    """Text line → uint8 grayscale image sized to content."""
+    from PIL import Image, ImageDraw
+
+    w = int(size * 1.2 * (len(text) + 1)) + 2 * pad
+    img = Image.new("L", (w, size + 2 * pad), 255)
+    adv = draw_text(ImageDraw.Draw(img), (pad, pad), text, size,
+                    ascii_font=ascii_font, weight=weight)
+    return np.asarray(img)[:, : int(adv) + 2 * pad]

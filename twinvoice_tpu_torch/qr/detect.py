@@ -5,9 +5,10 @@ The same cascade, early stop and payload filter as the JAX ``QrPipeline``
 decoder (``qr.native``), ``cv2.QRCodeDetector``, or any callable ``ndarray
 -> list[str]``.
 
-Every pass runs on numpy, on any machine: the 0.75× INTER_AREA gray (pass
-1), the region pass on the port's own locator (``qr.locate``, the
-counterpart of ``cv2.QRCodeDetector``'s detection), the full frame, the
+Every pass runs without OpenCV, on any machine: the 0.75× INTER_AREA gray
+(pass 1), the region pass on the port's locator (``qr.locate``:
+``cv2.QRCodeDetector``'s own localisation, ``detectMulti`` then ``detect``,
+rebuilt in host C++, so its boxes are the JAX scan's), the full frame, the
 enhanced region retries (``ops.host_image``'s ``equalizeHist`` and 3×
 INTER_CUBIC), the two half tiles and the 2× linear last resort. The one
 OpenCV step left is the ``opencv_decode`` backend, cv2's own decoder: the
@@ -64,10 +65,12 @@ def cv2_available() -> bool:
 
 def detect_qr_regions(rgb: np.ndarray) -> List[Tuple[int, int, int, int]]:
     """Locate likely QR bounding boxes (x1, y1, x2, y2) in a uint8 RGB (or
-    gray) array with ``qr.locate``. Frames wider than ``_DETECT_MAX_DIM``
-    are first scanned at an INTER_AREA downscale; fewer than 2 boxes there
-    falls back to the full resolution. Boxes are in full-resolution
-    coordinates, scaled back as the JAX package scales cv2's."""
+    gray) array with ``qr.locate.locate_qr_boxes`` (cv2's ``detectMulti``,
+    then ``detect``, as the JAX package calls them). Frames wider than
+    ``_DETECT_MAX_DIM`` are first scanned at an INTER_AREA downscale; fewer
+    than 2 boxes there falls back to the full resolution, as JAX's does.
+    Boxes are in full-resolution coordinates, scaled back as the JAX
+    package scales cv2's."""
     gray = rgb_to_gray(rgb) if rgb.ndim == 3 else rgb
     scale = max(gray.shape) / float(_DETECT_MAX_DIM)
     if scale > 1.0:
@@ -83,8 +86,8 @@ def detect_qr_regions(rgb: np.ndarray) -> List[Tuple[int, int, int, int]]:
     return locate_qr_boxes(gray)
 
 
-# only downscale genuinely large frames (phone photos): finder detection
-# needs ~2 px per module
+# only downscale genuinely large frames (phone photos): the locator needs
+# ~2 px per module
 _DETECT_MAX_DIM = 800
 
 
