@@ -7,8 +7,9 @@ Phases, each printing one line with its wall time:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit
 2. build every CUDA kernel of the port from ``twinvoice_tpu_torch/csrc``, and
-   the two host C++ libraries beside them: the QR decoder from
-   ``native/qrdecode.cpp`` and the image codec from ``csrc/host_codec.cpp``
+   the host C++ libraries beside them: the QR decoder from
+   ``native/qrdecode.cpp``, the image codec from ``csrc/host_codec.cpp``, the
+   QR locator and the TrueType engine
 3. K1 (``ops.bbox_postprocess``) against its plain PyTorch version on the
    card: exact equality of boxes and valid flags on planted rectangles
    (float32 and bfloat16), all-below and all-above logits, H≠W, odd widths,
@@ -302,6 +303,22 @@ Phases, each printing one line with its wall time:
     (c) ``__main__.main(["build-dataset", ...])`` at 512² on the fixture's
     labelme photo and JSON: the written ``.jpg`` byte-equal to
     the JAX package's ``build_one`` output and the ``.npy`` mask equal
+31. TrueType text and the training renderers on the card's machine, which has
+    neither Pillow nor FreeType (``ocr/fonts/truetype`` on the host C++
+    library ``csrc/host_truetype.cpp``, ``ops/host_pildraw``; no kernel),
+    against ``tests/data/torch_smoke_render.npz``: (a) the glyph sheet of the
+    13 bundled fonts × sizes 10-29 × the charset (the 12 DejaVu faces through
+    the bytecode interpreter, Atkinson through the auto-hinter) and of
+    Pillow's default font × printable ASCII, 0 bytes differing from
+    Pillow's, and the µs a glyph; (b) the port's own registry equal to the
+    fixture's, three ``make_batch`` batches (default, every fraction, CJK)
+    and four ``render_textpage`` pages equal to JAX's with the generator's
+    state, and the host ms a line, a timed batch of 64 and a page (the JAX
+    renderers' figures, from the machine that made the fixture, printed
+    for reference only); (c) ``train-ocr --steps 101 --out W`` without
+    ``--pool`` at the CLI's batch of 64 (TF32 off), its weights served by
+    ``TorchOcrEngine``; (d) the textness head trained 20 steps on its own
+    pages
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -324,7 +341,7 @@ their ``xla`` counts too. Phase 27's ``extract`` calls are driven the same
 way (K1 once a page), and so is the serving of the CLI's checkpoint (K1
 once). So are phase 28's app ``extract`` calls (K1 once a page), phase
 29's gauntlet routes (as phase 26's) and its serving of the augmented
-checkpoint (K1 once). Phase 30 must leave every count as it was. The
+checkpoint (K1 once). Phases 30 and 31 must leave every count as they were. The
 kernel rows' launches sum every such path.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
@@ -500,18 +517,20 @@ def phase_device():
 
 
 def phase_build():
-    """The CUDA kernels (one nvcc each), the QR decoder, the image codec and
-    the QR locator (the host C++ compiler), all at once."""
+    """The CUDA kernels (one nvcc each), the QR decoder, the image codec, the
+    QR locator and the TrueType engine (the host C++ compiler), all at once."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from twinvoice_tpu_torch.ocr.fonts import truetype
     from twinvoice_tpu_torch.ops import host_imageio
     from twinvoice_tpu_torch.qr import locate as qr_locate
     from twinvoice_tpu_torch.qr import native as qr_native
 
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         host_libs = {"qrdecode": pool.submit(qr_native.build),
                      "hostcodec": pool.submit(host_imageio.build_codec),
-                     "hostqrlocate": pool.submit(qr_locate.build)}
+                     "hostqrlocate": pool.submit(qr_locate.build),
+                     "hosttruetype": pool.submit(truetype.build)}
         built = _build.build()
         built.update((name, lib.result()) for name, lib in host_libs.items())
     for name, path in built.items():
@@ -5664,6 +5683,228 @@ def phase_codec(card):
                              f"{dict(_build.launches)}")
 
 
+
+# -- phase 31: text rendering without Pillow or FreeType -------------------------
+
+RENDER_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_render.npz")
+RENDER_OCR_STEPS = 101  # (c): one past the learning rate's 100-step warmup, at the CLI's batch
+RENDER_TIMED_BATCH = 64  # (b): the lines of the batch timed, the CLI's batch size
+RENDER_TX_STEPS = 20  # (d)
+RENDER_TX_BATCH = 8  # (d): pages a batch
+RENDER_TX_POOL = 2  # (d): batches in the cached pool
+
+
+def render_fixture():
+    with np.load(RENDER_FIXTURE) as z:
+        fix = {k: z[k] for k in z.files}
+    for k in ("sheet_fonts", "registry"):
+        fix[k] = [str(n) for n in fix[k]]
+    fix["sheet_chars"] = str(fix["sheet_chars"])
+    fix["dsheet_chars"] = str(fix["dsheet_chars"])
+    fix["batch_kwargs"] = json.loads(str(fix["batch_kwargs"]))
+    fix["jax_host"] = str(fix["jax_host"])
+    return fix
+
+
+@contextlib.contextmanager
+def render_registry(names):
+    """The port's training-font registry cut to the bundled faces ``names``
+    (file names, in order) for the fixture's renders, restored after."""
+    from twinvoice_tpu_torch.data import synthetic
+    from twinvoice_tpu_torch.ocr.torchocr import data as rec_data
+
+    paths = [str(synthetic.BUNDLED_FONTS / n) for n in names]
+    old = rec_data._FONT_PATHS, synthetic.train_fonts
+    rec_data._FONT_PATHS, synthetic.train_fonts = paths, (lambda: list(paths))
+    try:
+        yield paths
+    finally:
+        rec_data._FONT_PATHS, synthetic.train_fonts = old
+
+
+def _sheet_diff(font, chars, meta, buf, i):
+    """The port's masks of ``chars`` against the sheet's from entry ``i``:
+    → (glyphs differing, bytes differing, seconds rendering). A glyph whose
+    box, offset or length differs counts all the bytes of the larger mask."""
+    bad = nbytes = 0
+    t = 0.0
+    for k, ch in enumerate(chars):
+        off, h, w, xo, yo, length = (int(v) for v in meta[i + k])
+        want = buf[off:off + h * w].reshape(h, w)
+        t0 = time.perf_counter()
+        got, goff = font.getmask2(ch)
+        t += time.perf_counter() - t0
+        if got.shape == want.shape and goff == (xo, yo) and \
+                round(font.getlength(ch) * 64) == length:
+            d = int((got != want).sum())
+        else:
+            d = max(got.size, want.size, 1)
+        bad += d > 0
+        nbytes += d
+    return bad, nbytes, t
+
+
+def render_sheet_check(fix):
+    """(a) every glyph of the sheets rendered by the port's ``FreeTypeFont``
+    from the bundled copies (the twelve DejaVu faces through the bytecode
+    interpreter, Atkinson Hyperlegible Next through the auto-hinter) and by
+    ``load_default()`` (Pillow's default font, auto-hinted, BASIC layout):
+    → ({font: (glyphs, glyphs differing, bytes differing)}, host µs a
+    glyph)."""
+    from twinvoice_tpu_torch.data import synthetic
+    from twinvoice_tpu_torch.ocr.fonts import truetype
+
+    meta, buf, chars = fix["sheet_meta"], fix["sheet_buf"], fix["sheet_chars"]
+    sizes = len(meta) // (len(fix["sheet_fonts"]) * len(chars))
+    out, i, t = {}, 0, 0.0
+    for name in fix["sheet_fonts"]:
+        glyphs = bad = nbytes = 0
+        for size in range(10, 10 + sizes):
+            b, n, dt = _sheet_diff(truetype.FreeTypeFont(synthetic.BUNDLED_FONTS / name, size),
+                                   chars, meta, buf, i)
+            glyphs, bad, nbytes, t, i = glyphs + len(chars), bad + b, nbytes + n, t + dt, i + len(chars)
+        out[name] = (glyphs, bad, nbytes)
+    dchars = fix["dsheet_chars"]
+    b, n, dt = _sheet_diff(truetype.load_default(), dchars, fix["dsheet_meta"], fix["dsheet_buf"], 0)
+    out["load_default() " + truetype.DEFAULT_FONT.name] = (len(dchars), b, n)
+    return out, (t + dt) / (i + len(dchars)) * 1e6
+
+
+def render_batches_check(fix):
+    """(b) the fixture's three recognizer batches and four textness pages
+    rendered by the port from the same seeds, on the registry in force (the
+    port's own on the card, which phase 31 holds to the fixture's):
+    lines, labels, pads, texts, pages, masks and the generator's state after
+    each equal; then one batch of ``RENDER_TIMED_BATCH`` lines timed. →
+    (host ms a line, ms a batch of 64, ms a page)."""
+    from twinvoice_tpu_torch.ocr.torchocr import data as rec_data
+
+    line_s, batch_s = [], []
+    for k, kw in enumerate(fix["batch_kwargs"]):
+        kw = dict(kw)
+        rng = np.random.default_rng(kw.pop("seed"))
+        charset = rec_charset.cjk_charset() if kw.pop("cjk", False) else rec_charset.DEFAULT
+        n = len(fix[f"b{k}_lines"])
+        t0 = time.perf_counter()
+        lines, labels, pad, texts = rec_data.make_lines(n, rng, charset, **kw)
+        batch_s.append(time.perf_counter() - t0)
+        line_s.append(batch_s[-1] / n)
+        for name, got in (("lines", lines), ("labels", labels), ("pad", pad)):
+            if not np.array_equal(got, fix[f"b{k}_{name}"]):
+                raise AssertionError(f"batch {k} ({kw}): {name} differ from JAX's "
+                                     f"({int((got != fix[f'b{k}_{name}']).sum())} values)")
+        if texts != [str(t) for t in fix[f"b{k}_texts"]]:
+            raise AssertionError(f"batch {k}: texts {texts} are not JAX's")
+        if json.dumps(rng.bit_generator.state) != str(fix[f"b{k}_state"]):
+            raise AssertionError(f"batch {k}: the generator's state differs from JAX's")
+    rng = np.random.default_rng(3)
+    page_s = []
+    for j in range(len(fix["pages"])):
+        t0 = time.perf_counter()
+        page, mask = ttex.render_textpage(rng)
+        page_s.append(time.perf_counter() - t0)
+        if not (np.array_equal(page, fix["pages"][j]) and np.array_equal(mask, fix["masks"][j])):
+            raise AssertionError(f"textness page {j} differs from JAX's "
+                                 f"({int((page != fix['pages'][j]).sum())} pixels)")
+    if json.dumps(rng.bit_generator.state) != str(fix["pages_state"]):
+        raise AssertionError("pages: the generator's state differs from JAX's")
+    t0 = time.perf_counter()
+    rec_data.make_lines(RENDER_TIMED_BATCH, np.random.default_rng(0))
+    batch64_s = time.perf_counter() - t0
+    return float(np.mean(line_s)) * 1e3, batch64_s * 1e3, float(np.mean(page_s)) * 1e3
+
+
+def train_ocr_cli_check(tmp, device="cuda", steps=RENDER_OCR_STEPS, batch=None):
+    """(c) ``python -m twinvoice_tpu_torch train-ocr --steps N --out W``
+    without ``--pool`` (a fresh batch of the port's own renders each step,
+    of the CLI's 64 lines unless ``batch`` is given), through
+    ``__main__.main``, then the weights served by
+    ``TorchOcrEngine(weights_dir=W)``. → (seconds, the engine)."""
+    from twinvoice_tpu_torch import __main__ as cli
+    from twinvoice_tpu_torch.ocr.torchocr.engine import TorchOcrEngine
+
+    out = os.path.join(tmp, "recognizer.npz")
+    argv = ["train-ocr", "--steps", str(steps), "--out", out, "--device", str(device)]
+    if batch is not None:
+        argv += ["--batch-size", str(batch)]
+    t0 = time.perf_counter()
+    cli.main(argv)
+    secs = time.perf_counter() - t0
+    eng = TorchOcrEngine(weights_dir=out, device=device)
+    if not eng.available() or eng.arch != "t64":
+        raise AssertionError(f"train-ocr's weights do not load: {out}")
+    params, state, _, _ = rec_train.load_weights_ex(out)
+    if not all(torch.isfinite(torch.as_tensor(np.asarray(v))).all()
+               for v in tree_leaves(params) + tree_leaves(state)):
+        raise AssertionError("train-ocr wrote weights that are not finite")
+    return secs, eng
+
+
+def textness_own_pages_check(device="cuda", steps=RENDER_TX_STEPS, bs=RENDER_TX_BATCH,
+                             pool=RENDER_TX_POOL):
+    """(d) the textness head trained from a fresh init for ``steps`` steps
+    on a cached pool of its own pages (``train`` without pages). → (seconds,
+    the params)."""
+    t0 = time.perf_counter()
+    params = ttex.train(steps=steps, bs=bs, cache_batches=pool, seed=0, device=device,
+                        log=lambda m: print("   ", m, flush=True))
+    secs = time.perf_counter() - t0
+    if not all(torch.isfinite(p[k]).all() for p in params for k in p):
+        raise AssertionError("the textness head trained on its own pages is not finite")
+    return secs, params
+
+
+def phase_render(card):
+    """Phase 31: TrueType text, the line and page renderers and the trainers
+    that draw their own data, on the card's host. It launches no kernel of
+    the port."""
+    import tempfile
+
+    from twinvoice_tpu_torch.data import synthetic
+
+    cpu = host_cpu()
+    fix = render_fixture()
+    before = dict(_build.launches)
+    own = [os.path.basename(p) for p in synthetic.train_fonts()]
+    if own != fix["registry"]:
+        raise AssertionError(f"the port's training fonts here {own} are not the fixture's "
+                             f"{fix['registry']}")
+    sheet, us = render_sheet_check(fix)
+    for name, (glyphs, bad, nbytes) in sheet.items():
+        if bad:
+            raise AssertionError(f"(a) {name}: {bad} of {glyphs} glyphs ({nbytes} bytes) differ "
+                                 f"from Pillow's")
+    print(f"  (a) glyph sheets: {sum(g for g, _, _ in sheet.values())} glyphs ({len(sheet) - 1} "
+          f"training faces × sizes 10-29 × the charset, Atkinson auto-hinted; Pillow's default "
+          f"font × printable ASCII): 0 bytes differ from Pillow 12.1 (FreeType 2.14.1); "
+          f"{us:.1f} µs a glyph (host: {cpu})", flush=True)
+    line_ms, batch_ms, page_ms = render_batches_check(fix)
+    print(f"  (b) 3 make_batch batches of {len(fix['b0_lines'])} lines and "
+          f"{len(fix['pages'])} render_textpage pages on the {len(own)} training fonts, equal "
+          f"to JAX's with the generator's state: {line_ms:.2f} ms a line, {batch_ms:.1f} ms a "
+          f"batch of {RENDER_TIMED_BATCH} (make_lines, default_rng(0)), {page_ms:.1f} ms a page "
+          f"(host: {cpu}) [{card}]; for reference, JAX with Pillow and cv2 on another machine "
+          f"({fix['jax_host']}): {float(fix['jax_batch64_s']) * 1e3:.0f} ms a batch of 64, "
+          f"{float(fix['jax_page_s']) * 1e3:.1f} ms a page", flush=True)
+    _build.build_dir().mkdir(parents=True, exist_ok=True)
+    device = torch.device("cuda")
+    with tf32_off(), tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp:
+        secs, eng = train_ocr_cli_check(tmp, device)
+        ocr = ocr_fixture()
+        texts = [r.text for r in eng.read_batch(ocr["crop_list"][:8],
+                                                 modes=[str(m) for m in ocr["crop_modes"][:8]])]
+        print(f"  (c) train-ocr --steps {RENDER_OCR_STEPS} (batch 64) without --pool "
+              f"(TF32 off): {secs:.1f} s, its weights served by "
+              f"TorchOcrEngine: {texts} [{card}]", flush=True)
+        secs, params = textness_own_pages_check(device)
+        m = ttex.textness_map(fix["pages"][0], params, device=device)
+        print(f"  (d) the textness head, {RENDER_TX_STEPS} steps on {RENDER_TX_POOL} batches "
+              f"of {RENDER_TX_BATCH} of its own pages: {secs:.1f} s; its map of a fixture "
+              f"page has {int(m.sum())} text pixels [{card}]", flush=True)
+    if dict(_build.launches) != before:
+        raise AssertionError(f"phase 31 launched kernels of the port: {before} -> "
+                             f"{dict(_build.launches)}")
+
 def main():
     ph = Phases()
     name, card = ph.run(1, "device", phase_device)
@@ -5794,6 +6035,8 @@ def main():
 
     ph.run(30, "image files without OpenCV: the codec against cv2, a phone photo, "
                "build-dataset", phase_codec, card)
+    ph.run(31, "TrueType text, the line and page renderers, train-ocr from its own renders",
+           phase_render, card)
 
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
              launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]

@@ -3,8 +3,8 @@
 
 What is held: each subcommand's parser equals JAX's argument for argument,
 defaults included, but for the stated differences (``--device`` on
-``train`` and ``train-ocr``; ``train-ocr`` reads a pool of pre-rendered lines,
-``--pool`` and ``--out``, with ``--batch-size``); ``train``
+``train`` and ``train-ocr``; ``train-ocr`` writes ``--out`` and may read a
+pool of pre-rendered lines, ``--pool``, with ``--batch-size``); ``train``
 hands ``fit`` the same ``Config`` and the same dataset as JAX's CLI does;
 ``train-ocr`` refuses a run inside the 100-step warmup with JAX's error, and
 trains for 101 steps on the CPU and writes weights that load.
@@ -63,7 +63,7 @@ def test_parsers_equal_jax(monkeypatch):
     assert got["train"] == dict(want["train"], device=device)
     assert got["train-ocr"] == {
         "steps": want["train-ocr"]["steps"],
-        "pool": (("--pool",), None, None, True, None, None),
+        "pool": (("--pool",), None, None, False, None, None),
         "out": (("--out",), None, None, True, None, None),
         "batch_size": (("--batch-size",), 64, int, False, None, None),
         "device": device}

@@ -2,8 +2,10 @@
 ``draw_char``, ``draw_text``, ``render_char``, ``render_text``; the whole of
 ``ocr/fonts/latin_glyphs.py``) against the JAX package, with Pillow on the
 CPU: every render byte for byte equal, and a style generator left in JAX's
-state. ``tests/test_torch_imports.py`` imports both modules with Pillow
-blocked."""
+state. The port's ``render_char`` and ``render_text`` draw on
+``ops/host_pildraw`` without Pillow (Pillow's default font from
+``ocr/fonts/truetype.load_default``). ``tests/test_torch_imports.py``
+imports both modules with Pillow blocked."""
 
 import numpy as np
 import pytest

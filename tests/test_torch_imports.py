@@ -1,6 +1,7 @@
 """PyTorch port: what the card's machine lacks is never imported (the
-recognition stack, bulk extraction, training, the QR locator and the CLI run
-end to end without it),
+recognition stack, bulk extraction, training, the QR locator, the CLI and
+the training renderers run end to end without it; the renderers load
+neither FreeType nor HarfBuzz),
 and the kernel build finds nvcc, hashes its sources and reports failures."""
 
 import os
@@ -88,6 +89,14 @@ from twinvoice_tpu_torch.app.camera_component import camera, data_url_to_image, 
 from twinvoice_tpu_torch.ocr import enhance_for_ocr, grayscale_for_ocr
 from twinvoice_tpu_torch.ocr.ocrspace import OcrSpaceEngine
 from twinvoice_tpu_torch.ocr.easyocr_engine import EasyOcrEngine
+from twinvoice_tpu_torch.ocr.fonts.truetype import FreeTypeFont
+from twinvoice_tpu_torch.ops.host_pildraw import Draw, Image
+from twinvoice_tpu_torch.ocr.torchocr.data import dot_matrix, make_batch, make_lines, render_line
+from twinvoice_tpu_torch.ocr.torchocr.textness import render_textpage
+from twinvoice_tpu_torch.data.synthetic import train_fonts
+from twinvoice_tpu_torch.ops.host_image import dilate2x2, resize_area_f32, resize_linear_f32
+from twinvoice_tpu_torch.ops.host_warp import remap_linear_f32, warp_affine_u8
+from twinvoice_tpu_torch.ops.host_filter import resize_cubic_f32_cv
 import chip_smoke
 loaded = [m for m, v in sys.modules.items()
           if v is not None and m.split(".")[0] in {BLOCKED!r}]
@@ -101,6 +110,47 @@ def test_port_and_chip_smoke_import_without_jax_pil_cv2():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 85  # every module was imported
+
+
+_RENDER_WITHOUT_PIL = f"""
+import sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+import numpy as np
+from twinvoice_tpu_torch.data.synthetic import train_fonts
+from twinvoice_tpu_torch.ocr.fonts.truetype import FreeTypeFont
+from twinvoice_tpu_torch.ocr.torchocr.charset import cjk_charset
+from twinvoice_tpu_torch.ocr.torchocr.data import make_batch
+from twinvoice_tpu_torch.ocr.torchocr.textness import make_batch as page_batch
+fonts = train_fonts()
+assert len(fonts) >= 13, fonts
+for path in fonts:
+    mask, _ = FreeTypeFont(path, 17).getmask2("AB-12/3")
+    assert mask.max() > 0, path
+from twinvoice_tpu_torch.ocr.fonts import strokefont
+assert strokefont.render_text("Total: NT$1,250 統一").min() < 128  # Pillow's default font
+rng = np.random.default_rng(0)
+make_batch(4, rng, cjk_charset(), dot_frac=0.5, synth_frac=0.3, mixed_frac=0.3)
+page_batch(1, rng)
+with open("/proc/self/maps") as f:
+    maps = f.read()
+assert "libfreetype" not in maps and "libharfbuzz" not in maps
+loaded = [m for m, v in sys.modules.items()
+          if v is not None and m.split(".")[0] in {BLOCKED!r}]
+assert not loaded, loaded
+print("rendered")
+"""
+
+
+def test_renderers_run_without_pil_freetype_cv2():
+    """Every training font, Pillow's default font (the stroke font's ASCII),
+    the recognizer's lines (CJK, dot, synthetic typefaces) and a textness
+    page render with JAX, the JAX package, Pillow and OpenCV blocked, and
+    neither FreeType nor HarfBuzz loaded, as on the card's machine."""
+    out = subprocess.run([sys.executable, "-c", _RENDER_WITHOUT_PIL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "rendered"
 
 
 _READ_WITHOUT_CV2 = f"""

@@ -2,16 +2,17 @@
 
     python -m twinvoice_tpu_torch build-dataset [--json-dir J --images-dir I ...]
     python -m twinvoice_tpu_torch train [--epochs N --batch-size B ... --device D]
-    python -m twinvoice_tpu_torch train-ocr --pool LINES.npz --out W.npz
+    python -m twinvoice_tpu_torch train-ocr --out W.npz [--pool LINES.npz]
         [--steps N --batch-size B --device D]
     python -m twinvoice_tpu_torch app
 
 ``build-dataset`` and ``train`` take the JAX CLI's arguments and defaults;
 ``train`` runs ``train.trainer.fit``. ``train-ocr`` trains the recognizer
-(``ocr/torchocr/train.py``) from a pool of lines rendered on the host into
-an npz (``read_line_npz``'s keys), where the JAX CLI renders its own: the
-port has no renderer. As JAX's, it refuses a run of at most 100 steps (the
-learning rate's warmup). ``--device`` picks the device of ``train`` and
+(``ocr/torchocr/train.py``) as the JAX CLI's does, from a fresh batch of
+its own renders each step (``data.make_lines``), or, given ``--pool``, from
+an npz of lines (``read_line_npz``'s keys). ``--out`` names the weights
+file, so that the bundled weights are never overwritten. As JAX's, it
+refuses a run of at most 100 steps (the learning rate's warmup). ``--device`` picks the device of ``train`` and
 ``train-ocr``; the default is the card. ``app`` launches the Streamlit UI
 (``app/main.py``) through ``python -m streamlit run``, as the JAX CLI's
 does.
@@ -61,8 +62,11 @@ def _cmd_train(args):
 def _cmd_train_ocr(args):
     from twinvoice_tpu_torch.ocr.torchocr import train
 
-    train.train_from_npz(args.pool, args.out, steps=args.steps, batch_size=args.batch_size,
-                         device=args.device)
+    if args.pool:
+        train.train_from_npz(args.pool, args.out, steps=args.steps, batch_size=args.batch_size,
+                             device=args.device)
+    else:  # JAX's train-ocr: a fresh batch of its own renders each step
+        train.train(args.out, steps=args.steps, batch_size=args.batch_size, device=args.device)
 
 
 def _cmd_app(_args):
@@ -99,8 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--device", default=None, help="torch device (default: the card)")
     t.set_defaults(fn=_cmd_train)
 
-    o = sub.add_parser("train-ocr", help="train the CTC recognizer on a pool of lines")
-    o.add_argument("--pool", required=True, help="npz of pre-rendered lines")
+    o = sub.add_parser("train-ocr", help="train the CTC recognizer")
+    o.add_argument("--pool", default=None,
+                   help="npz of pre-rendered lines (default: render each batch, as JAX does)")
     o.add_argument("--out", required=True, help="the weights file to write")
     o.add_argument("--steps", type=int, default=6000)
     o.add_argument("--batch-size", type=int, default=64)

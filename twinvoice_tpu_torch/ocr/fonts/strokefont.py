@@ -12,9 +12,10 @@ Stroke mini-language (coordinates 0–100, y down):
 
 The drawing half (``draw_char``, ``draw_text``, ``render_char``,
 ``render_text``) is the JAX module's too. ``draw_char`` and ``draw_text``
-draw with the caller's drawing object (Pillow's ``ImageDraw``) and import
-nothing; ``render_char`` and ``render_text`` import Pillow when called, so
-they run only where it is installed (the card's machine has none).
+draw with the caller's drawing object (``ops/host_pildraw.Draw`` in the
+port, Pillow's ``ImageDraw`` where the JAX package draws) and import
+nothing; ``render_char`` and ``render_text`` draw on ``host_pildraw``, with
+Pillow's pixels and without Pillow.
 """
 
 from __future__ import annotations
@@ -153,20 +154,22 @@ def draw_text(draw, xy, text: str, size: int, fill=0, ascii_font=None,
 
 def render_char(ch: str, size: int = 64, pad: int = 4) -> np.ndarray:
     """One glyph → uint8 grayscale (size+2pad)² image, dark on light."""
-    from PIL import Image, ImageDraw
+    from twinvoice_tpu_torch.ops.host_pildraw import Draw, Image
 
     img = Image.new("L", (size + 2 * pad, size + 2 * pad), 255)
-    draw_char(ImageDraw.Draw(img), (pad, pad), ch, size)
-    return np.asarray(img)
+    draw_char(Draw(img), (pad, pad), ch, size)
+    return img.array
 
 
 def render_text(text: str, size: int = 48, pad: int = 6,
                 ascii_font=None, weight: float = 6.5) -> np.ndarray:
-    """Text line → uint8 grayscale image sized to content."""
-    from PIL import Image, ImageDraw
+    """Text line → uint8 grayscale image sized to content. ``ascii_font``:
+    an ``ocr.fonts.truetype.FreeTypeFont`` for the characters the stroke
+    font lacks."""
+    from twinvoice_tpu_torch.ops.host_pildraw import Draw, Image
 
     w = int(size * 1.2 * (len(text) + 1)) + 2 * pad
     img = Image.new("L", (w, size + 2 * pad), 255)
-    adv = draw_text(ImageDraw.Draw(img), (pad, pad), text, size,
+    adv = draw_text(Draw(img), (pad, pad), text, size,
                     ascii_font=ascii_font, weight=weight)
-    return np.asarray(img)[:, : int(adv) + 2 * pad]
+    return img.array[:, : int(adv) + 2 * pad]

@@ -8,9 +8,11 @@ with numpy, and ``save_textness`` writes the same format.
 
 Training (``init_textness``, ``textness_labels``, ``textness_loss``,
 ``make_train_step``, ``train``) is JAX's: class-balanced BCE against the
-line boxes rasterised at stride 4, AdamW at optax's cosine decay. Its pages
-come from the caller: the page renderer (``render_textpage``, Pillow,
-OpenCV and ``data/augment``) stays in the JAX package, on the host.
+line boxes rasterised at stride 4, AdamW at optax's cosine decay. The page
+renderer (``render_textpage``, ``make_batch``) is JAX's with the same
+generator draws, drawn by ``ops/host_pildraw`` and the TrueType engine of
+``ocr/fonts/truetype`` and perturbed by the ported ``data/augment``; given
+no pages, ``train`` renders its cached pool of 48 batches as JAX's does.
 """
 
 from __future__ import annotations
@@ -123,6 +125,92 @@ def pages_to_batch(pages_u8, masks_u8, device):
     return x, y
 
 
+def render_textpage(rng: np.random.Generator, size: int = 256,
+                    severity: float = 0.5):
+    """One synthetic training page: random text lines on paper + non-text
+    distractors (QR-ish blocks, rules, blobs), perturbed photographically.
+    Returns (gray uint8 (size,size), mask uint8 (size,size) 0/255): JAX's
+    ``render_textpage`` with the same generator draws. The page before the
+    perturbation and the mask equal JAX's byte for byte; the perturbation
+    engine's float32 stages keep their own bound (``data/augment.py``)."""
+    from twinvoice_tpu_torch.data import augment
+    from twinvoice_tpu_torch.ocr.torchocr import data as rec_data
+    from twinvoice_tpu_torch.ocr.torchocr.charset import CHARSET
+    from twinvoice_tpu_torch.ops.host_image import resize_nearest_u8, rgb_to_gray
+    from twinvoice_tpu_torch.ops.host_pildraw import Draw, Image
+
+    fonts = rec_data._FONT_PATHS  # the registry, as render_line reads it
+    paper = np.full((size, size, 3), int(rng.integers(225, 252)), np.uint8)
+    paper += rng.integers(0, 6, paper.shape, dtype=np.uint8)
+    img = Image.fromarray(paper)
+    draw = Draw(img)
+    mask = np.zeros((size, size), np.uint8)
+
+    # non-text distractors FIRST (text may overlap them)
+    for _ in range(int(rng.integers(0, 4))):
+        kind = rng.integers(0, 3)
+        x, y = int(rng.integers(0, size - 40)), int(rng.integers(0, size - 40))
+        if kind == 0:  # QR-ish checkerboard
+            n = int(rng.integers(6, 14))
+            cell = int(rng.integers(2, 5))
+            block = (rng.integers(0, 2, (n, n)) * 255).astype(np.uint8)
+            block = resize_nearest_u8(block, n * cell, n * cell)
+            bh, bw = block.shape
+            y2, x2 = min(size, y + bh), min(size, x + bw)
+            img.array[y:y2, x:x2] = block[: y2 - y, : x2 - x, None]
+        elif kind == 1:  # horizontal rule
+            draw.line((x, y, min(size, x + int(rng.integers(40, 200))), y),
+                      fill=0, width=int(rng.integers(1, 3)))
+        else:  # solid blob
+            r = int(rng.integers(4, 16))
+            draw.ellipse((x, y, x + r, y + r), fill=int(rng.integers(0, 120)))
+
+    chars = list(CHARSET.strip())
+    for _ in range(int(rng.integers(3, 9))):
+        n = int(rng.integers(4, 14))
+        text = "".join(rng.choice(chars, n))
+        fs = int(rng.integers(10, 24))
+        font = rec_data._font(fonts[int(rng.integers(0, len(fonts)))], fs)
+        tw = int(draw.textlength(text, font=font))
+        th = int(fs * 1.3)
+        if tw >= size - 4:
+            continue
+        x = int(rng.integers(2, size - tw - 2))
+        y = int(rng.integers(2, size - th - 2))
+        draw.text((x, y), text, fill=int(rng.integers(0, 90)), font=font)
+        mask[max(0, y - 1) : y + th + 1, max(0, x - 1) : x + tw + 1] = 255
+
+    if severity > 0:
+        arr, m = augment.perturb(img.array, mask[..., None], rng, severity)
+        mask = m[..., 0]
+        gray = rgb_to_gray(arr)
+    else:
+        gray = rgb_to_gray(img.array)
+    return gray, mask
+
+
+def make_batch(bs: int, rng: np.random.Generator, size: int = 256):
+    """→ (imgs (bs, size, size, 1) float32, labels (bs, size/4, size/4, 1)
+    float32), as JAX's ``make_batch``."""
+    imgs = np.zeros((bs, size, size, 1), np.float32)
+    labels = np.zeros((bs, size // 4, size // 4, 1), np.float32)
+    for i in range(bs):
+        g, m = render_textpage(rng, size)
+        imgs[i, :, :, 0] = g / 255.0
+        labels[i, :, :, 0] = resize_area_u8(m, size // 4, size // 4) > 64
+    return imgs, labels
+
+
+def render_pool(bs: int, rng: np.random.Generator, batches: int, size: int = 256):
+    """JAX's cached pool, ``[make_batch(bs, rng) for _ in range(batches)]``,
+    as uint8 pages and masks → (pages (batches·bs, size, size), masks)."""
+    pages = np.zeros((batches * bs, size, size), np.uint8)
+    masks = np.zeros((batches * bs, size, size), np.uint8)
+    for i in range(batches * bs):
+        pages[i], masks[i] = render_textpage(rng, size)
+    return pages, masks
+
+
 def save_textness(path, params):
     """JAX's textness npz: leaves ``l0…l9`` in ``jax.tree.leaves`` order
     (each layer's ``bias``, then its HWIO ``kernel``)."""
@@ -133,14 +221,16 @@ def save_textness(path, params):
 
 
 def train(steps: int = 1500, bs: int = 32, lr: float = 2e-3, seed: int = 0,
-          out_path: Optional[str] = None, log=print, *, pages, masks, device=None):
+          out_path: Optional[str] = None, log=print, cache_batches: int = 48, *,
+          pages=None, masks=None, device=None):
     """Train a fresh head (``init_textness`` from ``seed``) for ``steps``
     steps of AdamW (weight decay 1e-5) at optax's ``cosine_decay_schedule(lr,
-    steps)`` on a pool cut from ``pages``/``masks`` (uint8 (N, 256, 256),
-    rendered on the host by the JAX package's ``render_textpage``) into
-    N // bs batches held on the device; each step draws one with
-    ``rng.integers(0, len(pool))``. Saves to ``out_path`` if given. → the
-    params."""
+    steps)`` on a pool of batches held on the device; each step draws one
+    with ``rng.integers(0, len(pool))``. Without ``pages``, the pool is
+    JAX's: ``cache_batches`` batches of ``bs`` pages rendered by
+    :func:`render_textpage` from ``default_rng(seed)``. Given ``pages`` and
+    ``masks`` (uint8 (N, 256, 256)), it is cut from them into N // bs
+    batches. Saves to ``out_path`` if given. → the params."""
     from twinvoice_tpu_torch.ocr.torchocr.train import cosine_decay, make_optimizer
 
     device = resolve_device(device)
@@ -150,6 +240,9 @@ def train(steps: int = 1500, bs: int = 32, lr: float = 2e-3, seed: int = 0,
     optimizer = make_optimizer(params)
     schedule = cosine_decay(lr, steps)
     step = make_train_step(device=device)
+    if pages is None:
+        pages, masks = render_pool(bs, rng, cache_batches)
+        log(f"pre-rendered {cache_batches} batches")
     pool = [pages_to_batch(pages[i:i + bs], masks[i:i + bs], device)
             for i in range(0, len(pages) - bs + 1, bs)]
     if not pool:

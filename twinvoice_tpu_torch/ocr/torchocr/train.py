@@ -9,10 +9,11 @@ steps)``, lr 3e-4, batch 64, the ``t64`` arch; a snapshot every 1000 steps,
 exact-match and CER on held-out lines, and the weights in the JAX package's
 npz format, which either package loads.
 
-The one difference from JAX: batches come from the caller (an npz of lines
-rendered on the host by the JAX package's ``make_batch``), not from a
-renderer, which needs Pillow and OpenCV. ``train``'s rng only draws pool
-indices, as JAX's does once its pool is rendered.
+Its lines come from the port's own renderer (``data.make_lines``, JAX's
+``make_batch`` without Pillow or OpenCV): a fresh batch each step, a cached
+pool (``cache_batches``, with ``refresh``'s re-rendering thread), both from
+JAX's generator in JAX's order; or from the caller (``batches``, e.g. an npz
+of lines, ``train_from_npz``), whose pool the rng only indexes.
 
     python -m twinvoice_tpu_torch.ocr.torchocr.train LINES.npz OUT.npz [steps]
         [--resume=weights.npz] [--lr=3e-4] [--batch=64] [--t32] [--wide]
@@ -33,6 +34,7 @@ import torch.nn.functional as F
 from twinvoice_tpu_torch import resolve_device
 from twinvoice_tpu_torch.models.unet import _tree_map, tree_leaves
 from twinvoice_tpu_torch.ocr.torchocr.charset import DEFAULT, Charset
+from twinvoice_tpu_torch.ocr.torchocr import data as D
 from twinvoice_tpu_torch.ocr.torchocr.data import lines_to_tensor, read_line_npz
 from twinvoice_tpu_torch.ocr.torchocr.model import (
     crnn_apply,
@@ -245,6 +247,17 @@ def greedy_texts(params, state, images, charset: Charset, arch: str):
     return [charset.greedy_ctc_decode(row) for row in ids]
 
 
+def render_eval_batches(rng: np.random.Generator, n_batches: int = 4, batch_size: int = 64,
+                        charset: Charset = DEFAULT):
+    """JAX's ``evaluate`` draws: ``n_batches`` fresh ``make_batch(batch_size,
+    rng, charset)`` → a list of ``(lines uint8, texts)``."""
+    out = []
+    for _ in range(n_batches):
+        lines, _, _, texts = D.make_lines(batch_size, rng, charset)
+        out.append((lines, texts))
+    return out
+
+
 def evaluate(params, state, batches, charset: Charset = DEFAULT, arch: str = "t32", *,
              device=None):
     """→ (exact-match rate, char error rate) over ``batches``, an iterable of
@@ -294,18 +307,29 @@ def save_weights(out_path, params, state, charset: Charset = DEFAULT, arch: str 
 
 
 def train(out_dir, steps: int = 3000, batch_size: int = 64, lr: float = 3e-4, seed: int = 0,
-          *, batches, eval_batches, log=print, charset: Charset = DEFAULT, arch: str = "t64",
-          resume_from=None, wide: bool = False, device=None):
+          *, batches=None, eval_batches=None, log=print, charset: Charset = DEFAULT,
+          cache_batches: int = 0, arch: str = "t64", resume_from=None,
+          hard_frac: float = 0.0, sev_frac: float = 0.0, dot_frac: float = 0.0,
+          mixed_frac: float = 0.0, synth_frac: float = 0.0, dot_hard_frac: float = 0.0,
+          wide: bool = False, refresh: bool = False, device=None):
     """Train from ``resume_from``'s weights (whose arch and charset must be
     these) or a fresh init from ``seed`` (``wide``: the wider trunk) for
     ``steps`` steps, and save to ``out_dir`` (a snapshot every 1000 steps,
     then the final weights). Returns ``(params, state, {"exact", "cer"})``.
 
-    ``batches``: the pool, ``(lines uint8 (N, 32, 256), labels (N, 24),
-    label_pad (N, 24))`` cut into N // batch_size batches held on the
-    device; each step draws one with ``rng.integers(0, len(pool))``, as
-    JAX's cached pool is drawn. ``eval_batches``: held-out ``(lines,
-    texts)`` pairs for :func:`evaluate`.
+    Without ``batches`` the lines are rendered as JAX's ``train`` renders
+    them, from ``default_rng(seed)`` with JAX's fractions (``hard_frac``,
+    ``sev_frac``, ``dot_frac``, ``mixed_frac``, ``synth_frac``,
+    ``dot_hard_frac``): a fresh batch each step, or, with ``cache_batches``,
+    a pool rendered once and drawn by ``rng.integers(0, len(pool))`` (with
+    ``refresh``, a daemon thread re-renders random entries in place from
+    ``default_rng(seed + 987_654)``). Given ``batches`` — ``(lines uint8
+    (N, 32, 256), labels (N, 24), label_pad (N, 24))`` — the pool is cut
+    from them into N // batch_size batches. The pool is held on the device.
+
+    ``eval_batches``: held-out ``(lines, texts)`` pairs for
+    :func:`evaluate`; without them, JAX's four fresh batches of 64 from
+    ``default_rng(seed + 1)``.
 
     It sets no global flag: for float32 parity with the JAX trainer on a
     card, the caller turns TF32 off first."""
@@ -325,17 +349,45 @@ def train(out_dir, steps: int = 3000, batch_size: int = 64, lr: float = 3e-4, se
     schedule = warmup_cosine_decay(0.0, lr, WARMUP_STEPS, steps)
     step_fn = make_train_step(arch, device=device)
 
-    lines, labels, pad = batches
-    pool = [(torch.as_tensor(lines[i:i + batch_size]).to(device),
-             labels[i:i + batch_size], pad[i:i + batch_size])
-            for i in range(0, len(lines) - batch_size + 1, batch_size)]
-    if not pool:
-        raise ValueError(f"{len(lines)} lines make no batch of {batch_size}")
-    log(f"pool of {len(pool)} batches of {batch_size} on {device}")
+    fracs = dict(hard_frac=hard_frac, sev_frac=sev_frac, dot_frac=dot_frac,
+                 mixed_frac=mixed_frac, synth_frac=synth_frac, dot_hard_frac=dot_hard_frac)
+
+    def render(r):
+        lines_, labels_, pad_, _ = D.make_lines(batch_size, r, charset, **fracs)
+        return torch.as_tensor(lines_).to(device), labels_, pad_
+
+    pool = None
+    stop_refresh: list = []
+    if batches is not None:
+        lines, labels, pad = batches
+        pool = [(torch.as_tensor(lines[i:i + batch_size]).to(device),
+                 labels[i:i + batch_size], pad[i:i + batch_size])
+                for i in range(0, len(lines) - batch_size + 1, batch_size)]
+        if not pool:
+            raise ValueError(f"{len(lines)} lines make no batch of {batch_size}")
+        log(f"pool of {len(pool)} batches of {batch_size} on {device}")
+    elif cache_batches:
+        t0 = time.time()
+        pool = [render(rng) for _ in range(cache_batches)]
+        log(f"pre-rendered {cache_batches} batches in {time.time() - t0:.0f}s")
+        if refresh:
+            import threading
+
+            def _refresher():
+                rr = np.random.default_rng(seed + 987_654)
+                while not stop_refresh:
+                    i = int(rr.integers(0, len(pool)))
+                    pool[i] = render(rr)
+
+            threading.Thread(target=_refresher, daemon=True).start()
+            log("cache refresher running (continuous in-place re-render)")
 
     t0 = time.time()
     for it in range(1, steps + 1):
-        imgs, lab, pd = pool[int(rng.integers(0, len(pool)))]
+        if pool is not None:
+            imgs, lab, pd = pool[int(rng.integers(0, len(pool)))]
+        else:
+            imgs, lab, pd = render(rng)
         params, state, loss = step_fn(params, state, optimizer, lines_to_tensor(imgs, device),
                                       lab, pd, schedule(it - 1))
         if it % 200 == 0 or it == 1:
@@ -344,6 +396,9 @@ def train(out_dir, steps: int = 3000, batch_size: int = 64, lr: float = 3e-4, se
             # periodic snapshot: a long run must survive a kill
             save_weights(out_dir, params, state, charset, arch=arch)
             log(f"snapshot saved at step {it}")
+    stop_refresh.append(True)
+    if eval_batches is None:
+        eval_batches = render_eval_batches(np.random.default_rng(seed + 1), charset=charset)
     acc, cer = evaluate(params, state, eval_batches, charset, arch, device=device)
     log(f"eval: exact={acc:.3f} cer={cer:.4f}")
     save_weights(out_dir, params, state, charset, arch=arch)

@@ -29,6 +29,9 @@ numpy, as OpenCV 5 computes them for the perturbation engine
   interpolation=cv2.INTER_CUBIC)`` on float32: half-pixel centres, the
   a = −0.75 kernel, replicated edges, horizontal then vertical (IPP's
   arithmetic, as near as float64 weights come to it).
+- :func:`resize_cubic_f32_cv`: the same call bit for bit as OpenCV's own
+  code computes it (``cv2.ipp.setUseIPP(False)``), for ``render_line``'s
+  elastic field, whose port holds JAX's lines byte for byte.
 
 The float32 functions are held to ``cv2`` within the tolerances that
 ``tests/test_torch_filter.py`` states (OpenCV's own order of float32 sums
@@ -266,3 +269,40 @@ def resize_cubic_f32(x: np.ndarray, width: int, height: int) -> np.ndarray:
     x64 = x.astype(np.float64)
     rows = sum(x64[:, xi[:, k]] * xw[:, k] for k in range(4)).astype(_F32).astype(np.float64)
     return sum(rows[yi[:, k]] * yw[:, k][:, None] for k in range(4)).astype(_F32)
+
+
+def _cubic_coeffs_f32(t: np.ndarray):
+    """OpenCV's ``interpolateCubic`` (A = −0.75) in float32."""
+    A, one = _F32(-0.75), _F32(1)
+    t = t.astype(_F32)
+    c0 = ((A * (t + one) - _F32(5) * A) * (t + one) + _F32(8) * A) * (t + one) - _F32(4) * A
+    c1 = ((A + _F32(2)) * t - (A + _F32(3))) * t * t + one
+    c2 = ((A + _F32(2)) * (one - t) - (A + _F32(3))) * (one - t) * (one - t) + one
+    c3 = one - c0 - c1 - c2
+    return [c.astype(_F32) for c in (c0, c1, c2, c3)]
+
+
+def resize_cubic_f32_cv(x: np.ndarray, width: int, height: int) -> np.ndarray:
+    """float32 (h, w) → (height, width), ``cv2.resize(x, (width, height),
+    interpolation=cv2.INTER_CUBIC)`` bit for bit as OpenCV's own code
+    computes it (``cv2.ipp.setUseIPP(False)``): float32 coordinates and
+    weights, each row's four taps summed left to right with replicated edge
+    indices, the vertical taps as ``S0·b0 + (S1·b1 + (S2·b2 + S3·b3))``."""
+    x = np.asarray(x)
+    if x.dtype != _F32 or x.ndim != 2 or x.size == 0:
+        raise ValueError(f"a non-empty float32 (h, w) array, got {x.dtype} {x.shape}")
+    h, w = x.shape
+
+    def taps(src, dst):
+        scale = 1.0 / (dst / src)
+        f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(_F32)
+        s = np.floor(f).astype(np.int64)
+        return s, _cubic_coeffs_f32((f - s.astype(_F32)).astype(_F32))
+
+    sx, ax = taps(w, int(width))
+    rows = x[:, np.clip(sx - 1, 0, w - 1)] * ax[0]
+    for k in range(1, 4):
+        rows = rows + x[:, np.clip(sx - 1 + k, 0, w - 1)] * ax[k]
+    sy, by = taps(h, int(height))
+    r = [rows[np.clip(sy - 1 + k, 0, h - 1)] * by[k][:, None] for k in range(4)]
+    return (r[0] + (r[1] + (r[2] + r[3]))).astype(_F32)

@@ -2,8 +2,10 @@
 
 The JAX package calls OpenCV and Pillow on the host: the recognizer and
 detector (``ocr/jaxocr/engine.py``, ``detector.py``, ``textness.py``), the
-segmenter's host resize (``infer/pipeline.py``) and the QR scan
-(``qr/detect.py``). Each function here computes what that call computes on
+segmenter's host resize (``infer/pipeline.py``), the QR scan
+(``qr/detect.py``) and the line renderer (``ocr/jaxocr/data.py``:
+``dilate2x2``, ``resize_area_f32``, ``resize_linear_f32``, held in
+``tests/test_torch_render.py``). Each function here computes what that call computes on
 uint8 (or float32) arrays, with the library's own fixed-point or float32
 arithmetic where it has one, so the boxes, strings and payloads the port
 reads are the JAX package's. ``tests/test_torch_host_image.py`` holds each
@@ -506,6 +508,83 @@ def erode2x2(img: np.ndarray) -> np.ndarray:
     out[:, 1:] = np.minimum(out[:, 1:], img[:, :-1])
     out[1:, 1:] = np.minimum(out[1:, 1:], img[:-1, :-1])
     return out
+
+
+def dilate2x2(img: np.ndarray) -> np.ndarray:
+    """uint8 (H, W) → ``cv2.dilate(img, np.ones((2, 2), np.uint8))``: the
+    maximum over the neighbourhood :func:`erode2x2` takes the minimum of."""
+    _require_pixels(img, "dilate2x2")
+    out = img.copy()
+    out[1:, :] = np.maximum(out[1:, :], img[:-1, :])
+    out[:, 1:] = np.maximum(out[:, 1:], img[:, :-1])
+    out[1:, 1:] = np.maximum(out[1:, 1:], img[:-1, :-1])
+    return out
+
+
+def _require_f32(x: np.ndarray, what: str) -> np.ndarray:
+    x = np.asarray(x)
+    if x.dtype != np.float32 or x.ndim != 2 or x.size == 0:
+        raise ValueError(f"{what}: a non-empty float32 (H, W) array, got {x.dtype} {x.shape}")
+    return x
+
+
+def resize_area_f32(x: np.ndarray, width: int, height: int) -> np.ndarray:
+    """float32 (H, W) → ``cv2.resize(x, (width, height),
+    interpolation=cv2.INTER_AREA)`` for a shrink on both axes: a 2×2 integer
+    shrink sums each block's rows pairwise, ``((a + b) + (c + d))·0.25``;
+    any other shrink takes :func:`_area_general`'s float32 sums, unrounded."""
+    x = _require_f32(x, "resize_area_f32")
+    h, w = x.shape
+    if (h, w) == (height, width):
+        return x.copy()
+    sx, sy = w / width, h / height
+    if sx < 1 or sy < 1:
+        raise ValueError("resize_area_f32 ports a shrink on both axes")
+    kx, ky = int(round(sx)), int(round(sy))
+    if abs(sx - kx) < _DBL_EPSILON and abs(sy - ky) < _DBL_EPSILON:
+        if (kx, ky) != (2, 2):
+            raise ValueError("resize_area_f32 ports the 2×2 integer shrink only")
+        b = x[:height * 2, :width * 2].reshape(height, 2, width, 2)
+        return (((b[:, 0, :, 0] + b[:, 0, :, 1]) + (b[:, 1, :, 0] + b[:, 1, :, 1]))
+                * np.float32(0.25)).astype(np.float32)
+    xi, xa = _area_tab(w, width, sx)
+    yi, ya = _area_tab(h, height, sy)
+    buf = np.zeros((h, width), np.float32)
+    for t in range(xi.shape[1]):
+        buf += x[:, xi[:, t]] * xa[:, t]
+    acc = np.zeros((height, width), np.float32)
+    for t in range(yi.shape[1]):
+        acc += ya[:, t, None] * buf[yi[:, t]]
+    return acc
+
+
+def _f32_taps(src: int, dst: int):
+    """OpenCV's resize coordinates: ``f = float32((d + 0.5)·scale − 0.5)``,
+    ``s = floor(f)``, ``f −= s``."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    return s, (f - s.astype(np.float32)).astype(np.float32)
+
+
+def resize_linear_f32(x: np.ndarray, width: int, height: int) -> np.ndarray:
+    """float32 (H, W) → ``cv2.resize(x, (width, height),
+    interpolation=cv2.INTER_LINEAR)`` as OpenCV's own code computes it
+    (``cv2.ipp.setUseIPP(False)``; with IPP on, OpenCV hands float resizes
+    to Intel IPP, whose last bits differ): columns clamped to the edge
+    pixel at full weight, rows not (their indices are), each pass
+    ``S0·w0 + S1·w1`` in float32."""
+    x = _require_f32(x, "resize_linear_f32")
+    h, w = x.shape
+    sx, fx = _f32_taps(w, width)
+    lo = sx < 0
+    fx, sx = np.where(lo, np.float32(0), fx), np.where(lo, 0, sx)
+    hi = sx >= w - 1
+    fx, sx = np.where(hi, np.float32(0), fx), np.where(hi, w - 1, sx)
+    rows = x[:, sx] * (np.float32(1) - fx) + x[:, np.minimum(sx + 1, w - 1)] * fx
+    sy, fy = _f32_taps(h, height)
+    r0, r1 = rows[np.clip(sy, 0, h - 1)], rows[np.clip(sy + 1, 0, h - 1)]
+    return (r0 * (np.float32(1) - fy)[:, None] + r1 * fy[:, None]).astype(np.float32)
 
 
 def gaussian_blur3(img: np.ndarray) -> np.ndarray:

@@ -17,7 +17,11 @@ with the text. This module computes what OpenCV's calls compute:
   ``INTER_LINEAR`` (``BORDER_REPLICATE`` or ``BORDER_CONSTANT``) and
   ``INTER_NEAREST`` (``BORDER_CONSTANT``), byte for byte;
 - :func:`warp_affine_f32`: ``cv2.warpAffine`` on float32 at
-  ``INTER_LINEAR``, ``BORDER_CONSTANT`` 0.
+  ``INTER_LINEAR``, ``BORDER_CONSTANT`` 0;
+- :func:`warp_affine_u8`: ``cv2.warpAffine`` on uint8 at ``INTER_LINEAR``,
+  ``BORDER_CONSTANT`` (the line renderer's shear);
+- :func:`remap_linear_f32`: ``cv2.remap`` on float32 with float maps at
+  ``INTER_LINEAR``, ``BORDER_REPLICATE`` (its elastic warp).
 
 The warps follow the optimized (AVX2) kernels of OpenCV 5's
 ``warp_kernels.simd.hpp``, not its scalar build, whose bytes differ:
@@ -283,3 +287,41 @@ def warp_affine_f32(x: np.ndarray, m, dsize) -> np.ndarray:
     top = fma32(a, p[1] - p[0], p[0])
     bottom = fma32(a, p[3] - p[2], p[2])
     return fma32(b, bottom - top, top)
+
+
+def _lerp32(src: np.ndarray, sx, sy, border: str, value) -> np.ndarray:
+    """The bilinear sample of float32 (H, W) ``src`` at float32 (sx, sy), as
+    the AVX2 kernels lerp (module docstring)."""
+    ix, iy = np.floor(sx), np.floor(sy)
+    a, b = (sx - ix).astype(_F32), (sy - iy).astype(_F32)
+    ix, iy = ix.astype(np.int64), iy.astype(np.int64)
+    s = src[..., None]
+    fill = np.array([value], src.dtype)
+    p = [_gather(s, iy + dy, ix + dx, border, fill)[..., 0].astype(_F32)
+         for dy in (0, 1) for dx in (0, 1)]
+    top = fma32(a, p[1] - p[0], p[0])
+    bottom = fma32(a, p[3] - p[2], p[2])
+    return fma32(b, bottom - top, top)
+
+
+def warp_affine_u8(img: np.ndarray, m, dsize, value: int = 0) -> np.ndarray:
+    """uint8 (H, W) → ``cv2.warpAffine(img, m, dsize, flags=INTER_LINEAR,
+    borderMode=BORDER_CONSTANT, borderValue=value)``: the affine inverse's
+    coordinates and the lerps of :func:`warp_perspective_u8`, rounded half
+    to even."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 2 or img.size == 0:
+        raise ValueError(f"a non-empty uint8 (H, W) image, got {img.dtype} {img.shape}")
+    sx, sy = _source_coords(invert_affine(m), int(dsize[0]), int(dsize[1]))
+    v = _lerp32(img, sx, sy, BORDER_CONSTANT, value)
+    return np.clip(np.rint(v), 0, 255).astype(np.uint8)
+
+
+def remap_linear_f32(x: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.ndarray:
+    """float32 (H, W) → ``cv2.remap(x, map_x, map_y, cv2.INTER_LINEAR,
+    borderMode=cv2.BORDER_REPLICATE)`` with float32 maps: each output the
+    lerp of :func:`warp_perspective_u8` at its map coordinate."""
+    x = np.asarray(x)
+    if x.dtype != _F32 or x.ndim != 2 or x.size == 0:
+        raise ValueError(f"a non-empty float32 (H, W) array, got {x.dtype} {x.shape}")
+    return _lerp32(x, np.asarray(map_x, _F32), np.asarray(map_y, _F32), BORDER_REPLICATE, 0)
