@@ -319,6 +319,19 @@ Phases, each printing one line with its wall time:
     ``--pool`` at the CLI's batch of 64 (TF32 off), its weights served by
     ``TorchOcrEngine``; (d) the textness head trained 20 steps on its own
     pages
+32. the invoice renderer and the gauntlet from nothing (``data.synthetic.
+    render_invoice`` on the bundled training and held-out faces, no kernel
+    of its own; the gauntlet's segmenter routes run K1, K4a and K6), against
+    ``tests/data/torch_smoke_invoice.npz``: (a) the four pages of
+    ``torch_smoke_pages.npz`` re-rendered from their arguments and the knob
+    grid's pages and boxes equal to JAX's, and the host ms a plain,
+    stylized and dot-matrix page; (b) ``make_base_cases(25)`` for the three
+    bases of ``eval_gauntlet.py`` and their 11 tiers (275 cases) equal to
+    JAX's digests, and the host ms a case; (c) the gauntlet on the w16 fp32,
+    w16 bf16, w16 int8 and w64 bf16 routes, the w16 fp32 and int8 held per
+    case to JAX's (ok flags equal, IoU within ``GAUNTLET_IOU_TOL``), and
+    ``eval_gauntlet.py``'s table; (d) the extractor on the three clean tiers
+    (75 pages), records equal to JAX's wherever the boxes are
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -341,7 +354,9 @@ their ``xla`` counts too. Phase 27's ``extract`` calls are driven the same
 way (K1 once a page), and so is the serving of the CLI's checkpoint (K1
 once). So are phase 28's app ``extract`` calls (K1 once a page), phase
 29's gauntlet routes (as phase 26's) and its serving of the augmented
-checkpoint (K1 once). Phases 30 and 31 must leave every count as they were. The
+checkpoint (K1 once). Phases 30 and 31 must leave every count as they were. In
+phase 32, (a)-(b) must leave every count as it was, each route of (c) is
+driven as phase 26's and (d) as its (d). The
 kernel rows' launches sum every such path.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
@@ -4162,6 +4177,7 @@ def gauntlet_run(seg, fix):
     the cases, each case's scores the module's own (``_case_scores``), whose
     tier means must be the dict's."""
     from twinvoice_tpu_torch.eval import gauntlet
+    from twinvoice_tpu_torch.ops.host_image import resize_nearest_u8
 
     rec = Recorder(seg)
     cases, tiers = fix["cases"], fix["tiers"]
@@ -4170,7 +4186,8 @@ def gauntlet_run(seg, fix):
         sel = [c for c, tt in zip(cases, tiers) if tt == t]
         res = gauntlet.run_segmenter_gauntlet(rec, sel)
         pred, boxes, ok = rec.out[-1]
-        gts = np.stack([gauntlet._resize_case(c, seg.cfg.img_size)[1] > 127 for c in sel])
+        size = seg.cfg.img_size  # the module's grid masks (``_resize_case``'s INTER_NEAREST)
+        gts = np.stack([resize_nearest_u8(c.mask, size, size) > 127 for c in sel])
         i, h = gauntlet._case_scores(sel, gts, pred, boxes, ok)
         if i.mean(0).tolist() != res["iou"] or h.mean(0).tolist() != res["box_hit"]:
             raise AssertionError(f"{t}: per-case scores {i}, {h} do not give {res}")
@@ -4186,10 +4203,12 @@ def gauntlet_compare(route, fix, got):
     """One route's per-case results against JAX's: ok flags equal, boxes
     within one grid cell (``ok_check``, per case), IoU within
     ``GAUNTLET_IOU_TOL``, hits equal wherever the boxes are; every case and
-    field that differs in any of these or in a mask pixel is printed. →
+    field that differs in any of these or in a mask pixel is printed (where
+    the fixture holds JAX's masks; else the mask count is None). →
     (max |ΔIoU|, differing mask pixels, fields with equal boxes, fields)."""
     tol = GAUNTLET_IOU_TOL[route]
-    want_mask = np.unpackbits(fix[f"{route}_mask"]).reshape(got["mask"].shape).astype(bool)
+    want_mask = (np.unpackbits(fix[f"{route}_mask"]).reshape(got["mask"].shape).astype(bool)
+                 if f"{route}_mask" in fix else None)
     size = got["mask"].shape[1]
     bad, d_iou, eq_boxes = [], 0.0, 0
     for i, (c, tier) in enumerate(zip(fix["cases"], fix["tiers"])):
@@ -4207,10 +4226,12 @@ def gauntlet_compare(route, fix, got):
             eq_boxes += same_box
             di = abs(float(got["iou"][i, f]) - float(fix[f"{route}_iou"][i, f]))
             d_iou = max(d_iou, di)
-            px = int((got["mask"][i, ..., f] != want_mask[i, ..., f]).sum())
+            px = 0 if want_mask is None else int(
+                (got["mask"][i, ..., f] != want_mask[i, ..., f]).sum())
             hit, jhit = bool(got["hit"][i, f]), bool(fix[f"{route}_hit"][i, f])
             if px or not same_box or hit != jhit:
-                print(f"    {route} case {i} {tier} {field}: mask pixels differing {px}; "
+                print(f"    {route} case {i} {tier} {field}: mask pixels differing "
+                  f"{px if want_mask is not None else 'n/a'}; "
                       f"IoU {got['iou'][i, f]:.6f} vs JAX {fix[f'{route}_iou'][i, f]:.6f}; "
                       f"box {got['boxes'][i, f].tolist()} ok {bool(got['ok'][i, f])} vs "
                       f"JAX {fix[f'{route}_boxes'][i, f].tolist()} "
@@ -4223,7 +4244,8 @@ def gauntlet_compare(route, fix, got):
                            f"JAX's {jhit}")
     if bad:
         raise AssertionError("; ".join(bad))
-    return d_iou, int((got["mask"] != want_mask).sum()), eq_boxes, got["ok"].size
+    px = None if want_mask is None else int((got["mask"] != want_mask).sum())
+    return d_iou, px, eq_boxes, got["ok"].size
 
 
 def gauntlet_table(rows):
@@ -5905,6 +5927,265 @@ def phase_render(card):
         raise AssertionError(f"phase 31 launched kernels of the port: {before} -> "
                              f"{dict(_build.launches)}")
 
+# -- phase 32: the invoice renderer and the gauntlet from nothing ------------------
+
+INVOICE_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_invoice.npz")
+INVOICE_HELD_ROUTES = ("w16_fp32", "w16_int8")  # per case against JAX's
+INVOICE_TIMED = 8  # pages a kind timed (seeds 0-7), as the fixture timed JAX's
+
+
+def scripts_module(name):
+    """A module of ``scripts/`` (the fixture scripts import only numpy and
+    the standard library at their top)."""
+    import importlib
+
+    scripts = os.path.join(ROOT, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
+
+
+def invoice_script():
+    """``scripts/make_torch_smoke_invoice.py``: the fixture's bases, tiers,
+    knob grid and digest."""
+    return scripts_module("make_torch_smoke_invoice")
+
+
+def invoice_fixture():
+    with np.load(INVOICE_FIXTURE) as z:
+        fix = {k: z[k] for k in z.files}
+    for k in ("grid_kwargs", "e2e_records", "jax_ms") + tuple(
+            k for k in fix if k.endswith("_summary") or k.endswith("_content")):
+        fix[k] = json.loads(str(fix[k]))
+    for k in ("train_registry", "heldout_registry", "tiers"):
+        fix[k] = [str(t) for t in fix[k]]
+    fix["jax_host"] = str(fix["jax_host"])
+    return fix
+
+
+@contextlib.contextmanager
+def invoice_registries(fix):
+    """The port's training and held-out registries cut to the fixture's
+    bundled faces (the card's own: on the card this changes nothing),
+    restored after. → {file name: path}."""
+    from twinvoice_tpu_torch.data import synthetic
+
+    train = [str(synthetic.BUNDLED_FONTS / n) for n in fix["train_registry"]]
+    held = [str(synthetic.BUNDLED_FONTS / n) for n in fix["heldout_registry"]]
+    old = synthetic.train_fonts, synthetic.heldout_fonts
+    synthetic.train_fonts, synthetic.heldout_fonts = (lambda: list(train)), (lambda: list(held))
+    try:
+        yield {os.path.basename(p): p for p in train + held}
+    finally:
+        synthetic.train_fonts, synthetic.heldout_fonts = old
+
+
+def invoice_pages_check(fix_pages):
+    """(a) first: the four pages of ``torch_smoke_pages.npz`` re-rendered from
+    ``scripts/make_torch_smoke_pages.py``'s arguments, in Pillow's luma."""
+    from twinvoice_tpu_torch.data.synthetic import render_invoice
+
+    args = scripts_module("make_torch_smoke_pages").PAGES
+    for i, kw in enumerate(args):
+        got = render_invoice(**kw)[0].convert("L").array
+        if not np.array_equal(got, fix_pages[i]):
+            raise AssertionError(f"(a) page {i} ({kw}): {int((got != fix_pages[i]).sum())} "
+                                 f"pixels differ from JAX's")
+    return len(args)
+
+
+def invoice_grid_check(fix, paths, calls=None):
+    """(a): the knob grid's pages and boxes (all, or the first ``calls``)
+    against JAX's digests, the stored pages byte for byte. → pages checked."""
+    from twinvoice_tpu_torch import FIELDS
+    from twinvoice_tpu_torch.data.synthetic import render_invoice
+
+    M = invoice_script()
+    grid = fix["grid_kwargs"][:calls]
+    bad = []
+    for i, kw in enumerate(grid):
+        img, boxes = render_invoice(**M.resolve(kw, paths))
+        if f"grid_page{i}" in fix and not np.array_equal(img.array, fix[f"grid_page{i}"]):
+            bad.append(f"grid {i} {kw}: the stored page differs")
+        if M.digest(img.array) != str(fix["grid_sha"][i]):
+            bad.append(f"grid {i} {kw}: the page's digest is not JAX's")
+        got = np.asarray([boxes[f] for f in FIELDS], np.int32)
+        if not np.array_equal(got, fix["grid_boxes"][i]):
+            bad.append(f"grid {i} {kw}: boxes {got.tolist()} != JAX "
+                       f"{fix['grid_boxes'][i].tolist()}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return len(grid)
+
+
+def invoice_page_ms():
+    """Host ms a page of the port's renderer: plain, stylized at 1.0 and
+    dot-matrix, over seeds 0-7 (the fixture timed JAX's so)."""
+    from twinvoice_tpu_torch.data.synthetic import render_invoice
+
+    out = {}
+    for name, kw in (("plain", {}), ("stylized", {"stylize": 1.0}), ("dot", {"dot_print": True})):
+        t0 = time.perf_counter()
+        for seed in range(INVOICE_TIMED):
+            render_invoice(seed=seed, **kw)
+        out[name] = (time.perf_counter() - t0) * 1e3 / INVOICE_TIMED
+    return out
+
+
+def timed_perturb(cases, level, seed):
+    """``perturb_cases`` and its host seconds (a process pool's task)."""
+    from twinvoice_tpu_torch.eval import perturb_cases
+
+    t0 = time.perf_counter()
+    out = perturb_cases(cases, level, seed=seed)
+    return out, time.perf_counter() - t0
+
+
+def invoice_cases_check(fix, n=None, level_sets=None, workers=1):
+    """(b): ``make_base_cases(n)`` (default: the fixture's 25) for the three
+    bases and their tiers (default: all eleven) after ``perturb_cases(...,
+    seed=7)``, each case's image, mask and content against JAX's (the
+    first ``n`` of each base's and tier's). The tiers are independent (each
+    draws from its own generator), so ``workers`` > 1 perturbs them in that
+    many processes. → (cases, tiers, host ms a base case per base, host ms
+    a perturbed case)."""
+    import concurrent.futures
+    import multiprocessing
+
+    from twinvoice_tpu_torch.eval import make_base_cases
+
+    M = invoice_script()
+    n = M.N_CASES if n is None else n
+    digest = M.digest
+    bases, ms, bad = {}, {}, []
+    for base, kw in M.BASES.items():
+        t0 = time.perf_counter()
+        bases[base] = make_base_cases(n, **kw)
+        ms[base] = (time.perf_counter() - t0) * 1e3 / n
+        for i, c in enumerate(bases[base]):
+            want = fix[f"{base}_content"][i]
+            if [c.invoice_no, c.date, c.amount, c.font] != want:
+                bad.append(f"{base} case {i}: content {[c.invoice_no, c.date, c.amount, c.font]}"
+                           f" != JAX {want}")
+            if digest(c.image) != str(fix[f"{base}_image_sha"][i]):
+                bad.append(f"{base} case {i}: image differs from JAX's")
+            if digest(c.mask) != str(fix[f"{base}_mask_sha"][i]):
+                bad.append(f"{base} case {i}: mask differs from JAX's")
+    sets = list(level_sets or M.LEVEL_SETS)
+    args = [(bases[base], level, GAUNTLET_PERTURB_SEED) for level, base in sets]
+    if workers > 1:
+        ctx = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+            done = list(pool.map(timed_perturb, *zip(*args)))
+    else:
+        done = [timed_perturb(*a) for a in args]
+    cases, tiers, t_pert, n_pert = [], [], 0.0, 0
+    for (level, base), (got, secs) in zip(sets, done):
+        tier = level + M.SUFFIX[base]
+        if level != "clean":
+            t_pert += secs
+            n_pert += len(got)
+        first = fix["tiers"].index(tier)
+        for i, c in enumerate(got):
+            j = first + i
+            if digest(c.image) != str(fix["tier_image_sha"][j]):
+                bad.append(f"{tier} case {i}: image differs from JAX's")
+            if digest(c.mask) != str(fix["tier_mask_sha"][j]):
+                bad.append(f"{tier} case {i}: mask differs from JAX's")
+        cases += got
+        tiers += [tier] * len(got)
+    if bad:
+        raise AssertionError("; ".join(bad[:20]) + (f" (and {len(bad) - 20} more)"
+                                                    if len(bad) > 20 else ""))
+    return cases, tiers, ms, t_pert * 1e3 / max(n_pert, 1)
+
+
+def invoice_route_fix(fix, route, idx):
+    """The fixture's JAX results of ``route`` on the cases ``idx``, in the
+    keys ``gauntlet_compare`` reads."""
+    out = {f"{route}_{k}": fix[f"{route}_{k}"][idx] for k in ("iou", "hit", "ok", "boxes")}
+    out[f"{route}_summary"] = fix[f"{route}_summary"]
+    return out
+
+
+def phase_invoice(fix_pages, card):
+    """Phase 32: the invoice renderer and the gauntlet from nothing on the
+    card: (a) the renderer against JAX's pages, (b) the gauntlet's 275 base
+    and tier cases, (c) the gauntlet on four routes, (d) the extractor on
+    the three clean tiers. → the launches of every kernel in the phase."""
+    from twinvoice_tpu_torch.data import synthetic
+
+    cpu = host_cpu()
+    fix = invoice_fixture()
+    own = ([os.path.basename(p) for p in synthetic.train_fonts()],
+           [os.path.basename(p) for p in synthetic.heldout_fonts()])
+    if own != (fix["train_registry"], fix["heldout_registry"]):
+        raise AssertionError(f"the port's registries here {own} are not the fixture's "
+                             f"{fix['train_registry']}, {fix['heldout_registry']}")
+    paths = {os.path.basename(p): p for p in synthetic.train_fonts() + synthetic.heldout_fonts()}
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    before = dict(_build.launches)
+    n_pages = invoice_pages_check(fix_pages)
+    n_grid = invoice_grid_check(fix, paths)
+    ms = invoice_page_ms()
+    jms = fix["jax_ms"]
+    print(f"  (a) render_invoice: the {n_pages} pages of torch_smoke_pages.npz and the "
+          f"{n_grid} pages of the knob grid ({len(fix['train_registry'])} training and "
+          f"{len(fix['heldout_registry'])} held-out faces) equal to JAX's, boxes too; "
+          f"{ms['plain']:.1f} ms a plain page, {ms['stylized']:.1f} stylized, "
+          f"{ms['dot']:.1f} dot-matrix (host: {cpu}) [{card}]; JAX with Pillow and cv2 on "
+          f"another machine ({fix['jax_host']}): {jms['page_plain']:.1f}, "
+          f"{jms['page_stylized']:.1f}, {jms['page_dot']:.1f}", flush=True)
+    t0 = time.perf_counter()
+    cases, tiers, case_ms, pert_ms = invoice_cases_check(fix, workers=min(8, os.cpu_count() or 1))
+    secs_b = time.perf_counter() - t0
+    n_tiers = len(dict.fromkeys(tiers))
+    print(f"  (b) make_base_cases({len(cases) // n_tiers}) × 3 and the {n_tiers} tiers: "
+          f"{len(cases)} cases equal to JAX's (images, masks, content); "
+          + ", ".join(f"{b} {v:.1f} ms a base case" for b, v in case_ms.items())
+          + f", {pert_ms:.1f} ms a perturbed case (the tiers in "
+          f"{min(8, os.cpu_count() or 1)} processes: {secs_b:.1f} s) (host: {cpu}); JAX on "
+          f"{fix['jax_host']}: " + ", ".join(f"{b} {jms['case_' + b]:.1f}" for b in case_ms),
+          flush=True)
+    if dict(_build.launches) != before:
+        raise AssertionError(f"(a)-(b) launched kernels of the port: {before} -> "
+                             f"{dict(_build.launches)}")
+    port = {"cases": cases, "tiers": tiers, "int8_scales": fix["int8_scales"]}
+    table = []
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for route in GAUNTLET_ROUTES:
+            seg = gauntlet_segmenter(route, port)
+            got, n = counted(route, GAUNTLET_KERNELS[route], n_tiers,
+                             lambda: gauntlet_run(seg, port))
+            add(n)
+            line = (f"  (c) {route}: {len(cases)} cases, launches {n}, "
+                    f"{time.perf_counter() - t0:.1f} s since (c) began")
+            if route in INVOICE_HELD_ROUTES:
+                held = dict(port, **invoice_route_fix(fix, route, slice(None)))
+                d_iou, _, eq, total = gauntlet_compare(route, held, got)
+                line += (f"; ok flags equal to JAX's, boxes within one grid cell ({eq}/{total} "
+                         f"fields exactly equal), max |ΔIoU| {d_iou:.3g} (tolerance "
+                         f"{GAUNTLET_IOU_TOL[route]})")
+                table.append((f"{route} JAX", fix[f"{route}_summary"]))
+            print(line, flush=True)
+            table.append((f"{route} port", got["summary"]))
+            del seg
+    print(f"  {card}", flush=True)
+    gauntlet_table(table)
+    e2e = {k: fix[k] for k in ("e2e_cases", "e2e_records", "e2e_summary", "e2e_boxes",
+                               "e2e_ok")}
+    t0 = time.perf_counter()
+    add(e2e_check(dict(port, **e2e), card))
+    print(f"  (d) {len(e2e['e2e_cases'])} pages in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main():
     ph = Phases()
     name, card = ph.run(1, "device", phase_device)
@@ -6037,6 +6318,16 @@ def main():
                "build-dataset", phase_codec, card)
     ph.run(31, "TrueType text, the line and page renderers, train-ocr from its own renders",
            phase_render, card)
+    invoice_launches = ph.run(32, "the invoice renderer and the gauntlet from nothing",
+                              phase_invoice, fix["pages"], card)
+    for k, v in invoice_launches.items():
+        if k == k1.NAME:
+            launches[k] += v
+        else:
+            int8_launches[k] = int8_launches.get(k, 0) + v
+    print(f"  launches in phase 32: {invoice_launches}; of K1 on the main path and phases "
+          f"19-20, 22, 25-29, 32: {launches[k1.NAME]}; on the int8 routes (phases 9-10, 13-14, "
+          f"19, 26, 29, 32): {int8_launches}", flush=True)
 
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
              launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]

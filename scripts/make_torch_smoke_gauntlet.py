@@ -35,6 +35,8 @@ case indices, ``e2e_records`` a JSON string of each case's
 ``run_e2e_gauntlet`` dict per tier, and ``e2e_boxes``/``e2e_ok`` the boxes
 of the extractor's ``segment_pil`` calls (Pillow's bicubic resize).
 
+The cases are made with ``cv2.ipp.setUseIPP(False)``.
+
     JAX_PLATFORMS=cpu python scripts/make_torch_smoke_gauntlet.py
 """
 
@@ -64,17 +66,27 @@ def tier_name(level, base):
 
 
 def render_cases():
-    """→ (cases, tiers): the JAX ``GauntletCase`` objects, tier by tier."""
+    """→ (cases, tiers): the JAX ``GauntletCase`` objects, tier by tier, with
+    OpenCV's own code (IPP off: with Intel IPP, the wheel's default, its
+    float cubic resize differs in the last bits from the code the port
+    follows)."""
+    import cv2
+
     from twinvoice_tpu.eval.gauntlet import make_base_cases, perturb_cases
 
-    bases = {"std": make_base_cases(N_BASE, use_heldout_fonts=False),
-             "heldout": make_base_cases(N_BASE, seed=HELDOUT_SEED,
-                                        use_heldout_fonts=True)}
-    cases, tiers = [], []
-    for level, base in TIERS:
-        for c in perturb_cases(bases[base], level, seed=PERTURB_SEED):
-            cases.append(c)
-            tiers.append(tier_name(level, base))
+    was = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(False)
+    try:
+        bases = {"std": make_base_cases(N_BASE, use_heldout_fonts=False),
+                 "heldout": make_base_cases(N_BASE, seed=HELDOUT_SEED,
+                                            use_heldout_fonts=True)}
+        cases, tiers = [], []
+        for level, base in TIERS:
+            for c in perturb_cases(bases[base], level, seed=PERTURB_SEED):
+                cases.append(c)
+                tiers.append(tier_name(level, base))
+    finally:
+        cv2.ipp.setUseIPP(was)
     return cases, np.asarray(tiers)
 
 

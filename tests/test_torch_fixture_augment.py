@@ -1,8 +1,9 @@
 """PyTorch port: ``chip_smoke.py``'s phase-29 checks on the CPU, without JAX.
 
 (a) ``perturb_tiers_check`` rebuilds the gauntlet fixture's seven perturbed
-tiers with the port's ``perturb_cases`` (masks byte-equal to the JAX
-package's, images within the bound of ``tests/test_torch_augment.py``);
+tiers with the port's ``perturb_cases``: masks and images byte-equal to the
+JAX package's (the fixture is made with OpenCV's own code, IPP off; phase
+29 on the card keeps the bound ``chip_smoke.AUG_MAX_SHARE``/``AUG_MAX_DELTA``);
 (b) the w16 fp32 route on those cases holds the JAX results stored in the
 fixture, as phase 26 holds them on the fixture's own cases; (c)'s batch
 timer draws an augmented batch."""
@@ -29,7 +30,7 @@ def test_perturb_tiers_check(rebuilt):
         assert (got.level, got.invoice_no, got.font) == (want.level, want.invoice_no, want.font)
     for tier, n, size, delta, ms in rows:
         print(f"{tier}: {n}/{size} bytes differ, max |d| {delta}, {ms:.0f} ms on this CPU")
-        assert n <= chip_smoke.AUG_MAX_SHARE * size and delta <= chip_smoke.AUG_MAX_DELTA
+        assert n == 0 and delta == 0, tier
 
 
 @pytest.mark.parametrize("route", ["w16_fp32"])

@@ -1,7 +1,7 @@
 """PyTorch port: what the card's machine lacks is never imported (the
-recognition stack, bulk extraction, training, the QR locator, the CLI and
-the training renderers run end to end without it; the renderers load
-neither FreeType nor HarfBuzz),
+recognition stack, bulk extraction, training, the QR locator, the CLI, the
+training renderers and the invoice renderer run end to end without it; the
+renderers load neither FreeType nor HarfBuzz),
 and the kernel build finds nvcc, hashes its sources and reports failures."""
 
 import os
@@ -96,7 +96,11 @@ from twinvoice_tpu_torch.ocr.torchocr.textness import render_textpage
 from twinvoice_tpu_torch.data.synthetic import train_fonts
 from twinvoice_tpu_torch.ops.host_image import dilate2x2, resize_area_f32, resize_linear_f32
 from twinvoice_tpu_torch.ops.host_warp import remap_linear_f32, warp_affine_u8
-from twinvoice_tpu_torch.ops.host_filter import resize_cubic_f32_cv
+from twinvoice_tpu_torch.ops.host_filter import resize_cubic_f32, soft_exp
+from twinvoice_tpu_torch.data.synthetic import heldout_fonts, render_invoice
+from twinvoice_tpu_torch.eval import make_base_cases
+import runpy
+runpy.run_path("scripts/eval_torch_gauntlet.py", run_name="not_main")
 import chip_smoke
 loaded = [m for m, v in sys.modules.items()
           if v is not None and m.split(".")[0] in {BLOCKED!r}]
@@ -151,6 +155,44 @@ def test_renderers_run_without_pil_freetype_cv2():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-1] == "rendered"
+
+
+_INVOICE_WITHOUT_PIL = f"""
+import sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+import numpy as np
+from twinvoice_tpu_torch.data.synthetic import heldout_fonts, render_invoice
+from twinvoice_tpu_torch.eval import make_base_cases, perturb_cases
+fonts = heldout_fonts()
+assert len(fonts) >= 6, fonts
+for i, path in enumerate(fonts):
+    img, boxes = render_invoice(font_path=path, font_size=18 + i, seed=i, stylize=0.5)
+    assert img.array.shape == (640, 440, 3) and len(boxes) == 3, path
+img, _ = render_invoice(dot_print=True)
+for kw in ({{}}, {{"use_heldout_fonts": True}}, {{"dot_print": True}}):
+    (case,) = make_base_cases(1, **kw)
+    assert case.mask.any()
+perturb_cases([case], "crumple", seed=7)
+with open("/proc/self/maps") as f:
+    maps = f.read()
+assert "libfreetype" not in maps and "libharfbuzz" not in maps
+loaded = [m for m, v in sys.modules.items()
+          if v is not None and m.split(".")[0] in {BLOCKED!r}]
+assert not loaded, loaded
+print("invoices")
+"""
+
+
+def test_invoices_render_without_pil_freetype_cv2():
+    """Invoices on every held-out face, stylised and dot-matrix, and the
+    gauntlet's three base sets render, and a tier perturbs, with JAX, the
+    JAX package, Pillow and OpenCV blocked and neither FreeType nor HarfBuzz
+    loaded, as on the card's machine."""
+    out = subprocess.run([sys.executable, "-c", _INVOICE_WITHOUT_PIL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "invoices"
 
 
 _READ_WITHOUT_CV2 = f"""

@@ -39,15 +39,13 @@ PACKAGES = {
 
 # (JAX package, name) → why the port's counterpart does not export it
 NOT_PORTED = {
-    ("eval", "make_base_cases"): "host-side renderer (Pillow, TrueType); its "
-                                 "cases reach the port through save_cases",
     ("ocr.jaxocr", "JaxOcrEngine"): "its counterpart is TorchOcrEngine",
 }
 
 # (port package, name) → why the JAX counterpart has no such name
 PORT_ONLY = {
     ("", "resolve_device"): "the device an entry point runs on",
-    ("eval", "load_cases"): "cases rendered by the JAX package, read back",
+    ("eval", "load_cases"): "cases written by save_cases, read back",
     ("eval", "save_cases"): "the case file load_cases reads",
     ("ocr.fonts", "glyph_strokes"): "the stroke data the CJK charset is built from",
     ("ocr.torchocr", "TorchOcrEngine"): "the counterpart of JaxOcrEngine",

@@ -14,6 +14,7 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -732,6 +733,7 @@ struct Glyph {
     std::vector<uint16_t> ends;
     Long advance = 0;             // FreeType's hinted advance (26.6)
     Long linear = 0;              // unhinted advance in font units
+    bool overlap = false;         // FT_OUTLINE_OVERLAP: OVERLAP_SIMPLE or OVERLAP_COMPOUND
 };
 
 // The auto-hinter's state (FreeType's autofit, Latin writing system):
@@ -765,7 +767,7 @@ struct Point { Long fx = 0, fy = 0, ox = 0, oy = 0, x = 0, y = 0, u = 0, v = 0;
                int flags = 0, in_dir = DIR_NONE, out_dir = DIR_NONE, next = 0, prev = 0; };
 struct Segment {
     int dir = 0, flags = 0;
-    Long pos = 0, delta = 0, min_coord = 0, max_coord = 0, height = 0, score = 32000;
+    Long pos = 0, delta = 0, min_coord = 0, max_coord = 0, height = 0, score = 32000, len = 0;
     int link = -1, serif = -1, edge = -1, edge_next = -1, first = -1, last = -1;
 };
 struct Edge {
@@ -809,9 +811,12 @@ struct Face {
     bool bytecode_ready = false;
     int fpgm_error = 0, prep_error = 0;
     bool hinting_disabled = false;
+    bool load_overlap = false;       // the glyph being loaded has an overlap flag
     // GPOS pair-kerning lookups of the default features, per script class
     std::vector<size_t> kern_latn, kern_dflt;
     std::vector<int> kern_latn_flags, kern_dflt_flags;
+    bool gpos_kern = false;  // GPOS has a 'kern' feature (else HarfBuzz reads the 'kern' table)
+    std::vector<std::pair<uint32_t, int>> kern_pairs;  // the 'kern' table's pairs, (left << 16 | right)
     std::vector<uint8_t> last_mask;  // tt_render_text's mask, for tt_take_mask
     bool basic_layout = false;       // Pillow's Layout.BASIC (else raqm)
     // the auto-hinter: each glyph's style, the Latin metrics, their size
@@ -1525,7 +1530,7 @@ int Exec::run() {
             }
             break;
         }
-        case 0x8A: { Long A = a[2]; a[2] = a[1]; a[1] = a[0]; a[0] = A; break; }  // ROLL
+        case 0x8A: { Long A = a[2]; a[2] = a[0]; a[0] = a[1]; a[1] = A; break; }  // ROLL: the third to the top
         case 0x8B: a[0] = std::max(a[0], a[1]); break;
         case 0x8C: a[0] = std::min(a[0], a[1]); break;
         case 0x8D: if (a[0] >= 0) gs.scan_type = (int)a[0] & 0xFFFF; break;
@@ -1691,6 +1696,7 @@ int Face::load_recursive(int gid, bool hinted, int depth, ZoneStore& zs, Vec pp[
                 while (cnt-- > 0 && i < npts) flags[i++] = c;
             }
         }
+        if (flags[0] & 0x40) load_overlap = true;  // OVERLAP_SIMPLE
         std::vector<Long> xs(npts), ys(npts);
         Long x = 0;
         for (int i = 0; i < npts; i++) {
@@ -1755,6 +1761,7 @@ int Face::load_recursive(int gid, bool hinted, int depth, ZoneStore& zs, Vec pp[
     while (true) {
         int flags = b.u16(p), gi = b.u16(p + 2);
         p += 4;
+        if (flags & 0x400) load_overlap = true;  // OVERLAP_COMPOUND
         Long arg1, arg2;
         if (flags & 1) { arg1 = b.s16(p); arg2 = b.s16(p + 2); p += 4; }
         else if (flags & 2) { arg1 = (int8_t)b.u8(p); arg2 = (int8_t)b.u8(p + 1); p += 2; }
@@ -1843,8 +1850,10 @@ int Face::load_glyph(int gid, bool hinted, Glyph& out) {
     ZoneStore zs;
     Vec pp[4];
     bool have = false;
+    load_overlap = false;
     int err = load_recursive(gid, hinted, 0, zs, pp, have);
     if (err) return err;
+    out.overlap = load_overlap;
     out.pts = zs.cur;
     out.tags.resize(zs.tags.size());
     for (size_t i = 0; i < zs.tags.size(); i++) out.tags[i] = zs.tags[i] & 1;
@@ -2466,12 +2475,16 @@ void compute_blue_edges(Hints& h, const Metrics& m) {
                     best_dist = dist;
                     best_blue = &blue.ref;
                     best_neutral = is_neutral;
-                    // a round edge beyond the reference may take the overshoot
-                    if ((edge.flags & ED_ROUND) && dist != 0 && !is_neutral) {
-                        bool is_under_ref = edge.fpos < blue.ref.org;
-                        if (is_top ^ is_under_ref) {
-                            dist = mul_fix(ab(edge.fpos - blue.shoot.org), scale);
-                            if (dist < best_dist) { best_dist = dist; best_blue = &blue.shoot; }
+                }
+                // a round edge beyond the reference may take the overshoot
+                if ((edge.flags & ED_ROUND) && dist != 0 && !is_neutral) {
+                    bool is_under_ref = edge.fpos < blue.ref.org;
+                    if (is_top ^ is_under_ref) {
+                        dist = mul_fix(ab(edge.fpos - blue.shoot.org), scale);
+                        if (dist < best_dist) {
+                            best_dist = dist;
+                            best_blue = &blue.shoot;
+                            best_neutral = is_neutral;
                         }
                     }
                 }
@@ -2914,10 +2927,12 @@ int Face::load_unscaled(int gid, Glyph& out) {
     ZoneStore zs;
     Vec pp[4];
     bool have = false;
+    load_overlap = false;
     int err = load_recursive(gid, false, 0, zs, pp, have);
     x_scale = xs;
     y_scale = ys;
     if (err) return err;
+    out.overlap = load_overlap;
     out.pts = zs.cur;
     out.tags.resize(zs.tags.size());
     for (size_t i = 0; i < zs.tags.size(); i++) out.tags[i] = zs.tags[i] & 1;
@@ -2974,7 +2989,6 @@ void init_widths(Face& f, Metrics& m) {
 void init_blues(Face& f, Metrics& m) {
     Axis& axis = m.axis[1];
     axis.blues.clear();
-    Long flat_threshold = 33 * (Long)m.upem / 2048;
     for (const BlueString& bs : LATIN_BLUES) {
         bool top = (bs.flags & BL_TOP) != 0;
         std::vector<Long> flats, rounds;
@@ -3016,37 +3030,27 @@ void init_blues(Face& f, Metrics& m) {
                 if (best_point != old_best) { best_first = first; best_last = last; }
             }
             if (best_point < 0) continue;
+            // the segment around the extremum: its neighbours within 5 units
+            // or a small angle; it is round where an end is off curve
             bool round = false;
             {
                 Long best_x = pts[best_point].x;
-                int on_first = -1, on_last = -1;
-                if (g.tags[best_point] & 1) { on_first = best_point; on_last = best_point; }
-                int prev = best_point, next = prev;
+                int prev = best_point, next = prev, seg_first = best_point, seg_last = best_point;
                 do {
                     if (prev > best_first) prev--;
                     else prev = best_last;
                     Long dist = ab(pts[prev].y - best_y);
                     if (dist > 5 && ab(pts[prev].x - best_x) <= 20 * dist) break;
-                    if (g.tags[prev] & 1) {
-                        on_first = prev;
-                        if (on_last < 0) on_last = prev;
-                    }
+                    seg_first = prev;
                 } while (prev != best_point);
                 do {
                     if (next < best_last) next++;
                     else next = best_first;
                     Long dist = ab(pts[next].y - best_y);
                     if (dist > 5 && ab(pts[next].x - best_x) <= 20 * dist) break;
-                    if (g.tags[next] & 1) {
-                        on_last = next;
-                        if (on_first < 0) on_first = next;
-                    }
+                    seg_last = next;
                 } while (next != best_point);
-                if (on_first >= 0 && on_last >= 0 &&
-                    ab(pts[on_last].x - pts[on_first].x) > flat_threshold)
-                    round = false;
-                else
-                    round = !(g.tags[prev] & 1) || !(g.tags[next] & 1);
+                round = !(g.tags[seg_first] & 1) || !(g.tags[seg_last] & 1);
             }
             if (round) rounds.push_back(best_y);
             else flats.push_back(best_y);
@@ -3192,6 +3196,305 @@ void scale_metrics(Face& f) {
     f.af_x_scale = f.x_scale;
 }
 
+
+// The CJK writing system (af_cjk), FreeType's fallback style for glyphs
+// that no script covers (AF_STYLE_FALLBACK is hani_dflt): here with no blue
+// zones and no standard width (the faces lack its standard characters),
+// so the standard width is 50/2048 em in both dimensions.
+
+// af_cjk_hints_link_segments
+void cjk_link_segments(Hints& h, int dim) {
+    AxisHints& ax = h.axis[dim];
+    std::vector<Segment>& S = ax.segments;
+    int ns = (int)S.size();
+    Long len_threshold = 8 * (Long)h.upem / 2048;
+    Long dist_threshold = div_fix(64 * 3, dim == 0 ? h.x_scale : h.y_scale);
+    for (int a = 0; a < ns; a++) {
+        if (S[a].dir != ax.major_dir) continue;
+        for (int b2 = 0; b2 < ns; b2++) {
+            if (b2 == a || S[a].dir + S[b2].dir != 0) continue;
+            Long dist = S[b2].pos - S[a].pos;
+            if (dist < 0) continue;
+            Long mn = std::max(S[a].min_coord, S[b2].min_coord);
+            Long mx = std::min(S[a].max_coord, S[b2].max_coord);
+            Long len = mx - mn;
+            if (len < len_threshold) continue;
+            if (dist * 8 < S[a].score * 9 && (dist * 8 < S[a].score * 7 || S[a].len < len)) {
+                S[a].score = dist; S[a].len = len; S[a].link = b2;
+            }
+            if (dist * 8 < S[b2].score * 9 && (dist * 8 < S[b2].score * 7 || S[b2].len < len)) {
+                S[b2].score = dist; S[b2].len = len; S[b2].link = a;
+            }
+        }
+    }
+    // strokes wider at an end: the end stems become serifs, or the link goes
+    for (int a = 0; a < ns; a++) {
+        int link1 = S[a].link;
+        if (link1 < 0 || S[link1].link != a || S[link1].pos <= S[a].pos) continue;
+        if (S[a].score >= dist_threshold) continue;
+        for (int b2 = 0; b2 < ns; b2++) {
+            if (S[b2].pos > S[a].pos || a == b2) continue;
+            int link2 = S[b2].link;
+            if (link2 < 0 || S[link2].link != b2 || S[link2].pos < S[link1].pos) continue;
+            if (S[a].pos == S[b2].pos && S[link1].pos == S[link2].pos) continue;
+            if (S[b2].score <= S[a].score || S[a].score * 4 <= S[b2].score) continue;
+            if (S[a].len >= S[b2].len * 3) {
+                for (int c = 0; c < ns; c++) {
+                    if (S[c].link == b2) { S[c].link = -1; S[c].serif = link1; }
+                    else if (S[c].link == link2) { S[c].link = -1; S[c].serif = a; }
+                }
+            } else {
+                S[a].link = S[link1].link = -1;
+                break;
+            }
+        }
+    }
+    for (int a = 0; a < ns; a++) {
+        int b2 = S[a].link;
+        if (b2 >= 0 && S[b2].link != a) {
+            S[a].link = -1;
+            if (S[b2].score < dist_threshold || S[a].score < S[b2].score * 4) S[a].serif = S[b2].link;
+        }
+    }
+}
+
+// af_cjk_hints_compute_edges
+void cjk_compute_edges(Hints& h, Long std_threshold, int dim) {
+    AxisHints& ax = h.axis[dim];
+    std::vector<Segment>& S = ax.segments;
+    std::vector<Edge>& E = ax.edges;
+    E.clear();
+    Long scale = dim == 0 ? h.x_scale : h.y_scale;
+    Long threshold = mul_fix(std_threshold, scale);
+    threshold = threshold > 64 / 4 ? div_fix(64 / 4, scale) : std_threshold;
+    for (int s = 0; s < (int)S.size(); s++) {
+        Segment& seg = S[s];
+        int found = -1;
+        Long best = 0xFFFF;
+        for (int e = 0; e < (int)E.size(); e++) {
+            if (E[e].dir != seg.dir) continue;
+            Long dist = ab(seg.pos - E[e].fpos);
+            if (dist < threshold && dist < best) {
+                if (seg.link >= 0) {  // can the linked segments make one edge?
+                    int s1 = E[e].first;
+                    Long dist2 = 0;
+                    do {
+                        if (S[s1].link >= 0) {
+                            dist2 = ab(S[seg.link].pos - S[S[s1].link].pos);
+                            if (dist2 >= threshold) break;
+                        }
+                        s1 = S[s1].edge_next;
+                    } while (s1 != E[e].first);
+                    if (dist2 >= threshold) continue;
+                }
+                best = dist;
+                found = e;
+            }
+        }
+        if (found < 0) {
+            int idx = (int)E.size();
+            E.push_back(Edge());
+            while (idx > 0) {
+                if (E[idx - 1].fpos < seg.pos) break;
+                if (E[idx - 1].fpos == seg.pos && seg.dir == ax.major_dir) break;
+                E[idx] = E[idx - 1];
+                idx--;
+            }
+            Edge& edge = E[idx];
+            edge = Edge();
+            edge.first = s;
+            edge.last = s;
+            edge.dir = seg.dir;
+            edge.fpos = seg.pos;
+            edge.opos = mul_fix(seg.pos, scale);
+            edge.pos = edge.opos;
+            seg.edge_next = s;
+        } else {
+            seg.edge_next = E[found].first;
+            S[E[found].last].edge_next = s;
+            E[found].last = s;
+        }
+    }
+    for (int e = 0; e < (int)E.size(); e++) {
+        int s = E[e].first;
+        if (s >= 0) do {
+            S[s].edge = e;
+            s = S[s].edge_next;
+        } while (s != E[e].first);
+    }
+    for (int e = 0; e < (int)E.size(); e++) {
+        Edge& edge = E[e];
+        int is_round = 0, is_straight = 0;
+        int s = edge.first;
+        do {
+            Segment& seg = S[s];
+            if (seg.flags & ED_ROUND) is_round++;
+            else is_straight++;
+            bool is_serif = seg.serif >= 0 && S[seg.serif].edge != e;
+            if (seg.link >= 0 || is_serif) {
+                int edge2 = edge.link, seg2 = seg.link;
+                if (is_serif) { seg2 = seg.serif; edge2 = edge.serif; }
+                if (edge2 >= 0) {
+                    Long edge_delta = ab(edge.fpos - E[edge2].fpos);
+                    Long seg_delta = ab(seg.pos - S[seg2].pos);
+                    if (seg_delta < edge_delta) edge2 = S[seg2].edge;
+                } else {
+                    edge2 = S[seg2].edge;
+                }
+                if (is_serif) {
+                    edge.serif = edge2;
+                    E[edge2].flags |= ED_SERIF;
+                } else {
+                    edge.link = edge2;
+                }
+            }
+            s = seg.edge_next;
+        } while (s != edge.first);
+        edge.flags = 0;
+        if (is_round > 0 && is_round >= is_straight) edge.flags |= ED_ROUND;
+        if (edge.serif >= 0 && edge.link >= 0) edge.serif = -1;
+    }
+}
+
+// af_cjk_compute_stem_width in the smooth mode, with no standard widths
+Long cjk_stem_width(Long width) {
+    Long dist = width;
+    bool sign = dist < 0;
+    if (sign) dist = -width;
+    if (dist < 54) {
+        dist += (54 - dist) / 2;
+    } else if (dist < 3 * 64) {
+        Long delta = dist & 63;
+        dist &= -64;
+        if (delta < 10) dist += delta;
+        else if (delta < 22) dist += 10;
+        else if (delta < 42) dist += delta;
+        else if (delta < 54) dist += 54;
+        else dist += delta;
+    }
+    return sign ? -dist : dist;
+}
+
+// af_hint_normal_stem (the stem adjustment of the normal mode): → the shift
+Long cjk_hint_normal_stem(Edge& edge, Edge& edge2, Long anchor) {
+    const Long threshold = 64;
+    Long org_len = edge2.opos - edge.opos;
+    Long cur_len = cjk_stem_width(org_len);
+    Long org_center = (edge.opos + edge2.opos) / 2 + anchor;
+    Long cur_pos1 = org_center - cur_len / 2;
+    Long cur_pos2 = cur_pos1 + cur_len;
+    Long d_off1 = cur_pos1 - pix_floor(cur_pos1), d_off2 = cur_pos2 - pix_floor(cur_pos2);
+    Long u_off1 = 64 - d_off1, u_off2 = 64 - d_off2;
+    Long delta = 0;
+    if (d_off1 != 0 && d_off2 != 0) {
+        if (cur_len <= threshold) {
+            if (d_off2 < cur_len) delta = u_off1 <= d_off2 ? u_off1 : -d_off2;
+        } else {
+            Long offset = cur_len & 63;
+            bool skip = false;
+            if (offset < 32) {
+                if (u_off1 <= offset || d_off2 <= offset) skip = true;
+            } else {
+                offset = 64 - threshold;
+            }
+            if (!skip) {
+                d_off1 = threshold - u_off1;
+                u_off1 = u_off1 - offset;
+                u_off2 = threshold - d_off2;
+                d_off2 = d_off2 - offset;
+                if (d_off1 <= u_off1) u_off1 = -d_off1;
+                if (d_off2 <= u_off2) u_off2 = -d_off2;
+                delta = ab(u_off1) <= ab(u_off2) ? u_off1 : u_off2;
+            }
+        }
+    }
+    cur_pos1 += delta;
+    if (edge.opos < edge2.opos) { edge.pos = cur_pos1; edge2.pos = cur_pos1 + cur_len; }
+    else { edge.pos = cur_pos1 + cur_len; edge2.pos = cur_pos1; }
+    return delta;
+}
+
+// af_cjk_hint_edges with no blue zones
+void cjk_hint_edges(Hints& h, int dim) {
+    std::vector<Edge>& E = h.axis[dim].edges;
+    int n = (int)E.size();
+    bool have_anchor = false, has_last_stem = false;
+    Long delta = 0, last_stem_pos = 0;
+    int skipped = 0;
+    for (int e = 0; e < n; e++) {
+        Edge& edge = E[e];
+        if (edge.flags & ED_DONE) continue;
+        if (edge.link < 0) { skipped++; continue; }
+        Edge& edge2 = E[edge.link];
+        if (has_last_stem && (edge.pos < last_stem_pos + 64 || edge2.pos < last_stem_pos + 64)) {
+            skipped++;
+            continue;
+        }
+        if (edge.link < e) {  // af_cjk_align_linked_edge
+            edge.pos = edge2.pos + cjk_stem_width(edge.opos - edge2.opos);
+            edge.flags |= ED_DONE;
+            has_last_stem = true;
+            last_stem_pos = edge.pos;
+            continue;
+        }
+        if (dim == 0 && !have_anchor) delta = cjk_hint_normal_stem(edge, edge2, 0);
+        else cjk_hint_normal_stem(edge, edge2, delta);
+        have_anchor = true;
+        edge.flags |= ED_DONE;
+        edge2.flags |= ED_DONE;
+        has_last_stem = true;
+        last_stem_pos = edge2.pos;
+    }
+    if (skipped) {
+        for (int e = 0; e < n; e++) {
+            Edge& edge = E[e];
+            if (edge.flags & ED_DONE) continue;
+            if (edge.serif >= 0) {  // af_cjk_align_serif_edge
+                edge.pos = E[edge.serif].pos + (edge.opos - E[edge.serif].opos);
+                edge.flags |= ED_DONE;
+                skipped--;
+            }
+        }
+    }
+    if (!skipped) return;
+    for (int e = 0; e < n; e++) {
+        Edge& edge = E[e];
+        if (edge.flags & ED_DONE) continue;
+        int before = e, after = e;
+        while (--before >= 0) if (E[before].flags & ED_DONE) break;
+        while (++after < n) if (E[after].flags & ED_DONE) break;
+        if (before >= 0 || after < n) {
+            if (before < 0) edge.pos = E[after].pos + (edge.opos - E[after].opos);
+            else if (after >= n) edge.pos = E[before].pos + (edge.opos - E[before].opos);
+            else if (E[after].fpos == E[before].fpos) edge.pos = E[before].pos;
+            else
+                edge.pos = E[before].pos + mul_div(edge.fpos - E[before].fpos, E[after].pos - E[before].pos,
+                                                   E[after].fpos - E[before].fpos);
+        }
+    }
+}
+
+// af_cjk_align_edge_points without snapping: each edge's points move by its shift
+void cjk_align_edge_points(Hints& h, int dim) {
+    AxisHints& ax = h.axis[dim];
+    for (const Edge& edge : ax.edges) {
+        int s = edge.first;
+        if (s < 0) continue;
+        Long d = edge.pos - edge.opos;
+        do {
+            const Segment& seg = ax.segments[s];
+            int point = seg.first;
+            for (;;) {
+                if (dim == 0) { h.pts[point].x += d; h.pts[point].flags |= FL_TOUCH_X; }
+                else { h.pts[point].y += d; h.pts[point].flags |= FL_TOUCH_Y; }
+                if (point == seg.last) break;
+                point = h.pts[point].next;
+            }
+            s = seg.edge_next;
+        } while (s != edge.first);
+    }
+}
+
 }  // namespace af
 
 // af_loader_load_glyph in the normal render mode: → the hinted outline
@@ -3231,6 +3534,20 @@ int autohint_glyph(Face& f, int gid, Glyph& out) {
                 af::align_weak_points(h, dim);
             }
             if (style & af::STYLE_ADJUST_UP) af::separate_top_contour(h);
+        } else {
+            // the fallback style: the CJK writing system, no blue zones
+            Long std_threshold = (50 * (Long)f.upem / 2048) / 5;
+            for (int dim = 0; dim < 2; dim++) {
+                af::compute_segments(h, dim);
+                af::cjk_link_segments(h, dim);
+                af::cjk_compute_edges(h, std_threshold, dim);
+            }
+            for (int dim = 0; dim < 2; dim++) {
+                af::cjk_hint_edges(h, dim);
+                af::cjk_align_edge_points(h, dim);
+                af::align_strong_points(h, dim);
+                af::align_weak_points(h, dim);
+            }
         }
         for (size_t i = 0; i < g.pts.size(); i++) { g.pts[i].x = h.pts[i].x; g.pts[i].y = h.pts[i].y; }
         const std::vector<af::Edge>& E = h.axis[0].edges;
@@ -3265,6 +3582,7 @@ int autohint_glyph(Face& f, int gid, Glyph& out) {
     out.ends = g.ends;
     out.advance = pix_round(adv);
     out.linear = g.linear;
+    out.overlap = g.overlap;
     return 0;
 }
 
@@ -3513,9 +3831,29 @@ void render_glyph(const Glyph& g, Long dx, Long dy, Bitmap& out) {
     if (!out.w || !out.h || g.ends.empty()) return;
     for (auto& v : pts) { v.x -= l * 64; v.y -= bt * 64; }
     Raster ras;
-    ras.init(out.w, out.h);
+    if (!g.overlap) {
+        ras.init(out.w, out.h);
+        ras.outline(pts, g.tags, g.ends);
+        ras.sweep(out.buf.data());
+        return;
+    }
+    // ft_smooth_raster_overlap: the outline inflated 4x, each subpixel's
+    // coverage rounded to 1/16 and summed into its pixel (256 saturates).
+    const int S = 4;
+    for (auto& v : pts) { v.x *= S; v.y *= S; }
+    int W = out.w * S, H = out.h * S;
+    std::vector<uint8_t> sub((size_t)W * H, 0);
+    ras.init(W, H);
     ras.outline(pts, g.tags, g.ends);
-    ras.sweep(out.buf.data());
+    ras.sweep(sub.data());
+    for (int yy = 0; yy < H; yy++)
+        for (int xx = 0; xx < W; xx++) {
+            unsigned c = sub[(size_t)yy * W + xx];
+            if (!c) continue;
+            uint8_t& d = out.buf[(size_t)(yy / S) * out.w + xx / S];
+            unsigned sum = d + (c + S * S / 2) / (S * S);
+            d = (uint8_t)(sum - (sum >> 8));
+        }
 }
 
 // ------------------------------------------------------------- layout
@@ -3623,6 +3961,36 @@ bool pair_pos(const Bytes& b, size_t st, int g1, int g2, int& adv1, int& pl1, in
     return false;
 }
 
+// The 'kern' table as HarfBuzz applies it where GPOS has no 'kern' feature:
+// version 0, the horizontal format 0 subtables that are not cross-stream.
+void read_kern_table(Face& f) {
+    const Bytes& b = f.b;
+    if (!f.kern || f.gpos_kern || b.u16(f.kern) != 0) return;
+    int nt = b.u16(f.kern + 2);
+    size_t st = f.kern + 4;
+    for (int t = 0; t < nt; t++) {
+        int len = b.u16(st + 2), cov = b.u16(st + 4);
+        if ((cov & 1) && !(cov & 4) && (cov >> 8) == 0) {
+            int np = b.u16(st + 6);
+            for (int i = 0; i < np; i++) {
+                size_t e = st + 14 + 6 * (size_t)i;
+                f.kern_pairs.push_back({b.u32(e), (int16_t)b.u16(e + 4)});
+            }
+        }
+        st += len;
+    }
+    std::stable_sort(f.kern_pairs.begin(), f.kern_pairs.end(),
+                     [](const std::pair<uint32_t, int>& a, const std::pair<uint32_t, int>& c) {
+                         return a.first < c.first;
+                     });
+}
+
+int kern_value(const Face& f, int left, int right) {
+    uint32_t key = ((uint32_t)left << 16) | (uint32_t)right;
+    auto it = std::lower_bound(f.kern_pairs.begin(), f.kern_pairs.end(), std::make_pair(key, INT32_MIN));
+    return it != f.kern_pairs.end() && it->first == key ? it->second : 0;
+}
+
 void find_kern_lookups(Face& f) {
     if (!f.gpos) return;
     const Bytes& b = f.b;
@@ -3643,6 +4011,7 @@ void find_kern_lookups(Face& f) {
             // of HarfBuzz's default features only kern's pair adjustments
             // fire on these renderers' glyphs (tests/test_torch_truetype.py)
             if (std::strcmp(tag, "kern")) continue;
+            f.gpos_kern = true;
             size_t feat = fl + b.u16(fr + 4);
             int nl = b.u16(feat + 2);
             for (int i = 0; i < nl; i++) idx.push_back(b.u16(feat + 4 + 2 * i));
@@ -3722,10 +4091,22 @@ void shape(Face& f, const uint32_t* text, int n, std::vector<Shaped>& out) {
     }
     const std::vector<size_t>& subs = latin ? f.kern_latn : f.kern_dflt;
     const std::vector<int>& flags = latin ? f.kern_latn_flags : f.kern_dflt_flags;
-    if (subs.empty() || n < 2) return;
     Long hb_scale = (Long)(((uint64_t)f.x_scale * (uint64_t)f.upem + (1u << 15)) >> 16);
     int64_t x_mult = ((int64_t)hb_scale << 16) / f.upem;
     auto em = [&](int v) -> Long { return (Long)(((int64_t)v * x_mult + 32768) >> 16); };
+    if (!f.kern_pairs.empty()) {
+        // hb_kern_machine_t: each pair's value split between the two glyphs
+        for (int i = 0; i + 1 < n; i++) {
+            int k = kern_value(f, out[i].gid, out[i + 1].gid);
+            if (!k) continue;
+            Long v = em(k), k1 = v >> 1, k2 = v - k1;
+            out[i].x_advance += k1;
+            out[i + 1].x_advance += k2;
+            out[i + 1].x_offset += k2;
+        }
+        return;
+    }
+    if (subs.empty() || n < 2) return;
     // apply lookup by lookup, each across the buffer
     size_t i0 = 0;
     while (i0 < subs.size()) {
@@ -3836,6 +4217,7 @@ void* tt_open(const uint8_t* data, int64_t len) {
     Face* f = new Face();
     if (!f->load(data, (size_t)len)) { delete f; return nullptr; }
     find_kern_lookups(*f);
+    read_kern_table(*f);
     return f;
 }
 

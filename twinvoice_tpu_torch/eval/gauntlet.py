@@ -9,14 +9,15 @@ Two measurements, the JAX package's formulas:
   ``segment_batch`` call of the cases resized to the grid;
 - end to end: the extractor's field exactness on the perturbed photos.
 
-The base cases are rendered by the JAX package's ``make_base_cases`` (Pillow
-and TrueType fonts, which stay there) and reach the port through
-:func:`save_cases`/:func:`load_cases` (an npz of uint8 arrays). The
-perturbed tiers are made here: :func:`perturb_cases` runs the port's
-perturbation engine (``data.augment``, numpy, no OpenCV) on those bases.
-The resizes are numpy, bit-equal to OpenCV's (``ops.host_image``), and the
-extractor takes the uint8 page arrays, so the card's machine needs neither
-library.
+Everything is made here, without Pillow, FreeType or OpenCV:
+:func:`make_base_cases` renders the held-out invoices with
+``data.synthetic.render_invoice`` on the training fonts, the held-out fonts
+or through the dot-matrix printhead, and :func:`perturb_cases` runs the
+perturbation engine (``data.augment``, numpy) on them; one seed gives the
+JAX package's cases byte for byte. The resizes are numpy, bit-equal to
+OpenCV's (``ops.host_image``), and the extractor takes the uint8 page
+arrays. Cases also travel as files (:func:`save_cases`/:func:`load_cases`,
+an npz of uint8 arrays).
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from twinvoice_tpu_torch.data import augment
+from twinvoice_tpu_torch import FIELDS
+from twinvoice_tpu_torch.data import augment, synthetic
 from twinvoice_tpu_torch.data.augment import boxes_from_mask
 from twinvoice_tpu_torch.ops.host_image import resize_linear_u8, resize_nearest_u8
 
@@ -70,14 +72,64 @@ class GauntletCase:
     font: str = ""
 
 
+def _random_content(rng):
+    letters = "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    inv_no = "".join(rng.choice(list(letters), 2)) + "".join(
+        rng.choice(list("0123456789"), 8)
+    )
+    date = f"{rng.integers(2019, 2031)}-{rng.integers(1, 13):02d}-{rng.integers(1, 29):02d}"
+    amount = int(rng.integers(1, 99999))
+    return inv_no, date, amount
+
+
+def make_base_cases(
+    n: int,
+    *,
+    seed: int = HELDOUT_SEED_BASE,
+    use_heldout_fonts: bool = False,
+    layout_jitter: float = 0.6,
+    items: Optional[List[dict]] = None,
+    dot_print: bool = False,
+) -> List[GauntletCase]:
+    """Render n held-out invoices at native resolution (no perturbation):
+    random content and page size, a font drawn from the training or the
+    held-out registry, the field masks from the ground-truth boxes.
+    ``dot_print`` renders the text through the dot-matrix printhead (the
+    physical TW invoice medium). The font drawn depends on the registry's
+    length, so the cases are JAX's where the registries hold the same
+    faces."""
+    rng = np.random.default_rng(seed)
+    fonts = synthetic.heldout_fonts() if use_heldout_fonts else synthetic.train_fonts()
+    cases = []
+    for i in range(n):
+        inv_no, date, amount = _random_content(rng)
+        w = int(rng.integers(360, 560))
+        h = int(rng.integers(560, 760))
+        font = fonts[int(rng.integers(0, len(fonts)))]
+        img, boxes = synthetic.render_invoice(
+            inv_no, date, amount,
+            items=items or [{"name": "測試品項", "qty": 1, "price": amount}],
+            size=(w, h), seed=seed + i,
+            font_path=font, font_size=int(rng.integers(18, 27)),
+            layout_jitter=layout_jitter, dot_print=dot_print,
+        )
+        arr = img.array
+        mask = np.zeros((h, w, 3), np.uint8)
+        for c, f in enumerate(FIELDS):
+            x1, y1, x2, y2 = boxes[f]
+            mask[y1 : y2 + 1, x1 : x2 + 1, c] = 255
+        cases.append(GauntletCase(arr, mask, inv_no, date, amount,
+                                  font=font.rsplit("/", 1)[-1]))
+    return cases
+
+
 def perturb_cases(
     cases: Sequence[GauntletCase], level: str, seed: int = 0
 ) -> List[GauntletCase]:
     """Apply one named perturbation level or scenario to every case (native
     resolution). Levels are severity presets; scenarios (:data:`SCENARIOS`)
     apply one real-photo degradation family at representative strength.
-    One seed gives the JAX package's cases: its masks byte for byte, its
-    images but where a float32 stage rounds otherwise."""
+    One seed gives the JAX package's cases byte for byte."""
     if level in SCENARIOS:
         rng = np.random.default_rng(seed + sum(map(ord, level)))
         out = []

@@ -20,14 +20,21 @@ with HarfBuzz 12.3.0:
   the strong and weak point alignment, the hinted advance, the non-base
   characters, the dot separation of FreeType 2.14's adjustment database
   for "i" and "j", and a serif near a base that is not its neighbour left
-  unhinted, as the library leaves it. Glyphs outside the Latin ranges take
-  the fallback style, which only scales;
+  unhinted, as the library leaves it. Glyphs that no script covers (the
+  default font's ``.notdef``, which the invoice's CJK labels draw) take
+  FreeType's fallback style, its CJK writing system (stems widened to at
+  least 54/64 px and fitted, the remaining edges interpolated), here with
+  no blue zones;
 - FreeType's smooth rasteriser (24.8 cells, the conic DDA, the non-zero
-  fill rule);
+  fill rule); a glyph flagged ``OVERLAP_SIMPLE`` or ``OVERLAP_COMPOUND``
+  (Playfair Display) is rendered 4× oversampled and averaged, as
+  ``ft_smooth_raster_overlap`` does;
 - layout as raqm and HarfBuzz do it for single-script runs: FreeType's
   unhinted advances (``hb-ft``'s default load flags) and the GPOS pair
   kerning of the default features, the only lookups that fire on these
-  renderers' strings (``tests/test_torch_truetype.py`` probes it); or, for
+  renderers' strings (``tests/test_torch_truetype.py`` probes it), or,
+  where GPOS has no ``kern`` feature, the legacy ``kern`` table (FreeSans
+  Bold), each pair's value split between the two glyphs; or, for
   ``layout_engine="basic"`` (Pillow's ``Layout.BASIC``, which its default
   font uses), the hinted advances of ``FT_Load_Glyph``;
 - Pillow's ``font_render``: the text box from the hinted glyphs' pixel

@@ -301,9 +301,9 @@ def render_line(text: str, rng: np.random.Generator,
 
     if rng.random() < min(0.85, 0.4 * sev):
         amp = float(rng.uniform(0.5, max(0.51, 1.3 * sev)))
-        gx = host_filter.resize_cubic_f32_cv(
+        gx = host_filter.resize_cubic_f32(
             rng.normal(0, amp, (4, 16)).astype(np.float32), IMG_W, IMG_H)
-        gy = host_filter.resize_cubic_f32_cv(
+        gy = host_filter.resize_cubic_f32(
             rng.normal(0, 0.8 * amp, (4, 16)).astype(np.float32), IMG_W, IMG_H)
         xs, ys = np.meshgrid(np.arange(IMG_W, dtype=np.float32),
                              np.arange(IMG_H, dtype=np.float32))

@@ -18,29 +18,30 @@ numpy, as OpenCV 5 computes them for the perturbation engine
   ``BORDER_REFLECT_101``.
 - :func:`filter2d_f32`: ``cv2.filter2D(x, -1, k)`` on float32 with an odd
   square kernel of side 3 to 13: the correlation at the kernel's centre over
-  ``BORDER_REFLECT_101`` edges. OpenCV sums a kernel of fewer than 130 taps
-  directly (one float32 FMA a nonzero tap) and switches a larger one
-  (13×13 = 169) to its DFT path; the port sums directly at every size,
-  which is OpenCV's result below 130 taps and within a few ulp of its DFT.
+  ``BORDER_REFLECT_101`` edges, the nonzero taps one FMA each onto a sum
+  from zero (``FilterVec_32f``), the last ``(W·C) % 8`` values of a row
+  without FMAs. OpenCV sums a kernel of fewer than 130 taps directly and
+  switches a larger one (13×13 = 169) to its DFT path; the port sums
+  directly at every size, which is OpenCV's result below 130 taps and
+  within a few ulp of its DFT.
 - The perturbation engine also blurs and filters float64 fields (numpy
   promotes its float32 image where a float64 scalar multiplies it); both
   functions then compute in float64, as OpenCV does for ``CV_64F``.
 - :func:`resize_cubic_f32`: ``cv2.resize(x, (w, h),
-  interpolation=cv2.INTER_CUBIC)`` on float32: half-pixel centres, the
-  a = −0.75 kernel, replicated edges, horizontal then vertical (IPP's
-  arithmetic, as near as float64 weights come to it).
-- :func:`resize_cubic_f32_cv`: the same call bit for bit as OpenCV's own
-  code computes it (``cv2.ipp.setUseIPP(False)``), for ``render_line``'s
-  elastic field, whose port holds JAX's lines byte for byte.
+  interpolation=cv2.INTER_CUBIC)`` on float32 bit for bit as OpenCV's own
+  code computes it (``cv2.ipp.setUseIPP(False)``; with IPP, which the
+  wheel uses by default, the last bits differ).
 
-The float32 functions are held to ``cv2`` within the tolerances that
-``tests/test_torch_filter.py`` states (OpenCV's own order of float32 sums
-differs by a few ulp, and the DFT path by more).
+The float32 functions follow OpenCV 5.0's code as it runs on an x86-64
+CPU with AVX2 and FMA3: its vector loops fuse each multiply-add, its scalar
+tails do not (but where its compiler fused them). ``tests/test_torch_filter.py`` holds them to ``cv2`` with IPP off,
+byte for byte at the perturbation engine's shapes.
 """
 
 from __future__ import annotations
 
-import math
+import struct
+from decimal import Decimal, getcontext
 
 import numpy as np
 
@@ -49,9 +50,43 @@ from twinvoice_tpu_torch.ops.host_image import _reflect101_index, _require_pixel
 _F32 = np.float32
 
 
+# cv::softdouble exp (OpenCV's softfloat.cpp): a 64-entry table of
+# 2^(i/64) and a degree-5 polynomial, all in IEEE double without FMAs
+_EXP_A0 = 0.9670371139572337719125840413672004409288e-2
+_EXP_POLY = tuple(c / _EXP_A0 for c in (
+    .13369713757180123244806654839424e-2, .96180973140732918010002372686186e-2,
+    .55504108793649567998466049042729e-1, .24022650695886477918181338054308,
+    .69314718055994546743029643825322, .99999999999999999998285227504999))
+_EXP_PRESCALE = struct.unpack("<d", struct.pack("<Q", 0x3FF71547652B82FE))[0] * 64.0
+
+
+def _exp_table():
+    getcontext().prec = 60
+    return [float(Decimal(2) ** (Decimal(i) / Decimal(64))) * _EXP_A0 for i in range(64)]
+
+
+_EXP_TAB = _exp_table()
+
+
+def soft_exp(x: float) -> float:
+    """OpenCV's ``softdouble`` ``exp(x)`` for finite ``x`` of moderate size
+    (the Gaussian kernels' exponents), which differs from the C library's
+    by a few ulp."""
+    x0 = float(x) * _EXP_PRESCALE
+    val0 = int(np.rint(x0))
+    t = min(max((val0 >> 6) + 1023, 0), 2047)
+    scale = struct.unpack("<d", struct.pack("<Q", t << 52))[0]
+    x0 = (x0 - float(np.rint(x0))) / 64.0
+    poly = _EXP_POLY[0]
+    for c in _EXP_POLY[1:]:
+        poly = poly * x0 + c
+    return scale * poly * _EXP_TAB[val0 & 63]
+
+
 def gaussian_kernel_bitexact(n: int, sigma: float):
     """``getGaussianKernelBitExact(n, sigma)`` for ``sigma`` > 0 and odd
-    ``n``: → n float64 taps that sum to about 1."""
+    ``n``: → n float64 taps that sum to about 1 (``getGaussianKernel``'s,
+    which float32 images are blurred with rounded to float32)."""
     if n < 1 or n % 2 == 0 or sigma <= 0:
         raise ValueError(f"an odd size and sigma > 0, got {n}, {sigma}")
     scale2 = -0.125 / (float(sigma) * float(sigma))
@@ -59,7 +94,7 @@ def gaussian_kernel_bitexact(n: int, sigma: float):
     values, total = [], 0.0
     x = 1 - n
     for _ in range(half):
-        t = math.exp(float(x * x) * scale2)
+        t = soft_exp(float(x * x) * scale2)
         values.append(t)
         total += t
         x += 2
@@ -94,10 +129,40 @@ def _pad101(x: np.ndarray, r: int, axis: int) -> np.ndarray:
 
 
 def _madd(x, k, acc):
-    """``x·k + acc`` summed in float64 and rounded once to ``acc``'s dtype:
-    for float32 an FMA up to a double rounding at an exact float32
-    midpoint."""
-    return (x.astype(np.float64) * float(k) + acc).astype(acc.dtype)
+    """``x·k + acc`` rounded once to ``acc``'s dtype: for float32 an FMA
+    (the product is exact in float64, the sum is rounded to odd in float64
+    and then to float32, which rounds it correctly); for float64 the
+    product and the sum each rounded."""
+    if acc.dtype != _F32:
+        return x * k + acc
+    p = x.astype(np.float64) * float(k)
+    c = acc.astype(np.float64)
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(np.int64) & 1) == 0
+    s = np.where((e != 0) & even, np.nextafter(s, np.where(e > 0, np.inf, -np.inf)), s)
+    return s.astype(_F32)
+
+
+def _split27(a: np.ndarray):
+    """Dekker's split of float64 values into two 26-bit halves."""
+    c = a * 134217729.0
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _fma64(x: np.ndarray, k: float, acc: np.ndarray) -> np.ndarray:
+    """``fma(x, k, acc)`` in float64 by error-free transformations: the
+    exact product and sum, rounded once but for ties in the last step."""
+    p = x * k
+    xh, xl = _split27(x)
+    kh, kl = _split27(np.float64(k))
+    pe = ((xh * kh - p) + xh * kl + xl * kh) + xl * kl
+    s = p + acc
+    bb = s - p
+    se = (p - (s - bb)) + (acc - bb)
+    return s + (se + pe)
 
 
 def _separable_q8(x: np.ndarray, taps) -> np.ndarray:
@@ -124,16 +189,20 @@ def gaussian_blur_u8(img: np.ndarray, sigma: float, ksize: int = 0) -> np.ndarra
 
 
 def _row_tail(rows: np.ndarray, p: np.ndarray, taps) -> np.ndarray:
-    """The last ``(W·C) % 8`` values of each float32 row, which OpenCV's row
-    filter computes after its 8-lane loop in scalar code without FMAs:
-    ``k0·S0 + k1·(S−1 + S1) [+ k2·(S−2 + S2)]`` at 3 or 5 taps, else the
-    taps' products added one after another."""
+    """The values of each row that OpenCV's row filter leaves to scalar code
+    after its vector loops (those compute the vector sum): for float32 at 3
+    or 5 taps (``SymmRowSmallFilter``, whose pair loop gives the vector sum)
+    only the last value of an odd row, ``fma(S−1 + S1, k1, k0·S0)`` at 3
+    taps and ``k0·S0 + k1·(S−1 + S1) + k2·(S−2 + S2)`` without FMAs at 5;
+    else the last ``(W·C) % 4`` values, the taps' products added one after
+    another (for float32 at 7, 11, 15, ... taps the last two fused)."""
     h, w = rows.shape[:2]
     flat = rows.reshape(h, -1)
-    tail = flat.shape[1] % 8
+    n = len(taps)
+    small = n <= 5 and rows.dtype == _F32  # float64 rows take RowFilter at every width
+    tail = flat.shape[1] % 2 if small else flat.shape[1] % 4
     if not tail:
         return rows
-    n = len(taps)
     r = n // 2
     cn = flat.shape[1] // w
     pf = p.reshape(h, -1)
@@ -142,14 +211,20 @@ def _row_tail(rows: np.ndarray, p: np.ndarray, taps) -> np.ndarray:
     def S(k):  # the padded row's values k pixels from each tail value
         return pf[:, start + (r + k) * cn:start + (r + k) * cn + tail]
 
-    if n <= 5:
+    if small:
         acc = taps[r] * S(0)
-        for k in range(1, r + 1):
-            acc = acc + taps[r + k] * (S(-k) + S(k))
+        if n == 3:  # compiled as one FMA
+            acc = _madd(S(-1) + S(1), taps[2], acc)
+        elif n == 5:
+            for k in (1, 2):
+                acc = acc + taps[r + k] * (S(-k) + S(k))
     else:
+        # float32 with (n − 1) % 4 == 2: the compiled loop's remainder
+        # fuses the last two taps
+        fused = n - 2 if rows.dtype == _F32 and (n - 1) % 4 == 2 else n
         acc = taps[0] * S(-r)
         for j in range(1, n):
-            acc = acc + taps[j] * S(j - r)
+            acc = _madd(S(j - r), taps[j], acc) if j >= fused else acc + taps[j] * S(j - r)
     out = flat.copy()
     out[:, start:] = acc
     return out.reshape(rows.shape)
@@ -158,11 +233,12 @@ def _row_tail(rows: np.ndarray, p: np.ndarray, taps) -> np.ndarray:
 def _column_tail(out: np.ndarray, q: np.ndarray, taps) -> np.ndarray:
     """The last ``(W·C) % 8`` values of each float32 output row, which the
     column filter computes after its vector loop without FMAs:
-    ``k0·S0``, then ``+ k·(S−k + Sk)`` for each pair."""
+    ``k0·S0``, then ``+ k·(S−k + Sk)`` for each pair (at 3 taps,
+    ``SymmColumnSmallFilter``, the vector loop's FMA)."""
     h = out.shape[0]
     flat = out.reshape(h, -1)
     tail = flat.shape[1] % 8
-    if not tail:
+    if not tail or len(taps) == 3:
         return out
     r = len(taps) // 2
     qf = q.reshape(q.shape[0], -1)[:, -tail:]
@@ -188,7 +264,7 @@ def gaussian_blur_f32(x: np.ndarray, sigma: float) -> np.ndarray:
     p = _pad101(x, r, 1)
     if n == 1:
         rows = _madd(x, taps[0], np.zeros(x.shape, x.dtype))
-    elif n <= 5:
+    elif n <= 5 and x.dtype == _F32:
         # 3 or 5 taps: SymmRowSmallVec_32f, the inner pair (summed first)
         # times its tap, then an FMA of the centre, then of the outer pair
         pair = lambda k: p[:, r + k:r + k + w] + p[:, r - k:r - k + w]  # noqa: E731
@@ -196,13 +272,17 @@ def gaussian_blur_f32(x: np.ndarray, sigma: float) -> np.ndarray:
         rows = _madd(p[:, r:r + w], taps[r], rows)
         if n == 5:
             rows = _madd(pair(2), taps[r + 2], rows)
-    else:
+    elif x.dtype == _F32:
         # wider rows: RowVec_32f's FMA chain from zero, tap by tap
         rows = np.zeros(x.shape, x.dtype)
         for j in range(n):
             rows = _madd(p[:, j:j + w], taps[j], rows)
-    if x.dtype == _F32:
-        rows = _row_tail(rows, p, taps)
+    else:
+        # float64 rows at any width: the vector loop's FMA chain from zero
+        rows = np.zeros(x.shape, x.dtype)
+        for j in range(n):
+            rows = _fma64(p[:, j:j + w], float(taps[j]), rows)
+    rows = _row_tail(rows, p, taps)
     # columns: SymmColumnVec_32f, the centre tap, then each symmetric pair
     # summed before its FMA
     q = _pad101(rows, r, 0)
@@ -230,45 +310,21 @@ def filter2d_f32(x: np.ndarray, k: np.ndarray) -> np.ndarray:
     h, w = x.shape[:2]
     p = _pad101(_pad101(x, r, 0), r, 1)
     acc = np.zeros(x.shape, x.dtype)
-    for i in range(n):
-        for j in range(n):
-            if k[i, j] != 0:
-                acc = _madd(p[i:i + h, j:j + w], k[i, j], acc)
+    nz = [(i, j) for i in range(n) for j in range(n) if k[i, j] != 0]
+    for i, j in nz:
+        acc = _madd(p[i:i + h, j:j + w], k[i, j], acc)
+    flat = acc.reshape(h, -1)
+    tail = flat.shape[1] % 8
+    if x.dtype == _F32 and tail:
+        # the last (W·C) % 8 values of each row: scalar code without FMAs
+        pf = p.reshape(p.shape[0], -1)
+        cn = flat.shape[1] // w
+        t = np.zeros((h, tail), _F32)
+        for i, j in nz:
+            src = pf[i:i + h, j * cn + flat.shape[1] - tail:j * cn + flat.shape[1]]
+            t = t + k[i, j] * src
+        flat[:, -tail:] = t
     return acc
-
-
-def _cubic_taps(dst: int, src: int):
-    """Source index and four float64 weights of each output along an axis:
-    ``fx = (d + 0.5)·(1/(dst/src)) − 0.5``, ``sx = floor(fx)``, the
-    a = −0.75 kernel at ``fx − sx``, all in float64; indices replicated at
-    the edges."""
-    scale = 1.0 / (dst / src)
-    f = (np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5
-    s = np.floor(f)
-    t = f - s
-    a = -0.75
-    w0 = ((a * (t + 1) - 5 * a) * (t + 1) + 8 * a) * (t + 1) - 4 * a
-    w1 = ((a + 2) * t - (a + 3)) * t * t + 1
-    w2 = ((a + 2) * (1 - t) - (a + 3)) * (1 - t) * (1 - t) + 1
-    w3 = 1 - w0 - w1 - w2
-    idx = np.clip(s.astype(np.int64)[:, None] + np.arange(-1, 3)[None, :], 0, src - 1)
-    return idx, np.stack([w0, w1, w2, w3], 1)
-
-
-def resize_cubic_f32(x: np.ndarray, width: int, height: int) -> np.ndarray:
-    """float32 (h, w) → (height, width), ``cv2.resize(x, (width, height),
-    interpolation=cv2.INTER_CUBIC)`` within a few float32 ulp: OpenCV's
-    default build routes it through Intel IPP, whose result is closest to
-    coordinates and weights in float64, each row's horizontal sum rounded
-    to float32 and the vertical sum taken in float64."""
-    x = np.asarray(x)
-    if x.dtype != _F32 or x.ndim != 2 or x.size == 0:
-        raise ValueError(f"a non-empty float32 (h, w) array, got {x.dtype} {x.shape}")
-    xi, xw = _cubic_taps(int(width), x.shape[1])
-    yi, yw = _cubic_taps(int(height), x.shape[0])
-    x64 = x.astype(np.float64)
-    rows = sum(x64[:, xi[:, k]] * xw[:, k] for k in range(4)).astype(_F32).astype(np.float64)
-    return sum(rows[yi[:, k]] * yw[:, k][:, None] for k in range(4)).astype(_F32)
 
 
 def _cubic_coeffs_f32(t: np.ndarray):
@@ -282,12 +338,13 @@ def _cubic_coeffs_f32(t: np.ndarray):
     return [c.astype(_F32) for c in (c0, c1, c2, c3)]
 
 
-def resize_cubic_f32_cv(x: np.ndarray, width: int, height: int) -> np.ndarray:
+def resize_cubic_f32(x: np.ndarray, width: int, height: int) -> np.ndarray:
     """float32 (h, w) → (height, width), ``cv2.resize(x, (width, height),
     interpolation=cv2.INTER_CUBIC)`` bit for bit as OpenCV's own code
     computes it (``cv2.ipp.setUseIPP(False)``): float32 coordinates and
     weights, each row's four taps summed left to right with replicated edge
-    indices, the vertical taps as ``S0·b0 + (S1·b1 + (S2·b2 + S3·b3))``."""
+    indices, the vertical taps as ``S0·b0 + (S1·b1 + (S2·b2 + S3·b3))`` in
+    its 4-lane loop and left to right in the last ``width % 4`` columns."""
     x = np.asarray(x)
     if x.dtype != _F32 or x.ndim != 2 or x.size == 0:
         raise ValueError(f"a non-empty float32 (h, w) array, got {x.dtype} {x.shape}")
@@ -305,4 +362,8 @@ def resize_cubic_f32_cv(x: np.ndarray, width: int, height: int) -> np.ndarray:
         rows = rows + x[:, np.clip(sx - 1 + k, 0, w - 1)] * ax[k]
     sy, by = taps(h, int(height))
     r = [rows[np.clip(sy - 1 + k, 0, h - 1)] * by[k][:, None] for k in range(4)]
-    return (r[0] + (r[1] + (r[2] + r[3]))).astype(_F32)
+    out = (r[0] + (r[1] + (r[2] + r[3]))).astype(_F32)
+    tail = int(width) % 4
+    if tail:
+        out[:, -tail:] = ((r[0][:, -tail:] + r[1][:, -tail:]) + r[2][:, -tail:]) + r[3][:, -tail:]
+    return out

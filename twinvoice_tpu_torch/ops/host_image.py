@@ -121,17 +121,19 @@ def _two_tap_resize(img: np.ndarray, xtaps, ytaps) -> np.ndarray:
     hi = sx >= w - 1
     fx = np.where(hi, np.float32(0), fx)
     sx = np.where(hi, w - 1, sx)
-    a0, a1 = _coef(fx)
+    a0, a1 = (a.astype(np.int32) for a in _coef(fx))
     extra = (None,) * (img.ndim - 2)  # broadcast the taps over channels
     cols = (slice(None),) + extra
     a0, a1, hi = a0[cols], a1[cols], hi[cols]
-    src = img.astype(np.int64)
-    rows = src[:, sx] * a0 + src[:, np.minimum(sx + 1, w - 1)] * a1
-    rows = np.where(hi, src[:, sx] * _COEF_SCALE, rows)
+    # int32 holds every sum: rows < 2^20, the vertical products < 2^27
+    src = img.astype(np.int32)
+    g0 = src[:, sx]
+    rows = g0 * a0 + src[:, np.minimum(sx + 1, w - 1)] * a1
+    rows = np.where(hi, g0 * _COEF_SCALE, rows)
     # rows: (h, width[, C]) with 11 fractional bits; the vertical taps are
     # not clamped, their rows are
     sy, fy = ytaps
-    b0, b1 = _coef(fy)
+    b0, b1 = (b.astype(np.int32) for b in _coef(fy))
     r0 = rows[np.clip(sy, 0, h - 1)]
     r1 = rows[np.clip(sy + 1, 0, h - 1)]
     b0, b1 = b0[(slice(None), None) + extra], b1[(slice(None), None) + extra]

@@ -8,7 +8,8 @@ module draws the same pixels, following Pillow's C drawing code
 
 - :class:`Image`: modes ``"L"`` (H, W) and ``"RGB"`` (H, W, 3) uint8 in
   ``.array``;
-  ``new``, ``paste`` (clipped copy), ``rotate`` (NEAREST, Pillow's default:
+  ``new``, ``crop`` (zeros outside), ``convert`` (``"L"`` as Pillow's
+  luma, ``"RGB"``), ``paste`` (clipped copy), ``rotate`` (NEAREST, Pillow's default:
   the inverse affine matrix in 16.16 fixed point, ``affine_fixed``),
   ``resize`` (Pillow's default bicubic, :func:`host_image.resize_pil_bicubic`);
 - :class:`Draw`: ``line`` (a 1-pixel Bresenham walk without its end point,
@@ -35,7 +36,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-from twinvoice_tpu_torch.ops.host_image import resize_pil_bicubic
+from twinvoice_tpu_torch.ops.host_image import pil_luma, resize_pil_bicubic
 
 _F32 = np.float32
 
@@ -65,6 +66,10 @@ class Image:
     def fromarray(cls, array: np.ndarray) -> "Image":
         return cls(array, "L" if array.ndim == 2 else "RGB")
 
+    def __array__(self, dtype=None, copy=None):
+        """``np.asarray(img)``: the pixels, as of a PIL image."""
+        return self.array if dtype is None else self.array.astype(dtype)
+
     @property
     def size(self) -> Tuple[int, int]:
         return self.array.shape[1], self.array.shape[0]
@@ -79,6 +84,29 @@ class Image:
 
     def copy(self) -> "Image":
         return Image(self.array.copy(), self.mode)
+
+    def crop(self, box) -> "Image":
+        """``Image.crop((left, upper, right, lower))``: the box's pixels,
+        zeros where it reaches outside the image."""
+        x0, y0, x1, y1 = (int(round(v)) for v in box)
+        if x1 < x0:
+            raise ValueError("Coordinate 'right' is less than 'left'")
+        if y1 < y0:
+            raise ValueError("Coordinate 'lower' is less than 'upper'")
+        out = Image.new(self.mode, (x1 - x0, y1 - y0), 0)
+        out.paste(self, (-x0, -y0))
+        return out
+
+    def convert(self, mode: str) -> "Image":
+        """``Image.convert("L")`` (Pillow's luma, ``host_image.pil_luma``)
+        or ``convert("RGB")`` (the gray level in each channel)."""
+        if mode == self.mode:
+            return self.copy()
+        if mode == "L":
+            return Image(pil_luma(self.array), "L")
+        if mode == "RGB":
+            return Image(np.repeat(self.array[..., None], 3, axis=2), "RGB")
+        raise ValueError(f"mode {mode!r}: only 'L' and 'RGB' are drawn")
 
     def paste(self, im: "Image", box: Tuple[int, int]) -> None:
         """``Image.paste(im, (x, y))``: a copy clipped to this image."""
