@@ -9,7 +9,8 @@ Phases, each printing one line with its wall time:
 2. build every CUDA kernel of the port from ``twinvoice_tpu_torch/csrc``, and
    the host C++ libraries beside them: the QR decoder from
    ``native/qrdecode.cpp``, the image codec from ``csrc/host_codec.cpp``, the
-   QR locator and the TrueType engine
+   QR locator, the TrueType engine, the DFT filter (``csrc/host_dft.cpp``)
+   and the zstd decoder (``csrc/host_zstd.cpp``)
 3. K1 (``ops.bbox_postprocess``) against its plain PyTorch version on the
    card: exact equality of boxes and valid flags on planted rectangles
    (float32 and bfloat16), all-below and all-above logits, H≠W, odd widths,
@@ -332,6 +333,22 @@ Phases, each printing one line with its wall time:
     case to JAX's (ok flags equal, IoU within ``GAUNTLET_IOU_TOL``), and
     ``eval_gauntlet.py``'s table; (d) the extractor on the three clean tiers
     (75 pages), records equal to JAX's wherever the boxes are
+33. the JAX package's Orbax checkpoints on the card's machine, which has
+    neither orbax nor TensorStore nor ``zstandard`` (``train/orbax.py`` on
+    ``train/ocdbt.py`` and ``ops/host_zstd``; no kernel of their own),
+    committed under ``tests/data/torch_smoke_orbax/`` and held to
+    ``tests/data/torch_smoke_orbax.npz``: (a) ``w16_params`` (``save_params``
+    of the bundled w16) and ``w8_state`` (a JAX ``TrainState`` after two
+    steps) read with every leaf bit-equal to orbax's restore, and the host ms
+    of each; (b) ``Segmenter.from_checkpoint(w16_params)`` at fp32 (ok flags
+    and pixel boxes equal to JAX's ``from_checkpoint``), K1 held to its plain
+    version on the served logits at fp32 and bf16 (``served_vs_plain``), the
+    int8 "pallas" and "pallas trunk" routes (K2, K4a, K5, K6) held to
+    ``torch_smoke_int8.npz`` as in phase 9; (c) ``compat.load_model`` on the
+    same directory; (d) ``restore`` of ``w8_state`` into a fresh port
+    ``TrainState`` (epoch, best loss, AdamW steps and moments exact) and one
+    resumed step held to the float64 step and JAX's; (e) ``fit(resume_dir=
+    w8_state)`` resuming at epoch 2
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -356,7 +373,9 @@ once). So are phase 28's app ``extract`` calls (K1 once a page), phase
 29's gauntlet routes (as phase 26's) and its serving of the augmented
 checkpoint (K1 once). Phases 30 and 31 must leave every count as they were. In
 phase 32, (a)-(b) must leave every count as it was, each route of (c) is
-driven as phase 26's and (d) as its (d). The
+driven as phase 26's and (d) as its (d). In phase 33 each served call of
+(b)-(c) is driven the same way (K1 once a call; on the int8 routes their
+phase-9 counts), and (d)-(e) must leave every count as it was. The
 kernel rows' launches sum every such path.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
@@ -533,19 +552,22 @@ def phase_device():
 
 def phase_build():
     """The CUDA kernels (one nvcc each), the QR decoder, the image codec, the
-    QR locator and the TrueType engine (the host C++ compiler), all at once."""
+    QR locator, the TrueType engine, the DFT filter and the zstd decoder (the
+    host C++ compiler), all at once."""
     from concurrent.futures import ThreadPoolExecutor
 
     from twinvoice_tpu_torch.ocr.fonts import truetype
-    from twinvoice_tpu_torch.ops import host_imageio
+    from twinvoice_tpu_torch.ops import host_filter, host_imageio, host_zstd
     from twinvoice_tpu_torch.qr import locate as qr_locate
     from twinvoice_tpu_torch.qr import native as qr_native
 
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         host_libs = {"qrdecode": pool.submit(qr_native.build),
                      "hostcodec": pool.submit(host_imageio.build_codec),
                      "hostqrlocate": pool.submit(qr_locate.build),
-                     "hosttruetype": pool.submit(truetype.build)}
+                     "hosttruetype": pool.submit(truetype.build),
+                     "hostdft": pool.submit(host_filter.build_dft),
+                     "hostzstd": pool.submit(host_zstd.build)}
         built = _build.build()
         built.update((name, lib.result()) for name, lib in host_libs.items())
     for name, path in built.items():
@@ -6185,6 +6207,303 @@ def phase_invoice(fix_pages, card):
     print(f"  (d) {len(e2e['e2e_cases'])} pages in {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
+# -- phase 33: the JAX package's Orbax checkpoints -------------------------------
+
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_orbax.npz")
+ORBAX_DIR = os.path.join(ROOT, "tests", "data", "torch_smoke_orbax")
+ORBAX_DIRS = {"w16": "w16_params", "w8": "w8_state"}
+ORBAX_TOLS = TRAIN_TOLS["fp32"]  # the resumed step, held as phase 21 holds its fp32 step
+
+
+def orbax_fixture():
+    with np.load(ORBAX_FIXTURE) as z:
+        return {k: z[k] for k in z.files}
+
+
+def leaf_digest(leaf) -> str:
+    """SHA-256 of a leaf's dtype, shape and C-order bytes, as
+    ``scripts/make_torch_smoke_orbax.py`` stores it."""
+    import hashlib
+
+    a = np.ascontiguousarray(np.asarray(leaf))
+    h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def flat_leaves(tree, prefix=()):
+    """(``/``-joined path, leaf) of a nested dict/list/tuple tree without its
+    ``None`` and empty leaves, as the fixture script lists them."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in flat_leaves(tree[k], prefix + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in flat_leaves(v, prefix + (str(i),))]
+    return [] if tree is None else [("/".join(prefix), tree)]
+
+
+def orbax_read_check(fix):
+    """(a) Both directories read by the port (``train/orbax.py``): every leaf
+    bit-equal to orbax's own restore (the fixture's digests), the w16 leaves
+    equal to the bundled npz's. → ({tag: host ms to read}, {tag: tree})."""
+    from twinvoice_tpu_torch.train import orbax
+    from twinvoice_tpu_torch.weights import read_npz_tree
+
+    ms, trees = {}, {}
+    for tag, name in ORBAX_DIRS.items():
+        t = time.perf_counter()
+        tree = orbax.read(os.path.join(ORBAX_DIR, name))
+        ms[tag] = 1e3 * (time.perf_counter() - t)
+        leaves = flat_leaves(tree)
+        if [k for k, _ in leaves] != [str(k) for k in fix[f"{tag}_keys"]]:
+            raise AssertionError(f"{name}: the port reads the leaves "
+                                 f"{[k for k, _ in leaves][:4]}..., orbax "
+                                 f"{[str(k) for k in fix[f'{tag}_keys']][:4]}...")
+        bad = [k for (k, v), want in zip(leaves, fix[f"{tag}_digests"])
+               if leaf_digest(v) != str(want)]
+        if bad:
+            raise AssertionError(f"{name}: {len(bad)} leaves differ from orbax's, {bad[:3]}")
+        trees[tag] = tree
+    for part, want in zip(("params", "bn_state"), read_npz_tree(variant_path("w16"))):
+        got, ref = dict(keystr_items(trees["w16"][part])), dict(keystr_items(want))
+        if set(got) != set(ref) or any(got[k].dtype != ref[k].dtype
+                                       or not np.array_equal(got[k], ref[k]) for k in ref):
+            raise AssertionError(f"w16_params {part}: not the bundled w16 weights")
+    return ms, trees
+
+
+def orbax_resume_check(fix, tree, device):
+    """(d) ``restore`` of ``w8_state`` into a fresh port ``TrainState`` on
+    ``device``: params, BN state, epoch, best loss, each leaf's ``step``,
+    ``exp_avg`` and ``exp_avg_sq`` exactly the checkpoint's; then one step on
+    the fixture's next batch held to the float64 step and to JAX's with
+    ``ORBAX_TOLS``. → (restore ms, the step's loss, a summary line)."""
+    from twinvoice_tpu_torch.config import UNetConfig
+    from twinvoice_tpu_torch.models.unet import init_unet
+    from twinvoice_tpu_torch.weights import from_jax_params
+
+    mcfg, tcfg = UNetConfig(base_width=8), TrainConfig()
+    params, bn = init_unet(torch.Generator().manual_seed(0), mcfg, device=device)
+    state = TrainState(params, bn, make_optimizer(params, tcfg))
+    t = time.perf_counter()
+    ckpt.restore(os.path.join(ORBAX_DIR, ORBAX_DIRS["w8"]), state)
+    restore_ms = 1e3 * (time.perf_counter() - t)
+    if (state.epoch, state.best_loss) != (int(fix["epoch"]), float(fix["best_loss"])):
+        raise AssertionError(f"restored epoch {state.epoch}, best loss {state.best_loss}; "
+                             f"saved {int(fix['epoch'])}, {float(fix['best_loss'])}")
+    adam = tree["opt_state"]["inner_state"][0]
+    jp, js = from_jax_params(tree["params"], tree["bn_state"])
+    mu = dict(keystr_items(from_jax_params(adam["mu"], tree["bn_state"])[0]))
+    nu = dict(keystr_items(from_jax_params(adam["nu"], tree["bn_state"])[0]))
+    want_p, want_s = dict(keystr_items(jp)), dict(keystr_items(js))
+    lr = float(tree["opt_state"]["hyperparams"]["learning_rate"])
+    for name, p in keystr_items(state.params):
+        st = state.optimizer.state[p]
+        if not (float(st["step"]) == float(fix["count"])
+                and torch.equal(p.detach().cpu(), want_p[name])
+                and torch.equal(st["exp_avg"].cpu(), mu[name])
+                and torch.equal(st["exp_avg_sq"].cpu(), nu[name])):
+            raise AssertionError(f"{name}: the restored param or its AdamW state is not the "
+                                 "checkpoint's")
+    if any(not torch.equal(t.cpu(), want_s[k]) for k, t in keystr_items(state.bn_state)):
+        raise AssertionError("the restored BN state is not the checkpoint's")
+    if any(g["lr"] != lr for g in state.optimizer.param_groups):
+        raise AssertionError(f"restored lr {[g['lr'] for g in state.optimizer.param_groups]}, "
+                             f"saved {lr}")
+
+    images, masks = next(ArrayDataset(fix["images"], fix["masks"]).batches(4, shuffle=False))
+    x, y = to_device_batch(images, masks, torch.float32, device)
+    before = dict(keystr_items(to_jax_params(state.params, state.bn_state)[0]))
+    step = make_train_step(mcfg, tcfg, device=device)
+    with tf32_off():
+        _, new_bn, loss = step(state.params, state.bn_state, state.optimizer, x, y,
+                               float(fix["lr"]))
+    loss = float(loss)
+    jp1, js1 = to_jax_params(state.params, new_bn)
+    grads = dict(keystr_items(to_jax_params(_tree_map(lambda t: t.grad, state.params),
+                                            new_bn)[0]))
+    after = dict(keystr_items(jp1))
+    skeys = [str(k) for k in fix["state_keys"]]
+    bn_after = dict(keystr_items(js1))
+    bn_got = np.concatenate([bn_after[k].reshape(-1) for k in skeys])
+
+    tol, fails = ORBAX_TOLS, []
+    ex, jl = float(fix["exact_loss"]), float(fix["jax_loss"])
+    if abs(loss - ex) > tol["loss"] * ex or abs(loss - jl) > abs(jl - ex) * 1.01 + tol["loss"] * ex:
+        fails.append(f"loss {loss:.8f}, exact {ex:.8f}, JAX {jl:.8f}")
+    pkeys = [str(k) for k in fix["param_keys"]]
+    worst_g = worst_s = (0.0, "")
+    for i, key in enumerate(pkeys):
+        g = grads[key].astype(np.float64)
+        gn, en = np.linalg.norm(g), fix["exact_grad_norms"][i]
+        if pre_bn_bias(key):
+            kern = fix["exact_grad_norms"][pkeys.index(key.replace("['bias']", "['kernel']"))]
+            if gn > tol["bias"] * kern:
+                fails.append(f"{key}: gradient norm {gn:.3e} (exactly 0)")
+        else:
+            gs = g.reshape(-1)[fix["sample_idx"][i]]
+            err = max(abs(gn - en), np.abs(gs - fix["exact_grad_sample"][i]).max()) / en
+            worst_g = max(worst_g, (err, key))
+            if err > tol["grad"]:
+                fails.append(f"{key}: gradient {err:.3e} of its norm from exact")
+        sn = np.linalg.norm((after[key] - before[key]).astype(np.float64))
+        jn = fix["jax_step_norms"][i]
+        rel = abs(sn - jn) / jn
+        if not pre_bn_bias(key):  # a pre-BN bias steps on rounding noise on both sides
+            worst_s = max(worst_s, (rel, key))
+            if rel > tol["step"]:
+                fails.append(f"{key}: step norm {sn:.5e}, JAX {jn:.5e}")
+    bn_exact = rel_dist(bn_got, fix["exact_bn"])
+    bn_jax = rel_dist(bn_got, fix["jax_bn"])
+    bn_own = rel_dist(fix["jax_bn"], fix["exact_bn"])
+    if bn_exact > tol["bn1"] or bn_jax > bn_own * 1.01 + tol["bn1"]:
+        fails.append(f"BN state: {bn_exact:.3e} from exact, {bn_jax:.3e} from JAX")
+    line = (f"loss {loss:.8f} (exact {ex:.8f}, JAX {jl:.8f}); gradients worst "
+            f"{worst_g[0]:.2e} of their norm from exact ({worst_g[1]}); step norms worst "
+            f"{worst_s[0]:.2e} from JAX's ({worst_s[1]}); BN state {bn_exact:.2e} from exact, "
+            f"{bn_jax:.2e} from JAX")
+    if fails:
+        raise AssertionError("the resumed step:\n" + "\n".join(fails))
+    return restore_ms, loss, line
+
+
+def orbax_fit_check(fix, device, tmp):
+    """(e) ``fit(resume_dir=w8_state)`` for one more epoch of one step (the
+    fixture's four images at batch 4): it starts at epoch 3, not from
+    scratch. → the history."""
+    from twinvoice_tpu_torch.config import UNetConfig
+
+    cfg = Config(model=UNetConfig(base_width=8),
+                 train=replace(TrainConfig(), epochs=int(fix["epoch"]) + 1,
+                               checkpoint_dir=os.path.join(tmp, "ck"),
+                               visualize_dir=os.path.join(tmp, "vis")))
+    logs = []
+    state, history = fit(ArrayDataset(fix["images"], fix["masks"]), cfg, device=device,
+                         resume_dir=os.path.join(ORBAX_DIR, ORBAX_DIRS["w8"]), log=logs.append)
+    resumed = [m for m in logs if m.startswith("resumed from")]
+    if ([h["epoch"] for h in history] != [int(fix["epoch"]) + 1] or not resumed
+            or state.epoch != int(fix["epoch"]) + 1):
+        raise AssertionError(f"fit from the JAX state ran epochs {[h['epoch'] for h in history]}"
+                             f" (log {logs[:2]})")
+    return history
+
+
+def orbax_serve_check(fix, pages_fix, fix8):
+    """(b)-(c) ``Segmenter.from_checkpoint(w16_params)`` on the card at fp32
+    (boxes and ok flags equal to JAX's ``from_checkpoint``), K1 held to its
+    plain version on the served logits at fp32 and bf16, the int8 "pallas"
+    and "pallas trunk" routes held to ``torch_smoke_int8.npz`` as phase 9
+    holds them, and ``compat.load_model`` on the same directory. → the
+    launches of every kernel in the served calls."""
+    from twinvoice_tpu_torch import compat
+    from twinvoice_tpu_torch.config import UNetConfig
+    from twinvoice_tpu_torch.train.checkpoint import restore_params
+
+    d = os.path.join(ORBAX_DIR, ORBAX_DIRS["w16"])
+    _, mcfg, grid = VARIANTS["w16"]
+    icfg = InferConfig(img_size=grid)
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    rgb = np.repeat(pages_fix["pages"][..., None], 3, axis=-1)
+    with tf32_off():
+        seg = Segmenter.from_checkpoint(d, mcfg, icfg, torch.float32)
+        (_, boxes, ok), n = counted("fp32", {k1.NAME: 1}, 1, lambda: seg.segment_batch(
+            rgb, pre_resized=False, return_masks=False))
+        add(n)
+        boxes, ok = boxes.cpu().numpy(), ok.cpu().numpy()
+        if not (np.array_equal(ok, fix["pages_ok"]) and np.array_equal(boxes, fix["pages_boxes"])):
+            raise AssertionError(f"from_checkpoint fp32: ok {ok.tolist()}, boxes "
+                                 f"{boxes.tolist()}; JAX's ok {fix['pages_ok'].tolist()}, "
+                                 f"boxes {fix['pages_boxes'].tolist()}")
+        print(f"  (b) from_checkpoint(w16_params) fp32 on the {len(rgb)} pages: ok and pixel "
+              f"boxes equal to JAX's from_checkpoint; launches {n}", flush=True)
+        params, state = restore_params(d, mcfg)
+        train_pages = train_fixture()["pages"]
+        for dtype in (torch.float32, torch.bfloat16):
+            s = seg if dtype == torch.float32 else Segmenter.from_checkpoint(d, mcfg, icfg, dtype)
+            *_, n = served_vs_plain(s, params, state, mcfg, train_pages,
+                                    label="the Orbax w16 weights")
+            add(n)
+
+    calib = fix8["calib"]
+    rgb8 = np.repeat(calib[..., None], 3, axis=-1)
+    h, w = pages_fix["pages"].shape[1:]
+    sizes = np.tile(np.asarray([[w, h]], np.int32), (len(rgb8), 1))
+    tol_px = -(-max(h, w) // calib.shape[1]) + 1
+    scales = quant.scales_from_array(fix8["scales"])
+    thr = probability_to_logit_thresholds((0.25, 0.40, 0.30))
+    for route in ("pallas", "pallas trunk"):
+        s = Segmenter.from_checkpoint(d, mcfg, icfg, torch.float32, int8_scales=scales,
+                                      **ROUTE_ARGS[route])
+        (_, boxes, ok), n = counted(route, ROUTE_KERNELS[route], 1,
+                                    lambda: s.segment_batch(rgb8, sizes, return_masks=False))
+        add(n)
+        px = ok_check(route, ok, boxes, fix8["pallas_ok"], fix8["pallas_boxes"], tol_px)
+        msg = f"pixel boxes within {tol_px} px, exactly equal {px[0]}/{px[1]}"
+        if route == "pallas":
+            q = s.qparams
+            with torch.inference_mode():
+                grids = k2.bbox_from_rowcol_max(*quant.unet_apply_quantized_rowcol_max(
+                    q, torch.as_tensor(rgb8, device="cuda")), thr - q["out"]["bias"].cpu())
+            exact = grid_check(route, *grids, fix8["pallas_grid_boxes"],
+                               fix8["pallas_grid_valid"])
+            msg = f"grid boxes exactly equal {exact[0]}/{exact[1]}; " + msg
+        print(f"  (b) from_checkpoint(w16_params) int8 {route} vs JAX pallas: ok equal; {msg}; "
+              f"launches {n}", flush=True)
+
+    saved = compat.UNetConfig, compat.InferConfig
+    compat.UNetConfig, compat.InferConfig = (lambda: UNetConfig(base_width=16),
+                                             lambda: InferConfig(img_size=grid))
+    compat._segmenters.clear()
+    try:
+        with tf32_off():
+            seg = compat.load_model(d, dtype=torch.float32)
+            (_, cboxes, cok), n = counted("compat", {k1.NAME: 1}, 1, lambda: seg.segment_batch(
+                rgb, pre_resized=False, return_masks=False))
+    finally:
+        compat.UNetConfig, compat.InferConfig = saved
+        compat._segmenters.clear()
+    add(n)
+    if not (np.array_equal(cok.cpu().numpy(), fix["pages_ok"])
+            and np.array_equal(cboxes.cpu().numpy(), fix["pages_boxes"])):
+        raise AssertionError("compat.load_model(w16_params): boxes differ from JAX's")
+    print(f"  (c) compat.load_model(w16_params) fp32: boxes equal to JAX's from_checkpoint; "
+          f"launches {n}", flush=True)
+    return launches
+
+
+def phase_orbax(pages_fix, fix8, card):
+    """Phase 33: the JAX package's Orbax checkpoints (committed under
+    ``tests/data/torch_smoke_orbax/``) read by the port with its own zstd,
+    OCDBT and zarr code, served and resumed on the card. → the launches of
+    every kernel in the phase."""
+    import tempfile
+
+    fix = orbax_fixture()
+    cpu = host_cpu()
+    ms, trees = orbax_read_check(fix)
+    print(f"  (a) read with the port's zstd/OCDBT/zarr: w16_params "
+          f"{len(fix['w16_keys'])} leaves in {ms['w16']:.1f} ms, w8_state "
+          f"{len(fix['w8_keys'])} leaves in {ms['w8']:.1f} ms, every leaf bit-equal to "
+          f"orbax's restore (host: {cpu}) [{card}]", flush=True)
+    launches = orbax_serve_check(fix, pages_fix, fix8)
+    before = dict(_build.launches)
+    restore_ms, _, line = orbax_resume_check(fix, trees["w8"], torch.device("cuda"))
+    print(f"  (d) restore(w8_state) into a fresh TrainState on the card in {restore_ms:.1f} ms: "
+          f"epoch, best loss, params, BN state, AdamW step and moments exact; the resumed "
+          f"step: {line}", flush=True)
+    with tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp:
+        history = orbax_fit_check(fix, "cuda", tmp)
+    print(f"  (e) fit(resume_dir=w8_state): resumed at epoch {int(fix['epoch'])}, ran epoch "
+          f"{history[0]['epoch']} (loss {history[0]['loss']:.6f}) [{card}]", flush=True)
+    if dict(_build.launches) != before:
+        raise AssertionError(f"(d)-(e) launched kernels of the port: {before} -> "
+                             f"{dict(_build.launches)}")
+    return launches
+
 
 def main():
     ph = Phases()
@@ -6328,6 +6647,17 @@ def main():
     print(f"  launches in phase 32: {invoice_launches}; of K1 on the main path and phases "
           f"19-20, 22, 25-29, 32: {launches[k1.NAME]}; on the int8 routes (phases 9-10, 13-14, "
           f"19, 26, 29, 32): {int8_launches}", flush=True)
+
+    orbax_launches = ph.run(33, "the JAX package's Orbax checkpoints read, served and resumed",
+                            phase_orbax, fix, fix8, card)
+    for k, v in orbax_launches.items():
+        if k == k1.NAME:
+            launches[k] += v
+        else:
+            int8_launches[k] = int8_launches.get(k, 0) + v
+    print(f"  launches in phase 33: {orbax_launches}; of K1 on the main path and phases "
+          f"19-20, 22, 25-29, 32-33: {launches[k1.NAME]}; on the int8 routes (phases 9-10, "
+          f"13-14, 19, 26, 29, 32-33): {int8_launches}", flush=True)
 
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
              launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]

@@ -1,7 +1,8 @@
 """PyTorch port: what the card's machine lacks is never imported (the
 recognition stack, bulk extraction, training, the QR locator, the CLI, the
 training renderers and the invoice renderer run end to end without it; the
-renderers load neither FreeType nor HarfBuzz),
+renderers load neither FreeType nor HarfBuzz; an Orbax checkpoint is read
+without orbax, TensorStore or zstandard),
 and the kernel build finds nvcc, hashes its sources and reports failures."""
 
 import os
@@ -15,9 +16,10 @@ from twinvoice_tpu_torch import _build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # what the card's machine lacks: JAX and the JAX package, the imaging
-# libraries, and the app's and the network engines' libraries
+# libraries, the app's and the network engines' libraries, and Orbax's
+# storage stack
 BLOCKED = ("jax", "jaxlib", "twinvoice_tpu", "PIL", "cv2", "pandas", "plotly", "streamlit",
-           "requests", "supabase", "easyocr")
+           "requests", "supabase", "easyocr", "orbax", "tensorstore", "zstandard")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -99,6 +101,11 @@ from twinvoice_tpu_torch.ops.host_warp import remap_linear_f32, warp_affine_u8
 from twinvoice_tpu_torch.ops.host_filter import resize_cubic_f32, soft_exp
 from twinvoice_tpu_torch.data.synthetic import heldout_fonts, render_invoice
 from twinvoice_tpu_torch.eval import make_base_cases
+from twinvoice_tpu_torch.train import ocdbt, orbax
+from twinvoice_tpu_torch.train.checkpoint import optimizer_state_from_optax, restore
+from twinvoice_tpu_torch.ops.host_zstd import decompress
+from twinvoice_tpu_torch.ops.host_filter import dft_filter2d
+assert orbax.read("tests/data/torch_smoke_orbax/w8_state")["meta"]["epoch"] == 2
 import runpy
 runpy.run_path("scripts/eval_torch_gauntlet.py", run_name="not_main")
 import chip_smoke

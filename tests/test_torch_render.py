@@ -200,17 +200,15 @@ def test_perturbed_page_equals_jax(registry, no_ipp):
 
 
 def test_dft_motion_page_is_pinned(registry, no_ipp):
-    """A fault of the perturbation engine (``ROADMAP.md`` queue 3), pinned at
-    its measured size: ``render_textpage(default_rng(200257),
-    severity=1.0)`` draws a 13×13 motion kernel, which OpenCV filters
-    through its DFT and the port sums directly; its mask and generator state
-    are JAX's, its image differs in at most 3 pixels, by at most 1."""
+    """The page that once differed (``render_textpage(default_rng(200257),
+    severity=1.0)``: a 13×13 motion kernel, which OpenCV filters through its
+    DFT, as the port now does) equals JAX's: image, mask and generator
+    state."""
     r1, r2 = np.random.default_rng(200257), np.random.default_rng(200257)
     (g1, m1), (g2, m2) = (JT.render_textpage(r1, severity=1.0),
                           PT.render_textpage(r2, severity=1.0))
     assert _same(m1, m2) and _state(r1) == _state(r2)
-    d = np.abs(g1.astype(np.int16) - g2.astype(np.int16))
-    assert int((d > 0).sum()) <= 3 and int(d.max()) <= 1
+    assert _same(g1, g2)
 
 
 def _record(calls):

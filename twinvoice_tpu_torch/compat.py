@@ -33,7 +33,8 @@ def load_model(checkpoint_path: str, *, dtype=None, device=None):
     """The reference's ``load_model`` → a ``Segmenter`` (cached).
 
     A directory is a ``train.checkpoint`` directory (``Segmenter.from_checkpoint``:
-    ``save_params``, or ``fit``'s ``best``/``latest``); a file is a
+    ``save_params``, or ``fit``'s ``best``/``latest``, the port's or the JAX
+    package's Orbax ones); a file is a
     reference-schema ``.pth`` (``Segmenter.from_pth``). ``dtype`` defaults to
     float32 (the reference's); ``device=None`` means ``"cuda"``.
     """

@@ -191,7 +191,8 @@ class Segmenter:
     def from_checkpoint(cls, ckpt_dir, model_cfg=UNetConfig(), cfg=InferConfig(),
                         dtype=torch.float32, *, device=None, **kw):
         """A ``train.checkpoint.save_params`` directory, or ``fit``'s ``best``
-        or ``latest``, → a ``Segmenter`` (arguments as :meth:`from_pth`)."""
+        or ``latest`` (the port's, or the JAX package's Orbax directories),
+        → a ``Segmenter`` (arguments as :meth:`from_pth`)."""
         from twinvoice_tpu_torch.train.checkpoint import restore_params
 
         params, state = restore_params(ckpt_dir, model_cfg)

@@ -17,13 +17,19 @@ numpy, as OpenCV 5 computes them for the perturbation engine
   each symmetric pair summed first),
   ``BORDER_REFLECT_101``.
 - :func:`filter2d_f32`: ``cv2.filter2D(x, -1, k)`` on float32 with an odd
-  square kernel of side 3 to 13: the correlation at the kernel's centre over
-  ``BORDER_REFLECT_101`` edges, the nonzero taps one FMA each onto a sum
-  from zero (``FilterVec_32f``), the last ``(W·C) % 8`` values of a row
-  without FMAs. OpenCV sums a kernel of fewer than 130 taps directly and
-  switches a larger one (13×13 = 169) to its DFT path; the port sums
-  directly at every size, which is OpenCV's result below 130 taps and
-  within a few ulp of its DFT.
+  square kernel of side 3 to 13, by OpenCV's route for the kernel's area
+  (``dftFilter2D``): below 130 taps (float64: 50) the correlation at the
+  kernel's centre over ``BORDER_REFLECT_101`` edges, the nonzero taps one
+  FMA each onto a sum from zero (``FilterVec_32f``), the last ``(W·C) % 8``
+  values of a row without FMAs; from 130 taps (float64: from 50) its DFT
+  path, ``crossCorr``, which computes in double for either depth (tiles of
+  ``getOptimalDFTSize`` blocks, the real 2-D DFT, ``mulSpectrums`` with the
+  kernel's conjugate spectrum, the scaled inverse) and rounds once to the
+  image's depth. The DFT is the host C++ library ``csrc/host_dft.cpp``
+  (:func:`dft_library`, built by ``_build.build_host`` at first use):
+  numpy's FFT rounds in another order than OpenCV's mixed-radix
+  butterflies and its twiddle table. On the engine's odd square kernels
+  that is float32 at 13×13 and float64 at 9×9 to 13×13.
 - The perturbation engine also blurs and filters float64 fields (numpy
   promotes its float32 image where a float64 scalar multiplies it); both
   functions then compute in float64, as OpenCV does for ``CV_64F``.
@@ -40,14 +46,66 @@ byte for byte at the perturbation engine's shapes.
 
 from __future__ import annotations
 
+import ctypes
 import struct
+import threading
 from decimal import Decimal, getcontext
+from pathlib import Path
 
 import numpy as np
 
+from twinvoice_tpu_torch import _build
 from twinvoice_tpu_torch.ops.host_image import _reflect101_index, _require_pixels
 
 _F32 = np.float32
+DFT_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host_dft.cpp"
+# dftFilter2D: a kernel of at least this many taps takes OpenCV's DFT path
+DFT_MIN_TAPS = {np.dtype(np.float32): 130, np.dtype(np.float64): 50}
+
+_lock = threading.Lock()
+_dft = None
+
+
+def build_dft() -> Path:
+    """Compile the DFT library unless it is built already. → its path."""
+    return _build.build_host(DFT_SOURCE, "hostdft", "DFT filter")
+
+
+def dft_library() -> ctypes.CDLL:
+    """The loaded DFT library (``csrc/host_dft.cpp``), built first if need be."""
+    global _dft
+    with _lock:
+        if _dft is None:
+            lib = ctypes.CDLL(str(build_dft()))
+            p, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.host_dft_complex.argtypes = [i32, i32, ctypes.c_double, p, p]
+            lib.host_dft_real2d.argtypes = [i32, i32, i32, i32, p]
+            lib.host_dft_filter2d.argtypes = [p, i32, i32, i32, p, i32, i32, p]
+            for f in (lib.host_dft_complex, lib.host_dft_real2d, lib.host_dft_filter2d):
+                f.restype = i32
+            _dft = lib
+        return _dft
+
+
+def dft_filter2d(x: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """OpenCV's DFT path of ``filter2D`` (``crossCorr``): ``x`` float32 or
+    float64 (H, W[, C]), ``k`` a 2-D kernel (rounded to float32 for a
+    float32 image, as ``crossCorr`` converts it) → the correlation at the
+    kernel's centre over ``BORDER_REFLECT_101`` edges, computed in double
+    and rounded to ``x``'s depth."""
+    src = np.ascontiguousarray(x, np.float64)
+    ker = np.asarray(k)
+    if x.dtype == _F32:
+        ker = ker.astype(_F32)
+    ker = np.ascontiguousarray(ker, np.float64)
+    out = np.empty_like(src)
+    cn = 1 if x.ndim == 2 else x.shape[2]
+    rc = dft_library().host_dft_filter2d(src.ctypes.data, x.shape[0], x.shape[1], cn,
+                                         ker.ctypes.data, ker.shape[0], ker.shape[1],
+                                         out.ctypes.data)
+    if rc != 0:
+        raise ValueError(f"DFT filter refused {x.shape} with a {ker.shape} kernel")
+    return out.astype(x.dtype)
 
 
 # cv::softdouble exp (OpenCV's softfloat.cpp): a 64-entry table of
@@ -296,8 +354,9 @@ def gaussian_blur_f32(x: np.ndarray, sigma: float) -> np.ndarray:
 
 def filter2d_f32(x: np.ndarray, k: np.ndarray) -> np.ndarray:
     """float32 (H, W[, C]) and an odd square float32 kernel of side 3 to 13
-    → ``cv2.filter2D(x, -1, k)`` (see the module docstring): the nonzero
-    taps in row-major order, each one FMA onto a float32 sum from zero, as
+    → ``cv2.filter2D(x, -1, k)`` (see the module docstring): from
+    ``DFT_MIN_TAPS`` taps :func:`dft_filter2d`, below them the nonzero taps
+    in row-major order, each one FMA onto a float32 sum from zero, as
     ``FilterVec_32f`` adds them. A float64 array is filtered in float64."""
     x = np.asarray(x)
     k = np.asarray(k)
@@ -306,6 +365,8 @@ def filter2d_f32(x: np.ndarray, k: np.ndarray) -> np.ndarray:
     if k.ndim != 2 or k.shape[0] != k.shape[1] or k.shape[0] % 2 == 0 or not 3 <= k.shape[0] <= 13:
         raise ValueError(f"an odd square kernel of side 3..13, got {k.shape}")
     n = k.shape[0]
+    if n * n >= DFT_MIN_TAPS[x.dtype]:
+        return dft_filter2d(x, k)
     r = n // 2
     h, w = x.shape[:2]
     p = _pad101(_pad101(x, r, 0), r, 1)

@@ -7,7 +7,8 @@ for an epoch at ``CosineAnnealingWarmRestarts(T_0=10, T_mult=2)``'s value
 rounded to float32, loss ``0.85·dice + 0.15·focal``, train-mode BatchNorm
 with functional running statistics, the best checkpoint on the lowest average
 *training* loss, a visual dump of each epoch's first batch, an optional
-validation split with per-class IoU, and resume from a checkpoint.
+validation split with per-class IoU, and resume from a checkpoint (the
+port's own, or the JAX package's Orbax directory: ``checkpoint.restore``).
 
 The step runs eagerly (autograd, then ``optimizer.step()``), keeps the loss on
 the device, and the loop synchronises once an epoch (or every ``sync_every``
