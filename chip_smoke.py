@@ -349,6 +349,23 @@ Phases, each printing one line with its wall time:
     ``TrainState`` (epoch, best loss, AdamW steps and moments exact) and one
     resumed step held to the float64 step and JAX's; (e) ``fit(resume_dir=
     w8_state)`` resuming at epoch 2
+34. JPEG forms ``cv2.imread`` reads beyond baseline (``ops.host_jpeg`` on
+    ``csrc/host_codec.cpp``'s progressive scan decoder and block smoothing;
+    no kernel of their own), against OpenCV's and the JAX package's outputs
+    in ``tests/data/torch_smoke_jpegforms.npz``: (a) 38 files (cv2 and
+    Pillow progressive at each sampling and gray, a restart interval, EXIF,
+    per-scan Huffman tables; one file cut after each of its first 9 of 10
+    scans, read through libjpeg-turbo's block smoothing; a bad progression,
+    refused as cv2 refuses it, and two bogus ones; CMYK, YCCK and RGB-coded
+    files) read by ``imread_rgb`` byte-equal to cv2's RGB; (b) a 4032×3024
+    progressive q95 photo of the training fixture's first page: the
+    SHA-256 of ``decode_jpeg``'s RGB cv2's, its host ms beside phase 30
+    (b)'s baseline decode of the same page; (c) ``build-dataset`` on a
+    progressive and a CMYK photo: JAX's ``.jpg`` bytes and masks, and
+    ``load_invoice_dataset`` on the output and on the photos: JAX's arrays;
+    (d) the progressive photo served by the bundled w16 fp32 through the
+    raw path: boxes and ok flags equal to JAX's on cv2's pixels, K1 held to
+    its plain version (``served_vs_plain``)
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -375,8 +392,10 @@ checkpoint (K1 once). Phases 30 and 31 must leave every count as they were. In
 phase 32, (a)-(b) must leave every count as it was, each route of (c) is
 driven as phase 26's and (d) as its (d). In phase 33 each served call of
 (b)-(c) is driven the same way (K1 once a call; on the int8 routes their
-phase-9 counts), and (d)-(e) must leave every count as it was. The
-kernel rows' launches sum every such path.
+phase-9 counts), and (d)-(e) must leave every count as it was. In phase
+34, (a)-(c) must leave every count as it was and (d)'s served call is
+driven the same way (K1 once). The kernel rows' launches sum every such
+path.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
 only. Without a CUDA device, or if any phase fails, it exits non-zero and
@@ -3187,10 +3206,14 @@ def train_speed(fix, card, params, state, dtype):
 SERVED_LOGIT_RTOL = {torch.bfloat16: 2.0 ** -5, torch.float32: 1e-4}
 
 
-def served_vs_plain(seg, params, state, mcfg, pages, *, label="the trained w64"):
-    """The trained weights served through ``seg`` (K1, box-only) against the
-    plain path on the same weights: eval-mode ``unet_apply`` at fp32 (TF32
-    off), ``bbox_from_probs`` and ``scale_and_pad_boxes``. The plain path
+def served_vs_plain(seg, params, state, mcfg, pages, *, label="the trained w64", raw=False,
+                    device="cuda"):
+    """The trained weights served through ``seg`` (K1, box-only; with
+    ``raw``, the raw path: pages at their own size, resized on the device,
+    masks too) against the plain path on the same weights: eval-mode
+    ``unet_apply`` at fp32 (TF32 off) on the pages (with ``raw``, on their
+    ``resize_bilinear`` / 255, as the raw path feeds its U-Net),
+    ``bbox_from_probs`` and ``scale_and_pad_boxes``. The plain path
     must find fields. The served boxes and ok flags must equal K1's plain
     version on the logits the served call handed K1, and those logits must
     be within ``SERVED_LOGIT_RTOL`` of the plain path's. The boxes are not
@@ -3200,7 +3223,7 @@ def served_vs_plain(seg, params, state, mcfg, pages, *, label="the trained w64")
     → (served ok, boxes, the launches of the served call)."""
     icfg = seg.cfg
     sizes = torch.tensor([[pages.shape[2], pages.shape[1]]] * len(pages), dtype=torch.int32,
-                         device="cuda")
+                         device=device)
     seen = []
     post = seg._post
 
@@ -3211,20 +3234,23 @@ def served_vs_plain(seg, params, state, mcfg, pages, *, label="the trained w64")
     seg._post = keep
     try:
         _build.launches.clear()  # the trained model's serving path starts here
-        _, boxes, ok = seg.segment_batch(pages, return_masks=False)
-        torch.cuda.synchronize()
+        _, boxes, ok = seg.segment_batch(pages, pre_resized=not raw, return_masks=False)
+        sync(device)
         launches = dict(_build.launches)
     finally:
         del seg._post
     if len(seen) != 1:
         raise AssertionError(f"{label}: the served call handed K1 {len(seen)} logits")
     served = seen[0]
-    params, state = _copy_to(params, "cuda"), _copy_to(state, "cuda")
+    params, state = _copy_to(params, device), _copy_to(state, device)
     with torch.no_grad(), tf32_off():
-        gb, gv = k1.bbox_postprocess_reference(served, seg._logit_thr.to("cuda"))
+        gb, gv = k1.bbox_postprocess_reference(served, seg._logit_thr.to(device))
         own_boxes, own_ok = scale_and_pad_boxes(gb, gv, sizes, icfg.img_size, icfg.pad_frac)
-        x = normalize_uint8(torch.as_tensor(pages, device="cuda").permute(0, 3, 1, 2),
-                            torch.float32)
+        u8 = torch.as_tensor(pages, device=device).permute(0, 3, 1, 2)
+        if raw:
+            x = resize_bilinear(u8, icfg.img_size, icfg.img_size) / 255.0
+        else:
+            x = normalize_uint8(u8, torch.float32)
         logits, _ = unet_apply(params, state, x, cfg=mcfg, train=False)
         plain = logits.permute(0, 2, 3, 1)
         gb, gv = bbox_from_probs(torch.sigmoid(plain), icfg.thresholds)
@@ -5597,13 +5623,15 @@ def phone_photos(page, size=PHONE_SIZE, seed=0):
 
 @contextlib.contextmanager
 def scan_timer():
-    """Inside the block, ``host_jpeg``'s calls of the host C++ library's
-    ``jpeg_decode_scan`` and ``jpeg_encode_scan`` are timed. → a dict of
+    """Inside the block, ``host_jpeg``'s calls of the host C++ library
+    (``jpeg_decode_scan``, ``jpeg_decode_progressive_scan``,
+    ``jpeg_smooth_blocks``, ``jpeg_encode_scan``) are timed. → a dict of
     their summed host ms by name, filled as they run."""
     from twinvoice_tpu_torch.ops import host_jpeg
 
     lib, saved = host_jpeg.codec(), host_jpeg.codec
-    ms = {"jpeg_decode_scan": 0.0, "jpeg_encode_scan": 0.0}
+    ms = dict.fromkeys(("jpeg_decode_scan", "jpeg_decode_progressive_scan",
+                        "jpeg_smooth_blocks", "jpeg_encode_scan"), 0.0)
 
     def timed(name):
         fn = getattr(lib, name)
@@ -5691,7 +5719,7 @@ def build_dataset_check(fix, tmp):
 
 def phase_codec(card):
     """Phase 30: the image file codec on the card's machine. It launches no
-    kernel of the port."""
+    kernel of the port. → the host ms of (b)'s decode of the upscaled page."""
     import tempfile
 
     cpu = host_cpu()
@@ -5704,8 +5732,10 @@ def phase_codec(card):
               f"{len(fix['enc_quality'])} encode_jpeg outputs byte-equal to cv2.imencode's in "
               f"{enc_ms:.1f} ms (host: {cpu})", flush=True)
         page = train_fixture()["pages"][0]
+        decode_ms = {}
         for kind, photo in phone_photos(page).items():
             e_ms, e_scan, d_ms, d_scan, rt_ms, size = phone_photo_check(photo)
+            decode_ms[kind] = d_ms
             print(f"  (b) a {PHONE_SIZE[0]}×{PHONE_SIZE[1]} photo at q{PHONE_QUALITY}, {kind}: "
                   f"encode_jpeg {e_ms:.1f} ms (the C++ scan {e_scan:.1f}; {size} bytes), "
                   f"decode_jpeg {d_ms:.1f} ms (the C++ scan {d_scan:.1f}), equal to "
@@ -5725,6 +5755,7 @@ def phase_codec(card):
     if dict(_build.launches) != before:
         raise AssertionError(f"phase 30 launched kernels of the port: {before} -> "
                              f"{dict(_build.launches)}")
+    return decode_ms["upscaled page"]
 
 
 
@@ -6505,6 +6536,201 @@ def phase_orbax(pages_fix, fix8, card):
     return launches
 
 
+# -- phase 34: the JPEG forms cv2 reads beyond baseline --------------------------
+
+JPEGFORMS_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_jpegforms.npz")
+
+
+def jpegforms_fixture():
+    """The fixture of ``scripts/make_torch_smoke_jpegforms.py``."""
+    with np.load(JPEGFORMS_FIXTURE) as z:
+        fix = {k: z[k] for k in z.files}
+    for k in ("names", "reasons", "lm_names"):
+        fix[k] = [str(n) for n in fix[k]]
+    return fix
+
+
+def array_digest(a: np.ndarray) -> str:
+    """SHA-256 of an array's dtype, shape and bytes (the fixture script's
+    ``digest``)."""
+    import hashlib
+
+    h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode())
+    h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def jpegforms_files_check(fix, tmp):
+    """(a) each fixture file written under ``tmp`` as ``<i>.bin`` (a name that
+    says nothing of its format) and read by ``imread_rgb``: byte-equal to
+    cv2's RGB, or, where cv2 reads nothing, a ``ValueError`` that names the
+    fixture's reason. → (files, of them refused, host ms of all the reads)."""
+    from twinvoice_tpu_torch.ops.host_imageio import imread_rgb
+
+    bad, refused, read_ms = [], 0, 0.0
+    for i, (name, reason) in enumerate(zip(fix["names"], fix["reasons"])):
+        path = os.path.join(tmp, f"{i}.bin")
+        fix[f"file_{i}"].tofile(path)
+        want = fix[f"want_{i}"]
+        t0 = time.perf_counter()
+        try:
+            got = imread_rgb(path)
+        except ValueError as e:
+            if not reason or reason not in str(e):
+                bad.append(f"{name}: raised {e}")
+            refused += 1
+            continue
+        finally:
+            read_ms += (time.perf_counter() - t0) * 1e3
+        if reason:
+            bad.append(f"{name}: read, where cv2 reads nothing ({reason})")
+        elif got is None or got.shape != want.shape or not np.array_equal(got, want):
+            bad.append(f"{name}: {None if got is None else got.shape} against {want.shape}"
+                       + ("" if got is None or got.shape != want.shape else
+                          f", {int((got != want).sum())} bytes differ"))
+    if bad:
+        raise AssertionError("JPEG forms against cv2: " + "; ".join(bad))
+    return len(fix["names"]), refused, read_ms
+
+
+def jpegforms_photo_check(fix):
+    """(b) the progressive phone photo through ``decode_jpeg``: the SHA-256
+    of its RGB is cv2's. → (host ms, of it the C++ scans', of it the block
+    smoothing's, (width, height), the file's bytes)."""
+    from twinvoice_tpu_torch.ops.host_jpeg import decode_jpeg
+
+    data = fix["photo"].tobytes()
+    with scan_timer() as scan:
+        t0 = time.perf_counter()
+        rgb = decode_jpeg(data)
+        ms = (time.perf_counter() - t0) * 1e3
+    w, h = (int(v) for v in fix["photo_size"])
+    if rgb.shape != (h, w, 3) or array_digest(rgb) != str(fix["photo_sha"]):
+        raise AssertionError(f"the progressive photo decodes to {rgb.shape}, not cv2's "
+                             f"{w}×{h} pixels")
+    return ms, scan["jpeg_decode_progressive_scan"], scan["jpeg_smooth_blocks"], (w, h), len(data)
+
+
+def jpegforms_build_check(fix, tmp):
+    """(c) ``python -m twinvoice_tpu_torch build-dataset --size 512``
+    through ``__main__.main`` on the labelme case (a progressive photo and a
+    CMYK one): each ``.jpg`` byte-equal to the JAX package's ``build_one``
+    output and each ``.npy`` mask equal; then ``load_invoice_dataset`` on the
+    build's output and on the two photos themselves (zero masks of their
+    size): the digests of its arrays are those of the JAX package's. → (host
+    ms of the build, of the two loads)."""
+    from twinvoice_tpu_torch import __main__ as cli
+    from twinvoice_tpu_torch.data.dataset import load_invoice_dataset
+
+    dirs = {k: os.path.join(tmp, k) for k in ("json", "images", "fixed_images", "fixed_masks",
+                                              "zero_masks")}
+    for k in ("json", "images", "zero_masks"):
+        os.makedirs(dirs[k])
+    for name in fix["lm_names"]:
+        fix[f"lm_photo_{name}"].tofile(os.path.join(dirs["images"], f"{name}.jpg"))
+        meta = json.loads(str(fix[f"lm_json_{name}"]))
+        with open(os.path.join(dirs["json"], f"{name}.json"), "w", encoding="utf-8") as f:
+            f.write(str(fix[f"lm_json_{name}"]))
+        np.save(os.path.join(dirs["zero_masks"], f"{name}.npy"),
+                np.zeros((meta["imageHeight"], meta["imageWidth"], 3), np.uint8))
+    t0 = time.perf_counter()
+    cli.main(["build-dataset", "--json-dir", dirs["json"], "--images-dir", dirs["images"],
+              "--out-images", dirs["fixed_images"], "--out-masks", dirs["fixed_masks"],
+              "--size", "512"])
+    build_ms = (time.perf_counter() - t0) * 1e3
+    bad = []
+    for name in fix["lm_names"]:
+        with open(os.path.join(dirs["fixed_images"], f"{name}.jpg"), "rb") as f:
+            jpg = f.read()
+        mask = np.load(os.path.join(dirs["fixed_masks"], f"{name}.npy"))
+        if jpg != fix[f"lm_jpg_{name}"].tobytes():
+            bad.append(f"{name}.jpg: {len(jpg)} bytes, not JAX's {fix[f'lm_jpg_{name}'].size}")
+        if mask.shape != fix[f"lm_mask_{name}"].shape or not np.array_equal(
+                mask, fix[f"lm_mask_{name}"]):
+            bad.append(f"{name}.npy: a mask other than JAX's")
+    t0 = time.perf_counter()
+    for key, (img_dir, mask_dir) in (("load_built_sha", ("fixed_images", "fixed_masks")),
+                                     ("load_photos_sha", ("images", "zero_masks"))):
+        ds = load_invoice_dataset(dirs[img_dir], dirs[mask_dir])
+        got = [array_digest(ds.images), array_digest(ds.masks)]
+        if ds.names != tuple(sorted(fix["lm_names"])) or got != [str(d) for d in fix[key]]:
+            bad.append(f"load_invoice_dataset({img_dir}): {ds.names}, arrays other than JAX's")
+    load_ms = (time.perf_counter() - t0) * 1e3
+    if bad:
+        raise AssertionError("build-dataset on progressive and CMYK photos: " + "; ".join(bad))
+    return build_ms, load_ms
+
+
+def jpegforms_serve_check(fix, tmp, device="cuda"):
+    """(d) the labelme case's progressive photo read by ``imread_rgb`` and
+    served by the bundled w16 at fp32 through the raw path (TF32 off): its
+    boxes and ok flags equal to the JAX package's on cv2's pixels, K1 held
+    to its plain version on the served logits by ``served_vs_plain``. → the
+    launches of the served call."""
+    from twinvoice_tpu_torch.ops.host_imageio import imread_rgb
+
+    path = os.path.join(tmp, "served.bin")
+    fix["lm_photo_prog"].tofile(path)
+    photo = imread_rgb(path)[None]
+    params, state = load_npz(variant_path("w16"))
+    mcfg = VARIANTS["w16"][1]
+    with tf32_off():
+        seg = load_pretrained_segmenter(torch.float32, variant="w16", device=device)
+        ok, boxes, launches = served_vs_plain(seg, params, state, mcfg, photo, raw=True,
+                                              device=device, label="the bundled w16 fp32")
+    boxes = boxes.cpu().numpy()
+    if not (np.array_equal(ok[0], fix["serve_ok"]) and np.array_equal(boxes[0],
+                                                                      fix["serve_boxes"])):
+        raise AssertionError(f"the progressive photo served: ok {ok[0].tolist()}, boxes "
+                             f"{boxes[0].tolist()}; JAX's ok {fix['serve_ok'].tolist()}, "
+                             f"boxes {fix['serve_boxes'].tolist()}")
+    want = {k1.NAME: 1} if torch.device(device).type == "cuda" else {}
+    if launches != want:
+        raise AssertionError(f"the served call launched {launches}, not {want}")
+    return launches
+
+
+def phase_jpegforms(card, baseline_ms=None):
+    """Phase 34: the JPEG forms ``cv2.imread`` reads beyond baseline
+    (progressive with block smoothing, CMYK, YCCK, RGB-coded) through the
+    port's codec on the card's host, a progressive photo through
+    ``build-dataset`` and ``load_invoice_dataset``, and served on the card.
+    ``baseline_ms``: phase 30 (b)'s decode of the same page at the same size
+    as a baseline file. → the launches of every kernel in the phase."""
+    import tempfile
+
+    cpu = host_cpu()
+    fix = jpegforms_fixture()
+    _build.build_dir().mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp:
+        before = dict(_build.launches)
+        n, refused, read_ms = jpegforms_files_check(fix, tmp)
+        print(f"  (a) {n} files read by imread_rgb: {n - refused} byte-equal to cv2's RGB "
+              f"(progressive, cut and smoothed, bogus progressions, CMYK, YCCK, RGB-coded), "
+              f"{refused} refused where cv2 reads nothing, in {read_ms:.1f} ms (host: {cpu})",
+              flush=True)
+        ms, scan_ms, smooth_ms, (w, h), size = jpegforms_photo_check(fix)
+        base = "not run" if baseline_ms is None else f"{baseline_ms:.1f} ms"
+        print(f"  (b) a {w}×{h} progressive q95 photo ({size} bytes): decode_jpeg {ms:.1f} ms "
+              f"(the C++ scans {scan_ms:.1f}, block smoothing {smooth_ms:.1f}), its RGB's "
+              f"SHA-256 cv2's; phase 30 (b)'s baseline decode of the same page: {base} "
+              f"(host: {cpu})", flush=True)
+        os.makedirs(os.path.join(tmp, "lm"))
+        build_ms, load_ms = jpegforms_build_check(fix, os.path.join(tmp, "lm"))
+        print(f"  (c) build-dataset --size 512 on a progressive and a CMYK photo: the .jpg "
+              f"files byte-equal to JAX's build_one output, the masks equal, in "
+              f"{build_ms:.1f} ms; load_invoice_dataset on the output and on the photos: "
+              f"JAX's arrays, in {load_ms:.1f} ms (host: {cpu})", flush=True)
+        if dict(_build.launches) != before:
+            raise AssertionError(f"(a)-(c) launched kernels of the port: {before} -> "
+                                 f"{dict(_build.launches)}")
+        launches = jpegforms_serve_check(fix, tmp)
+    print(f"  (d) the progressive photo served by the w16 fp32 through the raw path: boxes "
+          f"and ok equal to JAX's on cv2's pixels {fix['serve_boxes'].tolist()}; launches "
+          f"{launches} [{card}]", flush=True)
+    return launches
+
+
 def main():
     ph = Phases()
     name, card = ph.run(1, "device", phase_device)
@@ -6633,8 +6859,8 @@ def main():
           f"22, 25-29: {launches[k1.NAME]}; on the int8 routes (phases 9-10, 13-14, 19, 26, "
           f"29): {int8_launches}", flush=True)
 
-    ph.run(30, "image files without OpenCV: the codec against cv2, a phone photo, "
-               "build-dataset", phase_codec, card)
+    baseline_ms = ph.run(30, "image files without OpenCV: the codec against cv2, a phone "
+                             "photo, build-dataset", phase_codec, card)
     ph.run(31, "TrueType text, the line and page renderers, train-ocr from its own renders",
            phase_render, card)
     invoice_launches = ph.run(32, "the invoice renderer and the gauntlet from nothing",
@@ -6658,6 +6884,11 @@ def main():
     print(f"  launches in phase 33: {orbax_launches}; of K1 on the main path and phases "
           f"19-20, 22, 25-29, 32-33: {launches[k1.NAME]}; on the int8 routes (phases 9-10, "
           f"13-14, 19, 26, 29, 32-33): {int8_launches}", flush=True)
+
+    jpeg_launches = ph.run(34, "JPEG forms cv2 reads", phase_jpegforms, card, baseline_ms)
+    launches[k1.NAME] += jpeg_launches.get(k1.NAME, 0)
+    print(f"  launches in phase 34: {jpeg_launches}; of K1 on the main path and phases 19-20, "
+          f"22, 25-29, 32-34: {launches[k1.NAME]}", flush=True)
 
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
              launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]

@@ -6,7 +6,9 @@ against the JAX package's.
 Tolerance: none. Decoding is byte for byte ``cv2.imdecode``'s / ``cv2.imread``'s
 RGB: JPEG at 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and gray, qualities 1-100,
 sizes 1×1 to 160×224, restart intervals of 1, 3 and 17 MCUs, EXIF
-orientations 1-8 in both byte orders; PNG of every colour type and depth,
+orientations 1-8 in both byte orders; progressive files by cv2 and by
+Pillow (per-scan Huffman tables), whole, cut after each scan (block
+smoothing) and with scans out of order; CMYK, YCCK and RGB-coded files; PNG of every colour type and depth,
 each row filter, Adam7 and ``eXIf`` (PNGs written here with ``zlib``, since
 cv2's writer picks its own filters). Encoding is byte for byte
 ``cv2.imencode(".jpg", ...)``'s at every quality 1-100, and decoding its
@@ -25,6 +27,7 @@ import cv2
 import numpy as np
 import pytest
 
+from scripts import make_torch_smoke_jpegforms as jpegforms
 from scripts.make_torch_smoke_codec import (CHANNELS, exif_tiff, png_bytes, png_chunk,
                                             sample_frame, with_app1)
 from twinvoice_tpu.data import dataset as jdataset
@@ -257,16 +260,18 @@ def test_refusals(tmp_path):
     img = sample_frame(rng, 40, 56)
     base = cv_jpeg(img)
     sof = base.index(b"\xff\xc0")
+    prog = cv_jpeg(img, IMWRITE_JPEG_PROGRESSIVE=1)
+    sof2 = prog.index(b"\xff\xc2")
     cases = {
-        "progressive": (cv_jpeg(img, IMWRITE_JPEG_PROGRESSIVE=1), "progressive"),
         "truncated mid-scan": (base[:len(base) * 2 // 3], "truncated"),
         "no EOI": (base[:-2], "no EOI"),
         "arithmetic": (_corrupt(base, sof + 1, 0xC9), "arithmetic"),
+        "progressive arithmetic": (_corrupt(prog, sof2 + 1, 0xCA), "arithmetic"),
         "lossless": (_corrupt(base, sof + 1, 0xC3), "lossless"),
+        "hierarchical": (_corrupt(base, sof + 1, 0xC5), "hierarchical"),
         "12-bit": (_corrupt(base, sof + 4, 12), "12-bit"),
-        "CMYK": (b"\xff\xd8\xff\xc0\x00\x14\x08\x00\x08\x00\x08\x04" + bytes(12), "CMYK"),
-        "Adobe RGB": (base[:2] + b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
-                      + base[20:], "RGB-coded"),
+        "progressive 12-bit": (_corrupt(prog, sof2 + 4, 12), "12-bit"),
+        "two components": (_corrupt(_corrupt(base, sof + 9, 2), sof + 3, 14), "2 components"),
         "3×2 luma sampling": (_corrupt(base, sof + 11, 0x32), "sampling"),
         "65535×65535": (base[:sof + 5] + b"\xff\xff\xff\xff" + base[sof + 9:], "more than"),
     }
@@ -471,3 +476,252 @@ def test_build_and_load_run_without_cv2_or_pil(tmp_path):
     want = np.stack([cv2.imread(str(jout / "i" / f"{n}.jpg"))[..., ::-1] for n in "ab"])
     np.testing.assert_array_equal(np.load(tmp_path / "images.npy"), want)
     assert sorted(os.listdir(tmp_path / "fixed_images")) == sorted(os.listdir(jout / "i"))
+
+
+# -- the forms beyond baseline: progressive, CMYK/YCCK, RGB-coded ---------------
+
+PIL_SUBSAMPLING = {"444": 0, "422": 1, "420": 2, "gray": None}
+
+
+def writer_jpeg(writer, img, q, sampling, rst=0):
+    """A progressive JPEG of ``img`` by cv2 (``rst``: its restart interval) or
+    by Pillow with ``optimize=True`` (Huffman tables for each scan)."""
+    if writer == "cv2":
+        return cv_jpeg(img, q, sampling, rst, IMWRITE_JPEG_PROGRESSIVE=1)
+    if sampling == "gray":
+        return jpegforms.pil_jpeg(img, "L", quality=q, progressive=True, optimize=True)
+    return jpegforms.pil_jpeg(img, quality=q, progressive=True, optimize=True,
+                              subsampling=PIL_SUBSAMPLING[sampling])
+
+
+@pytest.mark.parametrize("writer", ["cv2", "pil"])
+@pytest.mark.parametrize("sampling", ["444", "422", "420", "gray"])
+def test_progressive_equals_cv2(writer, sampling):
+    """Progressive files at each quality, with and without a restart
+    interval (cv2's; Pillow writes none), on sizes from 1×1 up: cv2's RGB
+    byte for byte, and, where the coefficients are the same, the baseline
+    file's pixels (a whole progressive file is not smoothed)."""
+    rng = np.random.default_rng(200 + 10 * ["444", "422", "420", "gray"].index(sampling)
+                                + (writer == "pil"))
+    for i, q in enumerate((5, 50, 95)):
+        for rst in ((0, 2) if writer == "cv2" else (0,)):
+            for h, w in ((1, 1), (int(rng.integers(2, 40)), int(rng.integers(2, 60))),
+                         (int(rng.integers(40, 90)), int(rng.integers(60, 130)))):
+                img = sample_frame(rng, h, w, noisy=i == 1)
+                data = writer_jpeg(writer, img, q, sampling, rst)
+                assert data[:4] != b"\xff\xd8\xff\xc0" and b"\xff\xc2" in data
+                assert (b"\xff\xdd" in data) == (rst > 0)
+                assert_same(decode_jpeg(data), cv_rgb(data), (writer, sampling, q, rst, h, w))
+                if writer == "cv2" and not rst:
+                    assert_same(decode_jpeg(data), decode_jpeg(cv_jpeg(img, q, sampling)),
+                                "the baseline file of the same coefficients")
+
+
+@pytest.mark.parametrize("sampling", list(SAMPLINGS))
+def test_progressive_cut_scans_are_smoothed(sampling):
+    """A progressive file without its last 1..n−1 scans (EOI appended),
+    which cv2 reads through libjpeg-turbo 3.1's block smoothing: byte-equal
+    to cv2's on sizes whose block rows and columns hit the 5×5 window's
+    edges (one block, two, odd counts of iMCU rows), and differing from the
+    same coefficients unsmoothed."""
+    rng = np.random.default_rng(300 + sorted(SAMPLINGS).index(sampling))
+    smoothed = 0
+    for h, w in ((8, 8), (9, 17), (20, 12), (33, 41), (47, 70), (96, 80)):
+        data = cv_jpeg(sample_frame(rng, h, w), 90, sampling, IMWRITE_JPEG_PROGRESSIVE=1)
+        n = len(jpegforms.scan_units(data)[1])
+        assert n == (6 if sampling == "gray" else 10)
+        for k in range(1, n):
+            cut = jpegforms.cut_scans(data, k)
+            got = decode_jpeg(cut)
+            assert_same(got, cv_rgb(cut), (sampling, h, w, k))
+            smoothed += not np.array_equal(got, _unsmoothed(cut))
+    assert smoothed > 20
+
+
+def _unsmoothed(data):
+    frame_cls = host_jpeg._Frame
+    saved = frame_cls.smoothing
+    frame_cls.smoothing = lambda self: False
+    try:
+        return decode_jpeg(data)
+    finally:
+        frame_cls.smoothing = saved
+
+
+BAD_PROGRESSIONS = {  # (scan, field edits): jdphuff.c's JERR_BAD_PROGRESSION
+    "DC scan with Se 1": (0, {"se": 1}),
+    "AC scan with Ss > Se": (1, {"ss": 6, "se": 5}),
+    "AC scan with Se 64": (3, {"se": 64}),
+    "AC scan of three components": (0, {"ss": 1, "se": 5}),
+    "Al 14": (1, {"ahal": 0x0E}),
+    "Ah 2 with Al 0": (4, {"ahal": 0x20}),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_PROGRESSIONS))
+def test_bad_progressions_raise(case):
+    """Scan parameters libjpeg refuses: cv2 reads no image, and the port
+    raises ``ValueError`` that says so."""
+    rng = np.random.default_rng(13)
+    data = cv_jpeg(sample_frame(rng, 67, 93), 90, "420", IMWRITE_JPEG_PROGRESSIVE=1)
+    scan, edits = BAD_PROGRESSIONS[case]
+    bad = jpegforms.with_scan_fields(data, scan, **edits)
+    assert cv_rgb(bad) is None
+    with pytest.raises(ValueError, match="bad progression"):
+        decode_jpeg(bad)
+
+
+@pytest.mark.parametrize("writer", ["cv2", "pil"])
+def test_bogus_progressions_decode_as_cv2(writer):
+    """Scans out of order, which libjpeg only warns about: each scan
+    repeated (with the tables before it), a DC refinement dropped, a first
+    scan dropped where its band holds only zeros (its refinement then
+    refines coefficients never started). cv2 reads each, and so does the
+    port, byte for byte. A progressive file that leans on the Annex K
+    tables (jdphuff.c, unlike jdhuff.c, has no defaults) is refused as cv2
+    refuses it."""
+    rng = np.random.default_rng(14)
+    img = sample_frame(rng, 51, 66)
+    data = (cv_jpeg(img, 90, "420", IMWRITE_JPEG_PROGRESSIVE=1) if writer == "cv2"
+            else jpegforms.pil_jpeg(img, progressive=True, quality=85))
+    n = len(jpegforms.scan_units(data)[1])
+    for i in range(n):
+        if i < 5 or i == 6:  # a first scan (refinements repeated desynchronise the data)
+            rep = jpegforms.repeat_scan(data, i)
+            assert_same(decode_jpeg(rep), cv_rgb(rep), ("repeat", i))
+    dropped = jpegforms.drop_scan(data, 6)  # the DC refinement
+    assert_same(decode_jpeg(dropped), cv_rgb(dropped), "DC refinement dropped")
+    gray = np.repeat(img[..., :1], 3, -1)  # no chroma AC: the chroma first scans code zeros
+    flat = cv_jpeg(gray, 90, "420", IMWRITE_JPEG_PROGRESSIVE=1)
+    for i in (2, 3):
+        unstarted = jpegforms.drop_scan(flat, i)
+        assert_same(decode_jpeg(unstarted), cv_rgb(unstarted), ("unstarted", i))
+        assert_same(decode_jpeg(unstarted), decode_jpeg(flat), ("unstarted", i))
+    head, units, tail = jpegforms.scan_units(data)
+    first_ac = units[1]
+    assert first_ac[:2] == b"\xff\xc4"
+    no_table = head + units[0] + first_ac[2 + struct.unpack(">H", first_ac[2:4])[0]:] + b"".join(
+        units[2:]) + tail
+    assert cv_rgb(no_table) is None
+    with pytest.raises(ValueError, match="no Huffman table"):
+        decode_jpeg(no_table)
+
+
+@pytest.mark.parametrize("quality", [10, 50, 95])
+def test_cmyk_and_ycck_equal_cv2(quality):
+    """Pillow's CMYK files (Adobe's inverted ink, transform 0), the same
+    with the transform set to 2 (YCCK: ``ycck_cmyk_convert``) or to 1
+    (libjpeg warns and reads YCCK), the same without an Adobe APP14 (CMYK),
+    and Pillow's progressive CMYK, through OpenCV's own CMYK → BGR step:
+    cv2's RGB byte for byte."""
+    rng = np.random.default_rng(15 + quality)
+    for h, w in ((1, 1), (13, 29), (45, 59)):
+        img = sample_frame(rng, h, w, noisy=quality == 50)
+        cmyk = jpegforms.pil_jpeg(img, "CMYK", quality=quality)
+        at = cmyk.index(b"Adobe") - 4  # the APP14 marker
+        no_adobe = cmyk[:at] + cmyk[at + 2 + struct.unpack_from(">H", cmyk, at + 2)[0]:]
+        files = {"CMYK": cmyk, "YCCK": jpegforms.with_adobe_transform(cmyk, 2),
+                 "transform 1": jpegforms.with_adobe_transform(cmyk, 1),
+                 "no APP14": no_adobe,
+                 "progressive": jpegforms.pil_jpeg(img, "CMYK", quality=quality,
+                                                   progressive=True)}
+        for name, data in files.items():
+            assert_same(decode_jpeg(data), cv_rgb(data), (name, quality, h, w))
+    ink, k = np.meshgrid(np.arange(0, 256, 15), np.arange(0, 256, 15))
+    got = host_jpeg._cmyk_to_rgb(ink, ink, ink, k)  # OpenCV's step: k − (255 − x)·k >> 8
+    assert got.dtype == np.uint8 and np.array_equal(got[..., 1], k - ((255 - ink) * k >> 8))
+
+
+def test_rgb_coded_equals_cv2():
+    """RGB-coded colour, as libjpeg-turbo's ``default_decompress_parms``
+    guesses it: Pillow's ``keep_rgb`` (an Adobe APP14 of transform 0, plain
+    and progressive), a YCbCr file whose JFIF APP0 is replaced by such an
+    APP14 (read as R, G, B), the component IDs R, G, B without JFIF; a JFIF
+    APP0 beside an APP14 of transform 0, and unknown IDs, stay YCbCr."""
+    rng = np.random.default_rng(16)
+    for h, w in ((1, 1), (17, 23), (64, 90)):
+        img = sample_frame(rng, h, w)
+        base = cv_jpeg(img, 85, "444")
+        sof = base.index(b"\xff\xc0")
+        ids = bytearray(base)
+        ids[sof + 10], ids[sof + 13], ids[sof + 16] = b"RGB"
+        sos = ids.index(b"\xff\xda")
+        ids[sos + 5], ids[sos + 7], ids[sos + 9] = b"RGB"
+        no_jfif = bytes(ids[:2] + ids[4 + struct.unpack_from(">H", ids, 4)[0]:])
+        odd = bytearray(no_jfif)
+        o = odd.index(b"\xff\xc0")
+        odd[o + 10] = 7
+        s2 = odd.index(b"\xff\xda")
+        odd[s2 + 5] = 7
+        files = {"keep_rgb": jpegforms.pil_jpeg(img, keep_rgb=True, quality=90),
+                 "keep_rgb progressive": jpegforms.pil_jpeg(img, keep_rgb=True, quality=90,
+                                                            progressive=True),
+                 "Adobe transform 0": jpegforms.adobe_rgb_header(base),
+                 "JFIF and Adobe 0": base[:20] + jpegforms.ADOBE_RGB + base[20:],
+                 "IDs RGB": no_jfif, "IDs RGB with JFIF": bytes(ids),
+                 "unknown IDs": bytes(odd)}
+        for name, data in files.items():
+            assert_same(decode_jpeg(data), cv_rgb(data), (name, h, w))
+        assert not np.array_equal(decode_jpeg(files["Adobe transform 0"]), decode_jpeg(base))
+
+
+def test_corrupt_progressive_jpegs_raise_or_decode_whole():
+    """Random byte flips and cuts of a restart-coded progressive JPEG: each
+    either decodes to a whole image or raises ``ValueError``; the C++ scan
+    decoder never reads or writes out of bounds."""
+    rng = np.random.default_rng(17)
+    base = cv_jpeg(sample_frame(rng, 45, 61), 90, "420", 2, IMWRITE_JPEG_PROGRESSIVE=1)
+    for t in range(400):
+        data = bytearray(base)
+        for _ in range(int(rng.integers(1, 6))):
+            data[int(rng.integers(2, len(data)))] = int(rng.integers(0, 256))
+        if t % 3 == 0:
+            data = data[:int(rng.integers(2, len(data)))] + b"\xff\xd9"
+        try:
+            got = decode_jpeg(bytes(data))
+        except ValueError:
+            continue
+        assert got.dtype == np.uint8 and got.ndim == 3 and got.shape[2] == 3
+
+
+def test_build_and_load_mixed_photos_equal_jax(tmp_path):
+    """A labelme folder of a baseline, a progressive and a CMYK photo:
+    ``build_dataset_from_labelme`` writes the JAX package's ``.jpg`` bytes
+    and masks, and ``load_invoice_dataset`` on the output and on the photos
+    themselves returns the JAX package's arrays."""
+    from twinvoice_tpu.data import labelme as jlabelme
+    from twinvoice_tpu_torch.data import labelme as tlabelme
+
+    rng = np.random.default_rng(18)
+    for d in ("json", "images", "masks"):
+        (tmp_path / d).mkdir()
+    for name in ("base", "prog", "cmyk"):
+        img = sample_frame(rng, 70, 90)
+        data = {"base": cv_jpeg(img, 90),
+                "prog": cv_jpeg(img, 90, IMWRITE_JPEG_PROGRESSIVE=1),
+                "cmyk": jpegforms.pil_jpeg(img, "CMYK", quality=90)}[name]
+        (tmp_path / "images" / f"{name}.jpg").write_bytes(data)
+        np.save(tmp_path / "masks" / f"{name}.npy", rng.integers(0, 2, (70, 90, 3), np.uint8))
+        (tmp_path / "json" / f"{name}.json").write_text(
+            '{"imageWidth": 180, "imageHeight": 140, "shapes": [{"label": "date", '
+            '"points": [[6, 8], [120, 8], [120, 60]]}]}')
+    out = {}
+    for who, mod in (("port", tlabelme), ("jax", jlabelme)):
+        done, missing = mod.build_dataset_from_labelme(
+            json_dir=str(tmp_path / "json"), images_dir=str(tmp_path / "images"),
+            out_img_dir=str(tmp_path / who / "i"), out_mask_dir=str(tmp_path / who / "m"),
+            train_size=(64, 48), log=lambda m: None)
+        assert sorted(done) == ["base", "cmyk", "prog"] and missing == []
+        out[who] = tmp_path / who
+    for name in ("base", "prog", "cmyk"):
+        assert ((out["port"] / "i" / f"{name}.jpg").read_bytes()
+                == (out["jax"] / "i" / f"{name}.jpg").read_bytes()), name
+        np.testing.assert_array_equal(np.load(out["port"] / "m" / f"{name}.npy"),
+                                      np.load(out["jax"] / "m" / f"{name}.npy"))
+    for img_dir, mask_dir in ((out["jax"] / "i", out["jax"] / "m"),
+                              (tmp_path / "images", tmp_path / "masks")):
+        got = tdataset.load_invoice_dataset(str(img_dir), str(mask_dir))
+        want = jdataset.load_invoice_dataset(str(img_dir), str(mask_dir))
+        assert got.names == want.names == ("base", "cmyk", "prog")
+        np.testing.assert_array_equal(got.images, want.images)
+        np.testing.assert_array_equal(got.masks, want.masks)

@@ -54,8 +54,11 @@ def codec() -> ctypes.CDLL:
         if _codec is None:
             lib = ctypes.CDLL(str(build_codec()))
             p, i64 = ctypes.c_void_p, ctypes.c_int64
-            lib.jpeg_decode_scan.argtypes = [p, i64, i64, p, p, p, ctypes.POINTER(i64)]
-            lib.jpeg_decode_scan.restype = ctypes.c_int
+            for fn in (lib.jpeg_decode_scan, lib.jpeg_decode_progressive_scan):
+                fn.argtypes = [p, i64, i64, p, p, p, ctypes.POINTER(i64)]
+                fn.restype = ctypes.c_int
+            lib.jpeg_smooth_blocks.argtypes = [p, p, p, p, p]
+            lib.jpeg_smooth_blocks.restype = ctypes.c_int
             lib.jpeg_encode_scan.argtypes = [p, p, p, p, i64]
             lib.jpeg_encode_scan.restype = i64
             lib.png_unfilter.argtypes = [p, i64, i64, ctypes.c_int32, p]
@@ -103,8 +106,11 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
 
 def imread_rgb(path) -> Optional[np.ndarray]:
     """The RGB uint8 (H, W, 3) array that ``cv2.imread(path)[..., ::-1]``
-    returns for a baseline JPEG or a PNG, EXIF orientation applied; ``None``
-    for a missing file or one that is neither."""
+    returns for a JPEG (baseline, extended or progressive; gray, YCbCr,
+    RGB-coded, CMYK or YCCK: ``host_jpeg.decode_jpeg``) or a PNG, EXIF
+    orientation applied; ``None`` for a missing file or one that is neither.
+    A JPEG form ``decode_jpeg`` refuses (lossless, arithmetic, hierarchical,
+    12-bit, a bad progression, corrupt data) raises ``ValueError``."""
     try:
         with open(path, "rb") as f:
             data = f.read()

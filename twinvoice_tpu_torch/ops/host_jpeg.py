@@ -9,13 +9,18 @@
   from the same stages: JFIF 1.01, the two tables in zigzag order, SOF0 at
   4:2:0, the four Annex K Huffman tables, one interleaved scan padded with
   ones, EOI.
-- :func:`decode_jpeg` reads baseline and extended Huffman files as
-  ``cv2.imdecode(..., IMREAD_COLOR)``: markers, 8- and 16-bit quantisation
-  tables, restart intervals, one scan or several, gray and YCbCr at 4:4:4,
-  4:2:2, 4:2:0, 4:4:0 and 4:1:1, EXIF orientation, and raises on the rest.
+- :func:`decode_jpeg` reads baseline, extended and progressive Huffman
+  files as ``cv2.imdecode(..., IMREAD_COLOR)`` (OpenCV 5.0 on libjpeg-turbo
+  3.1): markers, 8- and 16-bit quantisation tables, restart intervals, one
+  scan or several, gray, YCbCr, RGB-coded, CMYK and YCCK colour at 4:4:4,
+  4:2:2, 4:2:0, 4:4:0 and 4:1:1, a progressive file whose last scans are
+  missing (block smoothing), EXIF orientation. It raises on the rest:
+  lossless, arithmetic and hierarchical coding, 12-bit samples, a
+  progression libjpeg refuses, truncated or corrupt data.
 
-The entropy-coded bits are the host C++ library's (``csrc/host_codec.cpp``,
-through ``ops.host_imageio.codec``); everything else is numpy.
+The entropy-coded bits and block smoothing are the host C++ library's
+(``csrc/host_codec.cpp``, through ``ops.host_imageio.codec``); everything
+else is numpy.
 
 Encoder (``jcparam.c``, ``jccolor.c``, ``jcsample.c``, ``jcprepct.c``,
 ``jfdctint.c``, ``jcdctmgr.c``):
@@ -45,11 +50,23 @@ Decoder (``jidctint.c``, ``jdsample.c``, ``jdmainct.c``, ``jdcolor.c``):
   is upsampled by ``h2v2_upsample`` (each sample repeated 2×2); 4:2:2 by
   ``h2v1_fancy_upsample``, 4:4:0 by ``h1v2_fancy_upsample``, 4:1:1 by
   ``int_upsample`` (replication), as ``jdsample.c`` picks them;
-- YCbCr → RGB by the tables of ``jdcolor.c``; gray as three equal channels.
+- YCbCr → RGB by the tables of ``jdcolor.c``; gray as three equal channels;
+  RGB-coded samples as they are; YCCK by ``ycck_cmyk_convert``, then CMYK
+  by OpenCV's own step (``_cmyk_to_rgb``); the colour space guessed as
+  ``default_decompress_parms`` guesses it (``_colour_space``);
+- progressive files (``jdphuff.c``): the scans' coefficients added up, the
+  progression checked and ``coef_bits`` kept as ``start_pass_phuff_decoder``
+  does; after EOI, where ``jdcoefct.c``'s ``smoothing_ok`` holds, the
+  coefficients go through ``decompress_smooth_data``'s block smoothing
+  (libjpeg-turbo 2.1 and later: estimates of the first nine AC coefficients
+  from a 5×5 window of DC values) before the IDCT. A whole file is not
+  smoothed, so it decodes to the pixels of the baseline file with the same
+  coefficients.
 
 ``tests/test_torch_jpeg.py`` holds the round trip against ``cv2`` byte for
 byte at every quality from 1 to 95 on frames whose sides are not multiples
-of 16; ``tests/test_torch_imageio.py`` the encoder and the decoder.
+of 16; ``tests/test_torch_imageio.py`` the encoder and the decoder, the
+progressive, CMYK, YCCK and RGB-coded forms against cv2 and Pillow's files.
 """
 
 from __future__ import annotations
@@ -348,17 +365,36 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
     return np.clip(np.stack([y + cr_r, y + g, y + cb_b], -1), 0, 255).astype(np.uint8)
 
 
-def _to_rgb(comps, h: int, w: int) -> np.ndarray:
-    """Decoded components → RGB (H, W, 3) uint8. ``comps``: one (Y) or
-    three (Y, Cb, Cr) of (coefficients (by, bx, 64), quantisation table
-    (8, 8), (fh, fv)), each with at least the blocks its samples need."""
+def _cmyk_to_rgb(c, m, y, k) -> np.ndarray:
+    """OpenCV's own CMYK → BGR step after libjpeg (``icvCvt_CMYK2BGR_8u_C4C3R``
+    in its ``utils.cpp``), on libjpeg's CMYK samples as stored (Adobe's
+    inverted ink): each channel ``k − ((255 − x)·k >> 8)``, R from C, G from M,
+    B from Y."""
+    return np.stack([k - (((255 - x) * k) >> 8) for x in (c, m, y)], -1).astype(np.uint8)
+
+
+def _to_rgb(comps, h: int, w: int, colour: str) -> np.ndarray:
+    """Decoded components → RGB (H, W, 3) uint8. ``comps``: one, three or
+    four of (coefficients (by, bx, 64), quantisation table (8, 8), (fh,
+    fv)), each with at least the blocks its samples need. ``colour``:
+    libjpeg's colour space: ``"gray"`` (three equal channels), ``"ycc"``
+    (``jdcolor.c``'s YCbCr tables), ``"rgb"`` (the samples as they are),
+    ``"cmyk"`` or ``"ycck"`` (``ycck_cmyk_convert``: 255 minus the YCbCr
+    tables' RGB, K as it is; then OpenCV's CMYK step)."""
     planes = []
     for coef, qtbl, (fh, fv) in comps:
         by, bx = -(-h // (8 * fv)), -(-w // (8 * fh))  # the blocks of ceil(h / fv) rows
         planes.append(_upsample(_inverse_plane(coef[:by, :bx], qtbl), (fh, fv), h, w))
-    if len(planes) == 1:
+    if colour == "gray":
         return np.repeat(planes[0][..., None].astype(np.uint8), 3, -1)
-    return _ycc_to_rgb(*planes)
+    if colour == "rgb":
+        return np.stack(planes, -1).astype(np.uint8)
+    if colour == "ycc":
+        return _ycc_to_rgb(*planes)
+    if colour == "ycck":
+        cmy = 255 - _ycc_to_rgb(*planes[:3]).astype(np.int64)
+        planes[:3] = [cmy[..., i] for i in range(3)]
+    return _cmyk_to_rgb(*planes)
 
 
 def _forward(rgb: np.ndarray, quality: int):
@@ -393,7 +429,8 @@ def jpeg_roundtrip_u8(rgb: np.ndarray, quality: int) -> np.ndarray:
     [..., ::-1]`` returns (baseline 4:2:0 islow JPEG), byte for byte."""
     rgb = _check_rgb(rgb)
     qy, qc, (y, cb, cr) = _forward(rgb, quality)
-    return _to_rgb([(y, qy, (1, 1)), (cb, qc, (2, 2)), (cr, qc, (2, 2))], *rgb.shape[:2])
+    return _to_rgb([(y, qy, (1, 1)), (cb, qc, (2, 2)), (cr, qc, (2, 2))], *rgb.shape[:2],
+                   "ycc")
 
 
 # -- the file codec ---------------------------------------------------------
@@ -427,7 +464,7 @@ _TABLE_BYTES = 16 + 256  # one table as csrc/host_codec.cpp takes it
 # chroma (fh, fv): image pixels a sample covers → the sampling's name
 SAMPLINGS = {(1, 1): "4:4:4", (2, 1): "4:2:2", (2, 2): "4:2:0", (1, 2): "4:4:0",
              (4, 1): "4:1:1"}
-_REFUSED_SOF = {0xC2: "progressive (SOF2)", 0xC3: "lossless (SOF3)",
+_REFUSED_SOF = {0xC3: "lossless (SOF3)",
                 **{m: f"hierarchical (SOF{m - 0xC0})" for m in (0xC5, 0xC6, 0xC7)},
                 **{m: f"arithmetic-coded (SOF{m - 0xC0})" for m in (0xC9, 0xCA, 0xCB, 0xCD,
                                                                      0xCE, 0xCF)},
@@ -436,7 +473,11 @@ _REFUSED_SOF = {0xC2: "progressive (SOF2)", 0xC3: "lossless (SOF3)",
 _SCAN_ERRORS = {-1: "truncated entropy-coded data", -2: "corrupt entropy-coded data (no "
                 "Huffman code matches)", -3: "corrupt entropy-coded data (a restart marker "
                 "missing or out of order)", -4: "corrupt entropy-coded data (a run past the "
-                "64th coefficient)", -5: "a Huffman table that is over-full or lacks a symbol"}
+                "64th coefficient)", -5: "a Huffman table that is over-full or lacks a symbol",
+                -9: "corrupt entropy-coded data (a DC value out of range)"}
+# the natural positions of the first ten coefficients in zigzag order: those
+# block smoothing estimates (jdcoefct.c's Q00_POS..Q30_POS)
+_SMOOTHED = _NATURAL[:10]
 
 
 def _table_bytes(counts_and_symbols: bytes) -> bytes:
@@ -444,17 +485,17 @@ def _table_bytes(counts_and_symbols: bytes) -> bytes:
 
 
 class _Frame:
-    """A baseline frame as SOF0/SOF1 gives it, with its coefficient buffers."""
+    """A frame as SOF0, SOF1 or SOF2 gives it, with its coefficient buffers
+    and, for SOF2, libjpeg's ``coef_bits``: for each component and
+    coefficient the Al of the last scan that coded it, -1 before any did."""
 
-    def __init__(self, seg: bytes):
+    def __init__(self, seg: bytes, progressive: bool):
         if len(seg) < 6:
             raise ValueError("JPEG: a truncated SOF segment")
         precision, self.h, self.w, n = seg[0], *struct.unpack(">HH", seg[1:5]), seg[5]
         if precision != 8:
             raise ValueError(f"JPEG: {precision}-bit precision is not supported (8-bit only)")
-        if n == 4:
-            raise ValueError("JPEG: four components (CMYK/YCCK) are not supported")
-        if n not in (1, 3) or len(seg) != 6 + 3 * n:
+        if n not in (1, 3, 4) or len(seg) != 6 + 3 * n:
             raise ValueError(f"JPEG: {n} components are not supported")
         if self.h == 0 or self.w == 0:
             raise ValueError(f"JPEG: a {self.w}×{self.h} frame (a height set by DNL is not "
@@ -470,21 +511,63 @@ class _Frame:
             raise ValueError(f"JPEG: a corrupt SOF segment {seg.hex()}")
         self.hmax, self.vmax = max(h for h, _ in self.hv), max(v for _, v in self.hv)
         self.factors = [(self.hmax // h, self.vmax // v) for h, v in self.hv]
-        if n == 3 and (any(self.hmax % h or self.vmax % v for h, v in self.hv)
-                       or self.factors[0] != (1, 1)
-                       or any(f not in SAMPLINGS for f in self.factors[1:])):
-            raise ValueError(f"JPEG: sampling factors {self.hv} are not supported (luma at "
-                             f"the largest; chroma at {', '.join(SAMPLINGS.values())})")
+        if n > 1 and (any(self.hmax % h or self.vmax % v for h, v in self.hv)
+                      or (n == 3 and self.factors[0] != (1, 1))
+                      or any(f not in SAMPLINGS for f in self.factors[n == 3:])):
+            raise ValueError(f"JPEG: sampling factors {self.hv} are not supported (the first "
+                             f"of three components at the largest; the others at "
+                             f"{', '.join(SAMPLINGS.values())})")
         self.mcus = (-(-self.w // (8 * self.hmax)), -(-self.h // (8 * self.vmax)))
         self.coefs = [np.zeros((self.mcus[1] * v, self.mcus[0] * h, 64), np.int16)
                       for h, v in self.hv]
         self.qtables = [None] * n  # latched at each component's first scan, as libjpeg does
+        self.progressive = progressive
+        self.coef_bits = np.full((n, 64), -1, np.int32)
 
     def blocks(self, c: int):
         """Component ``c``'s own blocks (across, down): those of its
         ceil(w·h / hmax) × ceil(h·v / vmax) samples."""
         h, v = self.hv[c]
         return -(-self.w * h // (8 * self.hmax)), -(-self.h * v // (8 * self.vmax))
+
+    def progression(self, comps, ss: int, se: int, ah: int, al: int):
+        """jdphuff.c's ``start_pass_phuff_decoder``: a scan whose parameters
+        libjpeg refuses (``JERR_BAD_PROGRESSION``; cv2 reads no image)
+        raises; one out of order (a refinement of bits never sent, a scan
+        repeated) only warns there, so it is decoded here too. Then the
+        scan's coefficients are marked known down to bit ``al``."""
+        dc = ss == 0
+        bad = (se != 0) if dc else (ss > se or se > 63 or len(comps) != 1)
+        if (ah != 0 and al != ah - 1) or al > 13 or bad:
+            raise ValueError(f"JPEG: a bad progression (Ss {ss}, Se {se}, Ah {ah}, Al {al}): "
+                             f"a scan libjpeg refuses")
+        for c in comps:
+            self.coef_bits[c, ss:se + 1] = al
+
+    def smoothing(self):
+        """jdcoefct.c's ``smoothing_ok`` once every scan is in (and every
+        component was scanned, so its table is latched): block
+        smoothing runs where the frame is progressive, every component's
+        quantisation values at the ten smoothed positions are nonzero, every
+        DC is at least partly known, and some component's first nine AC
+        coefficients are not all known to their last bit."""
+        if not self.progressive or any(not q.reshape(64)[_SMOOTHED].all()
+                                       for q in self.qtables):
+            return False
+        return bool((self.coef_bits[:, 0] >= 0).all() and self.coef_bits[:, 1:10].any())
+
+    def smoothed(self, c: int) -> np.ndarray:
+        """Component ``c``'s coefficients after ``jpeg_smooth_blocks``."""
+        out = self.coefs[c].copy()
+        across, down = self.blocks(c)
+        params = np.array([out.shape[1], across, down, self.hv[c][1], self.mcus[1]], np.int32)
+        bits = np.ascontiguousarray(self.coef_bits[c, :10])
+        qt = np.ascontiguousarray(self.qtables[c].reshape(64), np.int32)
+        rc = codec().jpeg_smooth_blocks(self.coefs[c].ctypes.data, out.ctypes.data,
+                                        params.ctypes.data, bits.ctypes.data, qt.ctypes.data)
+        if rc:
+            raise RuntimeError(f"JPEG block smoothing error {rc}")
+        return out
 
 
 def _decode_scan(data: bytes, pos: int, seg: bytes, frame: _Frame, qt: dict, ht: dict,
@@ -496,44 +579,66 @@ def _decode_scan(data: bytes, pos: int, seg: bytes, frame: _Frame, qt: dict, ht:
     if not 1 <= n <= 4 or len(seg) != 4 + 2 * n:
         raise ValueError("JPEG: a corrupt SOS segment")
     ss, se, ahal = seg[1 + 2 * n:4 + 2 * n]
-    if ss != 0 or se != 63 or ahal != 0:
+    ah, al = ahal >> 4, ahal & 15
+    if not frame.progressive and (ss != 0 or se != 63 or ahal != 0):
         raise ValueError(f"JPEG: a scan with Ss {ss}, Se {se}, Ah/Al {ahal:#x} is not a "
                          f"baseline sequential scan")
-    comps, tables = [], [bytes(_TABLE_BYTES)] * 8
+    comps = []
     for cid, t in zip(seg[1:1 + 2 * n:2], seg[2:2 + 2 * n:2]):
         if cid not in frame.ids:
             raise ValueError(f"JPEG: the scan names component {cid}, which the frame lacks")
         c = frame.ids.index(cid)
-        for slot, key in ((t >> 4, (0, t >> 4)), (4 + (t & 15), (1, t & 15))):
-            if key[1] > 3:
-                raise ValueError("JPEG: a scan names a Huffman table slot above 3")
-            table = ht.get(key, _STD_HUFFMAN.get(key))  # libjpeg-turbo's default tables
-            if table is None:
-                raise ValueError(f"JPEG: no Huffman table {key}")
-            tables[slot] = _table_bytes(table)
+        if any(c == d for d, _ in comps):
+            raise ValueError(f"JPEG: the scan names component {cid} twice")
+        comps.append((c, t))
+    if n > 1 and sum(frame.hv[c][0] * frame.hv[c][1] for c, _ in comps) > 10:
+        raise ValueError("JPEG: more than 10 blocks in an MCU")
+    for c, _ in comps:
         if frame.qtables[c] is None:
             if frame.tq[c] not in qt:
                 raise ValueError(f"JPEG: no quantisation table {frame.tq[c]}")
             frame.qtables[c] = qt[frame.tq[c]].copy()
-        comps.append((c, t >> 4, 4 + (t & 15)))
+    if frame.progressive:
+        frame.progression([c for c, _ in comps], ss, se, ah, al)
+    # a progressive DC scan codes with its DC table (a refinement with none),
+    # an AC scan with its AC table; a sequential scan with both
+    kinds = (1,) if ss else () if ah else (0,) if frame.progressive else (0, 1)
+    tables = [bytes(_TABLE_BYTES)] * 8
+    for c, t in comps:
+        for kind in kinds:
+            slot = t >> 4 if kind == 0 else t & 15
+            if slot > 3:
+                raise ValueError("JPEG: a scan names a Huffman table slot above 3")
+            # jdhuff.c fills the Annex K tables into empty slots 0 and 1 (for
+            # Motion JPEG); jdphuff.c does not, so a progressive file must define its own
+            table = ht.get((kind, slot),
+                           None if frame.progressive else _STD_HUFFMAN.get((kind, slot)))
+            if table is None:
+                raise ValueError(f"JPEG: no Huffman table {(kind, slot)}")
+            tables[4 * kind + slot] = _table_bytes(table)
+    comps = [(c, t >> 4, 4 + (t & 15)) for c, t in comps]
     if n == 1:  # a single-component scan: one block an MCU, the component's own blocks
         c, dc, ac = comps[0]
         across, down = frame.blocks(c)
-        params = [1, across, down, restart, 1, 1, frame.coefs[c].shape[1], dc, ac]
+        params = [1, across, down, restart]
+        comp_params = [1, 1, frame.coefs[c].shape[1], dc, ac]
     else:
-        if sum(frame.hv[c][0] * frame.hv[c][1] for c, _, _ in comps) > 10:
-            raise ValueError("JPEG: more than 10 blocks in an MCU")
         params = [n, *frame.mcus, restart]
+        comp_params = []
         for c, dc, ac in comps:
-            params += [*frame.hv[c], frame.coefs[c].shape[1], dc, ac]
-    for c, _, _ in comps:
-        frame.coefs[c][:] = 0
-    params = np.array(params, np.int32)
+            comp_params += [*frame.hv[c], frame.coefs[c].shape[1], dc, ac]
+    if frame.progressive:  # the coefficients add up across scans
+        params += [ss, se, ah, al]
+        decode = codec().jpeg_decode_progressive_scan
+    else:
+        for c, _, _ in comps:
+            frame.coefs[c][:] = 0
+        decode = codec().jpeg_decode_scan
+    params = np.array(params + comp_params, np.int32)
     ptrs = (ctypes.c_void_p * n)(*(frame.coefs[c].ctypes.data for c, _, _ in comps))
     table_buf = b"".join(tables)
     end = ctypes.c_int64(0)
-    rc = codec().jpeg_decode_scan(data, len(data), pos, params.ctypes.data, table_buf, ptrs,
-                                  ctypes.byref(end))
+    rc = decode(data, len(data), pos, params.ctypes.data, table_buf, ptrs, ctypes.byref(end))
     if rc:
         raise ValueError(f"JPEG: {_SCAN_ERRORS.get(rc, f'scan decoder error {rc}')}")
     return end.value, [c for c, _, _ in comps]
@@ -564,21 +669,48 @@ def _parse_tables(m: int, seg: bytes, qt: dict, ht: dict):
             i += 16 + n
 
 
+def _colour_space(frame: _Frame, jfif: bool, adobe) -> str:
+    """libjpeg-turbo's ``default_decompress_parms``: one component is gray;
+    three are YCbCr where a JFIF APP0 was seen, else RGB for an Adobe APP14
+    transform of 0 (YCbCr for any other), else RGB for the component IDs
+    ``R``, ``G``, ``B`` (YCbCr for any others); four are CMYK without an
+    Adobe APP14 or with transform 0, else YCCK."""
+    n = len(frame.ids)
+    if n == 1:
+        return "gray"
+    if n == 4:
+        return "cmyk" if adobe in (None, 0) else "ycck"
+    if jfif:
+        return "ycc"
+    if adobe is not None:
+        return "rgb" if adobe == 0 else "ycc"
+    return "rgb" if frame.ids == [82, 71, 66] else "ycc"
+
+
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """A baseline JPEG file's bytes → the RGB uint8 (H, W, 3) array that
+    """A JPEG file's bytes → the RGB uint8 (H, W, 3) array that
     ``cv2.imdecode(buf, cv2.IMREAD_COLOR)[..., ::-1]`` returns (libjpeg-turbo
-    with its defaults: islow IDCT, fancy upsampling), EXIF orientation from
-    the first APP1 applied. Grayscale comes back as three equal channels.
+    3.1 with its defaults: islow IDCT, fancy upsampling, block smoothing),
+    EXIF orientation from the first APP1 applied.
+
+    Read: baseline, extended and progressive Huffman coding at 8 bits, one
+    scan or several; gray, YCbCr, RGB-coded (an Adobe transform of 0, or the
+    component IDs R, G, B without JFIF), CMYK and YCCK (four components,
+    OpenCV's own CMYK → RGB step after libjpeg's), at 4:4:4, 4:2:2, 4:2:0,
+    4:4:0 and 4:1:1; restart intervals; a progressive file whose last scans
+    are missing, through libjpeg-turbo's block smoothing. Grayscale comes
+    back as three equal channels.
+
     Raises ``ValueError`` with the reason on any file it does not decode
-    whole: progressive, lossless, arithmetic or hierarchical coding, 12-bit
-    samples, four components, RGB-coded colour (an Adobe transform of 0),
-    other samplings, a frame of more than ``MAX_PIXELS``, truncated or
-    corrupt data."""
+    whole: lossless, arithmetic or hierarchical coding, 12-bit samples, a
+    progression libjpeg refuses, other samplings or component counts, a
+    frame of more than ``MAX_PIXELS``, truncated or corrupt entropy-coded
+    data, a component no scan coded."""
     data = bytes(data)
     if data[:2] != JPEG_SOI:
         raise ValueError("not a JPEG file: no SOI marker")
     qt, ht, restart, frame, exif = {}, {}, 0, None, None
-    jfif, adobe, scanned = False, None, set()
+    jfif, adobe, scanned, colour = False, None, set(), None
     pos = 2
     while True:
         pos = data.find(b"\xff", pos)  # garbage before a marker is skipped, as libjpeg does
@@ -613,20 +745,18 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             if len(seg) != 2:
                 raise ValueError("JPEG: a corrupt DRI segment")
             restart = struct.unpack(">H", seg)[0]
-        elif m in (0xC0, 0xC1):
+        elif m in (0xC0, 0xC1, 0xC2):
             if frame is not None:
                 raise ValueError("JPEG: a second SOF marker")
-            frame = _Frame(seg)
+            frame = _Frame(seg, progressive=m == 0xC2)
         elif m in _REFUSED_SOF:
-            raise ValueError(f"JPEG: {_REFUSED_SOF[m]} coding is not supported (baseline "
-                             f"and extended Huffman sequential only)")
+            raise ValueError(f"JPEG: {_REFUSED_SOF[m]} coding is not supported (baseline, "
+                             f"extended and progressive Huffman only)")
         elif m == 0xDA:
             if frame is None:
                 raise ValueError("JPEG: SOS before SOF")
-            if not scanned and len(frame.ids) == 3 and not jfif and (
-                    adobe == 0 or (adobe is None and frame.ids == [82, 71, 66])):
-                raise ValueError("JPEG: RGB-coded colour (no YCbCr transform) is not "
-                                 "supported")
+            if colour is None:  # libjpeg settles it at the first SOS
+                colour = _colour_space(frame, jfif, adobe)
             pos, comps = _decode_scan(data, pos, seg, frame, qt, ht, restart)
             scanned.update(comps)
         elif m != 0xFE:  # COM is skipped
@@ -635,7 +765,10 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         raise ValueError("JPEG: no SOF marker")
     if len(scanned) != len(frame.ids):
         raise ValueError("JPEG: truncated before every component was scanned")
-    rgb = _to_rgb(list(zip(frame.coefs, frame.qtables, frame.factors)), frame.h, frame.w)
+    coefs = frame.coefs
+    if frame.smoothing():
+        coefs = [frame.smoothed(c) for c in range(len(coefs))]
+    rgb = _to_rgb(list(zip(coefs, frame.qtables, frame.factors)), frame.h, frame.w, colour)
     return apply_orientation(rgb, exif_orientation(exif)) if exif else rgb
 
 
