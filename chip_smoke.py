@@ -9,8 +9,10 @@ Phases, each printing one line with its wall time:
 2. build every CUDA kernel of the port from ``twinvoice_tpu_torch/csrc``, and
    the host C++ libraries beside them: the QR decoder from
    ``native/qrdecode.cpp``, the image codec from ``csrc/host_codec.cpp``, the
-   QR locator, the TrueType engine, the DFT filter (``csrc/host_dft.cpp``)
-   and the zstd decoder (``csrc/host_zstd.cpp``)
+   QR locator and cv2's QR decoder (one library, ``csrc/host_qrdecode.cpp``
+   including ``csrc/host_qrlocate.cpp``), the TrueType engine, the DFT
+   filter (``csrc/host_dft.cpp``) and the zstd decoder
+   (``csrc/host_zstd.cpp``)
 3. K1 (``ops.bbox_postprocess``) against its plain PyTorch version on the
    card: exact equality of boxes and valid flags on planted rectangles
    (float32 and bfloat16), all-below and all-above logits, H≠W, odd widths,
@@ -366,6 +368,20 @@ Phases, each printing one line with its wall time:
     (d) the progressive photo served by the bundled w16 fp32 through the
     raw path: boxes and ok flags equal to JAX's on cv2's pixels, K1 held to
     its plain version (``served_vs_plain``)
+35. cv2's QR decoder without OpenCV (``qr.cvdecode`` on
+    ``csrc/host_qrdecode.cpp``; no kernel of its own), against OpenCV's and
+    the JAX package's outputs in ``tests/data/torch_smoke_qrdecode.npz``:
+    (a) ``detect_and_decode_multi`` and ``detect_and_decode`` on 55 small
+    images (every mode, versions 1-40 sampled, every level and mask,
+    mirrored codes, codewords flipped to the correction limit and past it,
+    Big5, Latin-1, C1 and overlong payloads, structured append, warped,
+    softened and blank images) equal to cv2's, raises included; (b) the
+    default ``QrPipeline().scan`` on the QR fixture's 14 pages and 82 sweep
+    pages equal to JAX's default scan, no pass skipped, its median host ms a
+    page beside the native-only scan's; (c) ``extract`` (the bundled w16 at
+    fp32, ``TorchOcrEngine``) on the two pages where cv2's decoder decides
+    the payloads: JAX's records, K1 held to its plain version
+    (``served_vs_plain``)
 
 Kernel launch counts are zeroed before phase 4 and read after phase 6's
 batches, before phase 7's timing launches, so they show that the main path
@@ -394,8 +410,10 @@ driven as phase 26's and (d) as its (d). In phase 33 each served call of
 (b)-(c) is driven the same way (K1 once a call; on the int8 routes their
 phase-9 counts), and (d)-(e) must leave every count as it was. In phase
 34, (a)-(c) must leave every count as it was and (d)'s served call is
-driven the same way (K1 once). The kernel rows' launches sum every such
-path.
+driven the same way (K1 once). In phase 35, (a)-(b) must leave every count
+as they were and (c)'s ``extract`` calls (K1 once a page) and served calls
+(K1 once a page) are driven the same way. The kernel rows' launches sum
+every such path.
 
 It imports torch, numpy, the standard library and ``twinvoice_tpu_torch``
 only. Without a CUDA device, or if any phase fails, it exits non-zero and
@@ -571,8 +589,8 @@ def phase_device():
 
 def phase_build():
     """The CUDA kernels (one nvcc each), the QR decoder, the image codec, the
-    QR locator, the TrueType engine, the DFT filter and the zstd decoder (the
-    host C++ compiler), all at once."""
+    QR locator and cv2's QR decoder, the TrueType engine, the DFT filter and
+    the zstd decoder (the host C++ compiler), all at once."""
     from concurrent.futures import ThreadPoolExecutor
 
     from twinvoice_tpu_torch.ocr.fonts import truetype
@@ -583,7 +601,7 @@ def phase_build():
     with ThreadPoolExecutor(max_workers=6) as pool:
         host_libs = {"qrdecode": pool.submit(qr_native.build),
                      "hostcodec": pool.submit(host_imageio.build_codec),
-                     "hostqrlocate": pool.submit(qr_locate.build),
+                     "hostqr": pool.submit(qr_locate.build),
                      "hosttruetype": pool.submit(truetype.build),
                      "hostdft": pool.submit(host_filter.build_dft),
                      "hostzstd": pool.submit(host_zstd.build)}
@@ -4638,42 +4656,53 @@ def qr_turn_check(fix):
     return out
 
 
-def qr_extract_check(fix, seg, eng, expect_k1=True):
-    """(f) ``InvoiceExtractor.extract`` (``QrPipeline()``, auto-rotate on) on
-    the landscape and 0.45× pages against JAX's: ``qr_raw`` and ``items``
-    equal on every page, every meta field on the pages whose port boxes
-    (``segment_array`` on the page ``extract`` segments) are JAX's; each
-    extract from a locator generator seeded with 0, as JAX's; driven with the
-    launch counts zeroed just before and read just after: K1 once a page
-    (``expect_k1=False``: none, the CPU). → (records, pages off JAX's boxes,
-    launches)."""
+def extract_vs_jax(seg, eng, pages, turns, fix, what, expect_k1=True):
+    """``InvoiceExtractor.extract`` (``QrPipeline()``, auto-rotate on) on
+    ``pages`` against JAX's records ``fix["jax_extract"]``: ``qr_raw`` and
+    ``items`` equal on every page, every meta field on the pages whose port
+    boxes (``segment_array`` on the page ``extract`` segments, turned by
+    np.rot90's ``turns``) are JAX's (``fix["extract_boxes"]``,
+    ``fix["extract_ok"]``); each extract from a locator generator seeded
+    with 0, as JAX's; driven with the launch counts zeroed just before and
+    read just after: K1 once a page (``expect_k1=False``: none, the CPU). →
+    (records, indices of the pages off JAX's boxes, launches)."""
     from twinvoice_tpu_torch.fusion.extract import InvoiceExtractor
     from twinvoice_tpu_torch.ops.host_image import resize_pil_bicubic
     from twinvoice_tpu_torch.qr.detect import QrPipeline
     from twinvoice_tpu_torch.qr.locate import set_rng_seed
 
-    def seeded_extract(page):
-        set_rng_seed(0)
-        return fusion_record(*ex.extract(page))
-
-    idx = [int(i) for i in fix["extract_pages"]]
-    pages = [fix["pages"][i] for i in idx]
     size = seg.cfg.img_size
     same = []
-    for j, (i, page) in enumerate(zip(idx, pages)):
-        seen = np.ascontiguousarray(np.rot90(page, int(fix["jax_turn"][i])))
+    for j, (page, k) in enumerate(zip(pages, turns)):
+        seen = np.ascontiguousarray(np.rot90(page, int(k)))
         _, b, o = seg._segment_one(resize_pil_bicubic(seen, size, size),
                                    seen.shape[1], seen.shape[0])
         same.append(bool(np.array_equal(b, fix["extract_boxes"][j])
                          and np.array_equal(o, fix["extract_ok"][j])))
     ex = InvoiceExtractor(seg, QrPipeline(), [eng], cfg=FusionConfig())
+
+    def seeded_extract(page):
+        set_rng_seed(0)
+        return fusion_record(*ex.extract(page))
+
     _build.launches.clear()
     got = [seeded_extract(p) for p in pages]
     launches = dict(_build.launches)
     want = {k1.NAME: len(pages)} if expect_k1 else {}
     if launches != want:
-        raise AssertionError(f"extract on the QR pages: launches {launches}, expected {want}")
+        raise AssertionError(f"extract on {what}: launches {launches}, expected {want}")
     other = fusion_check({"jax_extract": fix["jax_extract"]}, "extract", got, same)
+    return got, other, launches
+
+
+def qr_extract_check(fix, seg, eng, expect_k1=True):
+    """(f) ``extract_vs_jax`` on the landscape and 0.45× pages (the
+    landscape ones turned upright by ``extract``). → (records, pages off
+    JAX's boxes, launches)."""
+    idx = [int(i) for i in fix["extract_pages"]]
+    got, other, launches = extract_vs_jax(
+        seg, eng, [fix["pages"][i] for i in idx], [fix["jax_turn"][i] for i in idx], fix,
+        "the QR pages", expect_k1)
     return got, [fix["names"][idx[j]] for j in other], launches
 
 
@@ -6731,6 +6760,180 @@ def phase_jpegforms(card, baseline_ms=None):
     return launches
 
 
+# -- phase 35: cv2's QR decoder without OpenCV -----------------------------------
+
+
+QRDECODE_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_smoke_qrdecode.npz")
+QRDECODE_REPS = 3  # decode calls an image and scans a page, the median timed
+
+
+def qrdecode_fixture():
+    """``tests/data/torch_smoke_qrdecode.npz``
+    (``scripts/make_torch_smoke_qrdecode.py``) with its JSON lists read."""
+    with np.load(QRDECODE_FIXTURE) as z:
+        raw = {k: z[k] for k in z.files}
+    fix = {k: v for k, v in raw.items() if not k.startswith("img_")}
+    for key in ("names", "cv2", "sweep_default", "extract_pages", "jax_extract"):
+        fix[key] = json.loads(str(raw[key]))
+    fix["images"] = [raw[f"img_{i}"] for i in range(len(fix["names"]))]
+    return fix
+
+
+def cvdecode_results(gray):
+    """The port's ``detect_and_decode_multi`` and ``detect_and_decode`` on
+    ``gray``, each after ``locate.set_rng_seed(0)``, in the fixture's form:
+    ``["ok", found, [strings]]`` / ``["ok", string]``, ``["err"]`` where cv2
+    raises, ``["uni"]`` where its binding raises ``UnicodeDecodeError``."""
+    from twinvoice_tpu_torch.qr import cvdecode, locate
+
+    res = []
+    for call in ("multi", "single"):
+        locate.set_rng_seed(0)
+        try:
+            if call == "multi":
+                ok, texts = cvdecode.detect_and_decode_multi(gray)
+                res.append(["ok", bool(ok), list(texts)])
+            else:
+                res.append(["ok", cvdecode.detect_and_decode(gray)])
+        except cvdecode.CvError:
+            res.append(["err"])
+        except UnicodeDecodeError:
+            res.append(["uni"])
+    return {"multi": res[0], "single": res[1]}
+
+
+def qrdecode_images_check(fix):
+    """(a) Every image's two calls equal to cv2's (``cvdecode_results``). →
+    (images, with a payload, where cv2 raises, median host ms of the two
+    calls)."""
+    times, payloads, raises = [], 0, 0
+    for name, gray, want in zip(fix["names"], fix["images"], fix["cv2"]):
+        runs = []
+        for _ in range(QRDECODE_REPS):
+            t = time.perf_counter()
+            got = cvdecode_results(gray)
+            runs.append(time.perf_counter() - t)
+        if got != want:
+            raise AssertionError(f"cv2's decoder on {name} {gray.shape}: the port's {got}, "
+                                 f"cv2's {want}")
+        times.append(1e3 * sorted(runs)[len(runs) // 2])
+        payloads += bool((want["multi"][0] == "ok" and any(want["multi"][2]))
+                         or (want["single"][0] == "ok" and want["single"][1]))
+        raises += "err" in (want["multi"][0], want["single"][0])
+    return len(times), payloads, raises, sorted(times)[len(times) // 2]
+
+
+def qrdecode_scan_check(fix, qr_fix):
+    """(b) The default ``QrPipeline().scan`` (the native decoder, then
+    ``opencv_decode``) on the QR fixture's 14 pages against JAX's default
+    scan and on its 82 sweep pages against ``sweep_default``, each after
+    ``locate.set_rng_seed(0)``: the payloads and their order equal, no pass
+    skipped; each page also scanned with the native decoder alone. →
+    {page: (payloads, median host ms a default scan, median of a native
+    one)}."""
+    from twinvoice_tpu_torch.qr import detect
+    from twinvoice_tpu_torch.qr.locate import set_rng_seed
+
+    default = detect.QrPipeline()
+    if default.decoders != [detect.native_decode, detect.opencv_decode]:
+        raise AssertionError(f"QrPipeline()'s decoders {default.decoders}")
+    native = detect.QrPipeline(decoders=[detect.native_decode])
+    pages = list(zip(qr_fix["names"], qr_fix["pages"], qr_fix["jax_default"]))
+    pages += [(f"sweep_{key}", page, fix["sweep_default"][key])
+              for key, page in qr_sweep_pages(qr_fix).items()]
+
+    def timed(pipe, page):
+        runs, got = [], None
+        for _ in range(QRDECODE_REPS):
+            set_rng_seed(0)
+            t = time.perf_counter()
+            got = pipe.scan(page)
+            runs.append(time.perf_counter() - t)
+        return got, 1e3 * sorted(runs)[len(runs) // 2]
+
+    out = {}
+    for name, page, want in pages:
+        detect.passes.clear()
+        got, ms = timed(default, page)
+        skipped = [k for k in detect.passes if "skip" in k]
+        if got != want:
+            raise AssertionError(f"default scan of {name}: {got} != JAX's {want}")
+        if skipped:
+            raise AssertionError(f"default scan of {name} skipped {skipped}")
+        out[name] = (got, ms, timed(native, page)[1])
+    return out
+
+
+def qrdecode_extract_check(fix, qr_fix, seg, eng, expect_k1=True):
+    """(c) ``extract_vs_jax`` on the fixture's extract pages (``"qr:<name>"``
+    a page of the QR fixture, ``"sweep:<key>"`` a sweep page; portrait, so
+    not turned). → (pages, records, pages off JAX's boxes, launches)."""
+    sweep = qr_sweep_pages(qr_fix)
+    pages = []
+    for key in fix["extract_pages"]:
+        kind, name = key.split(":")
+        pages.append(sweep[name] if kind == "sweep" else
+                     qr_fix["pages"][qr_fix["names"].index(name)])
+    got, other, launches = extract_vs_jax(seg, eng, pages, [0] * len(pages), fix,
+                                          "the decoder's pages", expect_k1)
+    return pages, got, [fix["extract_pages"][j] for j in other], launches
+
+
+def phase_qrdecode(card):
+    """Phase 35: cv2's QR decoder rebuilt without OpenCV, the default scan
+    that runs it and ``extract`` on the pages it decides, on the card's
+    machine against OpenCV and the JAX package. → K1's launches in (c)."""
+    from twinvoice_tpu_torch.ocr.torchocr.engine import TorchOcrEngine
+
+    cpu = host_cpu()
+    fix, qr_fix = qrdecode_fixture(), qr_fixture()
+    before = dict(_build.launches)
+    n, payloads, raises, ms = qrdecode_images_check(fix)
+    print(f"  (a) {n} images: detect_and_decode_multi and detect_and_decode equal to cv2's "
+          f"({payloads} with a payload, {raises} where cv2 raises, raised alike); median "
+          f"host ms of the two calls {ms:.2f} (host: {cpu})", flush=True)
+    scanned = qrdecode_scan_check(fix, qr_fix)
+    for name, (got, d_ms, n_ms) in scanned.items():
+        if not name.startswith("sweep_"):
+            print(f"    {name}: {len(got)} payloads; {d_ms:.1f} ms (native only {n_ms:.1f})",
+                  flush=True)
+    d_all = sorted(v[1] for v in scanned.values())
+    n_all = sorted(v[2] for v in scanned.values())
+    print(f"  (b) default scans on {len(scanned)} pages (14 fixture, {len(scanned) - 14} "
+          f"sweep) equal to JAX's default scan, in order, no pass skipped "
+          f"({sum(len(v[0]) == 2 for v in scanned.values())} with both codes); host ms a "
+          f"page: median {d_all[len(d_all) // 2]:.1f} (range {d_all[0]:.1f}-{d_all[-1]:.1f}), "
+          f"the native-only scan (phase 27's) median {n_all[len(n_all) // 2]:.1f} on the same "
+          f"pages (host: {cpu})", flush=True)
+    if dict(_build.launches) != before:
+        raise AssertionError(f"(a)-(b) launched kernels of the port: {before} -> "
+                             f"{dict(_build.launches)}")
+    params, state = load_npz(variant_path("w16"))
+    mcfg = VARIANTS["w16"][1]
+    with tf32_off():
+        seg = load_pretrained_segmenter(torch.float32, variant="w16")
+        eng = TorchOcrEngine()
+        pages, got, other, launches = qrdecode_extract_check(fix, qr_fix, seg, eng)
+        for key, rec in zip(fix["extract_pages"], got):
+            m = rec["meta"]
+            print(f"    {key}: qr_raw {rec['qr_raw']}; {m['invoice_no']} ({m['source']}), "
+                  f"{m['date']}, {m['total_amount']}; items {rec['items']}", flush=True)
+        print(f"  (c) extract on {len(got)} pages: qr_raw and items equal to JAX's; every meta "
+              f"field equal on the pages on JAX's boxes (others: {other or 'none'}); launches "
+              f"{launches}", flush=True)
+        k1_launches = launches[k1.NAME]
+        for key, page in zip(fix["extract_pages"], pages):
+            _, _, served = served_vs_plain(seg, params, state, mcfg, page[None], raw=True,
+                                           label=f"the bundled w16 fp32 on {key}")
+            if served != {k1.NAME: 1}:
+                raise AssertionError(f"the served call on {key} launched {served}")
+            k1_launches += served[k1.NAME]
+    del seg, eng
+    print(f"  (c) K1 held to its plain version on both pages' served logits; K1 launches in "
+          f"the phase {k1_launches} [{card}]", flush=True)
+    return k1_launches
+
+
 def main():
     ph = Phases()
     name, card = ph.run(1, "device", phase_device)
@@ -6889,6 +7092,11 @@ def main():
     launches[k1.NAME] += jpeg_launches.get(k1.NAME, 0)
     print(f"  launches in phase 34: {jpeg_launches}; of K1 on the main path and phases 19-20, "
           f"22, 25-29, 32-34: {launches[k1.NAME]}", flush=True)
+
+    qrdec_launches = ph.run(35, "cv2's QR decoder without OpenCV", phase_qrdecode, card)
+    launches[k1.NAME] += qrdec_launches
+    print(f"  launches of K1 in phase 35: {qrdec_launches}; on the main path and phases 19-20, "
+          f"22, 25-29, 32-35: {launches[k1.NAME]}", flush=True)
 
     rows = [(k1.NAME, "bbox_postprocess.cu", "ops/pallas/postprocess.py:52",
              launches[k1.NAME], max_err, (ms, plain_ms, bound_ms, bound_by))]

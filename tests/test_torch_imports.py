@@ -425,7 +425,7 @@ i = fix["names"].index("s0_x0.45")
 detect.passes.clear()
 locate.set_rng_seed(0)
 with warnings.catch_warnings():
-    warnings.simplefilter("ignore")  # the opencv_decode backend's skips
+    warnings.simplefilter("error")  # the decoders skip nothing
     got = detect.QrPipeline().scan(fix["pages"][i])
 assert got == fix["jax_native"][i] and len(got) == 1, got
 assert detect.passes["regions"] == 1 and detect.passes["enhanced"] == 1, dict(detect.passes)

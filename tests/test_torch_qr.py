@@ -4,10 +4,9 @@
 Tolerance: none. The parsers return equal values on the fuzz inputs of
 ``tests/unit/test_fuzz_parsers.py`` and on a hypothesis sweep; the binding
 returns JAX's payloads on rendered invoices, gray and RGB; the scan returns
-JAX's payloads, in order, with OpenCV present, and where OpenCV is blocked
-on every page whose first pass (the 0.75× gray) suffices. Where it does not,
-the region pass runs on the port's locator (cv2's, rebuilt) and only the
-``opencv_decode`` backend is skipped, with a warning and a count.
+JAX's payloads, in order, with OpenCV present and with it blocked: the region
+pass runs on the port's locator and the ``opencv_decode`` backend on the
+port's decoder (cv2's both, rebuilt), so nothing is skipped.
 """
 
 import os
@@ -143,37 +142,34 @@ def test_scan_equals_jax_with_cv2(invoices):
 
 
 def test_scan_without_cv2(invoices, monkeypatch):
-    """cv2 blocked: the same payloads where the first pass suffices, no
-    warning; on a page under 420 px the region pass runs (cv2's one box,
-    as JAX's) and is counted, the full frame reads the other code, nothing
-    skipped; on a blank page every pass runs and only the opencv_decode
-    backend is skipped, with a warning and a count. The locator's
-    generators are seeded alike before each scan of the small page."""
+    """cv2 blocked: JAX's default payloads, in order, with no warning, on
+    the invoices (the first pass suffices), on a page under 420 px (the
+    region pass on cv2's one box, the full frame reads the other code) and
+    on a blank page, where every pass runs and nothing is skipped. The
+    locator's generators are seeded alike before each scan."""
     jq = jdetect.QrPipeline()
     want = [jq.scan(p) for p in invoices]
     small = invoices[4][::2, ::2].copy()  # 320×220: no 0.75× pass
+    blank = np.full((440, 300, 3), 250, np.uint8)
     cv2.setRNGSeed(0)
     want_small = jq.scan(small)
+    cv2.setRNGSeed(0)
+    want_blank = jq.scan(blank)
     monkeypatch.setitem(sys.modules, "cv2", None)
-    assert not tdetect.cv2_available()
     tq = tdetect.QrPipeline()
-    assert tq.decoders == [tdetect.native_decode]
+    assert tq.decoders == [tdetect.native_decode, tdetect.opencv_decode]
     tdetect.passes.clear()
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert [tq.scan(p) for p in invoices] == want
-    assert dict(tdetect.passes) == {"gray_0.75": len(invoices)}
-    tdetect.passes.clear()
-    locate.set_rng_seed(0)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
+        assert dict(tdetect.passes) == {"gray_0.75": len(invoices)}
+        tdetect.passes.clear()
+        locate.set_rng_seed(0)
         got = tq.scan(small)
-    assert sorted(got) == sorted(want_small) and len(got) == 2
-    assert dict(tdetect.passes) == {"regions": 1, "region_crop": 1, "full_frame": 1}
-    tdetect.passes.clear()
-    with pytest.warns(UserWarning, match="opencv_decode") as record:
-        assert tq.scan(np.full((440, 300, 3), 250, np.uint8)) == []
-    assert all("opencv_decode" in str(w.message) for w in record)
+        assert got == want_small and len(got) == 2
+        assert dict(tdetect.passes) == {"regions": 1, "region_crop": 1, "full_frame": 1}
+        tdetect.passes.clear()
+        locate.set_rng_seed(0)
+        assert tq.scan(blank) == want_blank == []
     assert dict(tdetect.passes) == {"gray_0.75": 1, "regions": 1, "full_frame": 1,
-                                    "half_tile": 2, "upscale_2x": 1,
-                                    "opencv_decode_skipped": 5}  # every candidate
+                                    "half_tile": 2, "upscale_2x": 1}

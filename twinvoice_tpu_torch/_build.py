@@ -150,17 +150,19 @@ def find_cxx() -> str:
                             "g++, clang++ is on PATH")
 
 
-def host_library_path(source: Path, stem: str) -> Path:
+def host_library_path(source: Path, stem: str, deps=()) -> Path:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(Path(source).read_bytes())
+    for path in (source, *deps):
+        h.update(Path(path).read_bytes())
     return build_dir() / f"lib{stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_host(source: Path, stem: str, what: str) -> Path:
+def build_host(source: Path, stem: str, what: str, deps=()) -> Path:
     """Compile the host C++ ``source`` into ``lib<stem>-<hash>.so`` unless it
-    is built already. → the library's path. Raises with the compiler's
-    output (``"<what> build failed"``) if the build fails."""
-    out = host_library_path(source, stem)
+    is built already; ``deps``: the files it includes, which the hash covers
+    too. → the library's path. Raises with the compiler's output (``"<what>
+    build failed"``) if the build fails."""
+    out = host_library_path(source, stem, deps)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -2,27 +2,27 @@
 
 The same cascade, early stop and payload filter as the JAX ``QrPipeline``
 (``qr/detect.py:152-262``). Decode is a pluggable protocol: the in-repo C++
-decoder (``qr.native``), ``cv2.QRCodeDetector``, or any callable ``ndarray
--> list[str]``.
+decoder (``qr.native``), ``cv2.QRCodeDetector``'s decoder rebuilt without
+OpenCV (``qr.cvdecode``), or any callable ``ndarray -> list[str]``.
 
 Every pass runs without OpenCV, on any machine: the 0.75× INTER_AREA gray
 (pass 1), the region pass on the port's locator (``qr.locate``:
 ``cv2.QRCodeDetector``'s own localisation, ``detectMulti`` then ``detect``,
 rebuilt in host C++, so its boxes are the JAX scan's), the full frame, the
 enhanced region retries (``ops.host_image``'s ``equalizeHist`` and 3×
-INTER_CUBIC), the two half tiles and the 2× linear last resort. The one
-OpenCV step left is the ``opencv_decode`` backend, cv2's own decoder: the
-default decoders add it where cv2 imports; where it does not, a candidate
-the native decoder did not read is counted ``opencv_decode_skipped`` with a
-``UserWarning``. ``passes`` counts each pass a scan ran (a candidate image
-handed to the decoders) and each skip, by name.
+INTER_CUBIC), the two half tiles and the 2× linear last resort. The default
+decoders are the JAX scan's: the native decoder, then ``opencv_decode``,
+cv2's ``detectAndDecodeMulti`` and ``detectAndDecode`` as ``qr.cvdecode``
+computes them, drawing from the same per-thread generator as the region
+pass, so a scan seeded with ``locate.set_rng_seed`` reads what a JAX scan
+seeded with ``cv2.setRNGSeed`` reads. ``passes`` counts each pass a scan
+ran (a candidate image handed to the decoders), by name.
 """
 
 from __future__ import annotations
 
 import collections
 import threading
-import warnings
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,7 +35,7 @@ from twinvoice_tpu_torch.ops.host_image import (
     resize_linear_u8,
     rgb_to_gray,
 )
-from twinvoice_tpu_torch.qr import native
+from twinvoice_tpu_torch.qr import cvdecode, native
 from twinvoice_tpu_torch.qr.locate import locate_qr_boxes
 from twinvoice_tpu_torch.qr.parse import is_text_qr_payload, parse_header_qr
 
@@ -43,9 +43,9 @@ QrDecodeFn = Callable[[np.ndarray], List[str]]
 
 MIN_PAYLOAD_LEN = 20  # reference keeps only >20-char strings (app_camera.py:542)
 
-# pass name → candidates scanned (or skips) since it was last cleared: "gray_0.75",
+# pass name → candidates scanned since it was last cleared: "gray_0.75",
 # "regions" (a locator call), "region_crop", "full_frame", "enhanced",
-# "half_tile", "upscale_2x", and "opencv_decode_skipped"
+# "half_tile", "upscale_2x"
 passes: collections.Counter = collections.Counter()
 _passes_lock = threading.Lock()  # scans run from extract_batch's thread pool
 
@@ -53,14 +53,6 @@ _passes_lock = threading.Lock()  # scans run from extract_batch's thread pool
 def count_pass(name: str):
     with _passes_lock:
         passes[name] += 1
-
-
-def cv2_available() -> bool:
-    try:
-        import cv2  # noqa: F401
-    except ImportError:
-        return False
-    return True
 
 
 def detect_qr_regions(rgb: np.ndarray) -> List[Tuple[int, int, int, int]]:
@@ -91,17 +83,6 @@ def detect_qr_regions(rgb: np.ndarray) -> List[Tuple[int, int, int, int]]:
 _DETECT_MAX_DIM = 800
 
 
-_TLS = threading.local()
-
-
-def _detector(cv2):
-    # one detector per thread: cv2 detectors are not documented thread-safe
-    det = getattr(_TLS, "qr_detector", None)
-    if det is None:
-        det = _TLS.qr_detector = cv2.QRCodeDetector()
-    return det
-
-
 def enhance_qr_region(rgb_crop: np.ndarray, upscale: int = 3) -> np.ndarray:
     """Contrast-equalize and upsample a QR crop (app_camera.py:351-365
     behavior): OpenCV's gray, ``equalizeHist``, ``upscale``× INTER_CUBIC
@@ -111,25 +92,23 @@ def enhance_qr_region(rgb_crop: np.ndarray, upscale: int = 3) -> np.ndarray:
 
 
 def opencv_decode(rgb: np.ndarray) -> List[str]:
-    """Decode backend built on cv2.QRCodeDetector (multi + single). Needs
-    OpenCV."""
-    import cv2
-
-    gray = cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY) if rgb.ndim == 3 else rgb
-    det = _detector(cv2)
+    """Decode backend of cv2.QRCodeDetector (multi, then single), as the
+    JAX package's: ``qr.cvdecode``'s ``detect_and_decode_multi`` and, where
+    it reads nothing, ``detect_and_decode``, each skipped where cv2 raises."""
+    gray = rgb_to_gray(rgb) if rgb.ndim == 3 else rgb
     out: List[str] = []
     try:
-        ok, texts, _, _ = det.detectAndDecodeMulti(gray)
+        ok, texts = cvdecode.detect_and_decode_multi(gray)
         if ok:
             out.extend(t for t in texts if t)
-    except cv2.error:
+    except cvdecode.CvError:
         pass
     if not out:
         try:
-            text, _, _ = det.detectAndDecode(gray)
+            text = cvdecode.detect_and_decode(gray)
             if text:
                 out.append(text)
-        except cv2.error:
+        except cvdecode.CvError:
             pass
     return out
 
@@ -148,18 +127,14 @@ class QrPipeline:
                  min_len: int = MIN_PAYLOAD_LEN, max_payloads: int = 2):
         """``decoders``: tried in order on each candidate, the first that
         reads anything wins. The default is the native decoder, then
-        ``opencv_decode`` where cv2 imports; it loads (and if need be
-        builds) the native library here, and raises if it cannot.
+        ``opencv_decode``; it loads (and if need be builds) both libraries
+        here, and raises if it cannot.
         ``max_payloads``: stop once this many distinct payloads decoded and
         both invoice QR roles are covered (0 disables the early stop)."""
-        self._skipped_decoder = False
         if decoders is None:
             native.load()
-            decoders = [native_decode]
-            if cv2_available():
-                decoders.append(opencv_decode)
-            else:
-                self._skipped_decoder = True
+            cvdecode.load()
+            decoders = [native_decode, opencv_decode]
         self.decoders = list(decoders)
         self.min_len = min_len
         self.max_payloads = max_payloads
@@ -173,11 +148,6 @@ class QrPipeline:
                 continue
             if out:
                 break  # first backend that reads anything wins
-        if not out and self._skipped_decoder:
-            count_pass("opencv_decode_skipped")
-            warnings.warn("OpenCV is not importable: skipped the opencv_decode backend "
-                          "on a candidate the native decoder did not read", UserWarning,
-                          stacklevel=3)
         return out
 
     def scan(self, image) -> List[str]:

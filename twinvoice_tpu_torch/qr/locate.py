@@ -7,8 +7,10 @@ The JAX scan locates codes with ``detectMulti`` and, where that fails,
 and max (truncated, not clipped), kept where x2 > x1 and y2 > y1.
 
 The algorithm is OpenCV 5.0's ``QRDetect`` and ``QRDetectMulti``
-(objdetect), rebuilt step by step in the host C++ library
-``csrc/host_qrlocate.cpp`` (built at first use by ``_build.build_host``):
+(objdetect), rebuilt step by step in the host C++ source
+``csrc/host_qrlocate.cpp``, which the decoder's (``csrc/host_qrdecode.cpp``,
+``qr.cvdecode``) includes: the two are one library, built at first use by
+``_build.build_host``:
 
 1. the frame is resized toward a 512-pixel shorter side (INTER_LINEAR_EXACT
    up, INTER_AREA down; :func:`resize_area_u8` makes the downscale) and
@@ -47,6 +49,10 @@ from twinvoice_tpu_torch.ops.host_image import resize_area_u8
 Box = Tuple[int, int, int, int]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host_qrlocate.cpp"
+# the library is built from the decoder's source, which includes the
+# locator's: one library, so the decoder's detect-and-decode calls draw from
+# the same per-thread generator as the locator's (``qr.cvdecode``)
+DECODER_SOURCE = SOURCE.with_name("host_qrdecode.cpp")
 MAX_CODES = 64
 _RNG_DEFAULT = 0xFFFFFFFF  # cv::RNG(0), a fresh thread's state
 
@@ -55,8 +61,9 @@ _lib = None
 
 
 def build() -> Path:
-    """Compile the locator library unless it is built already. → its path."""
-    return _build.build_host(SOURCE, "hostqrlocate", "QR locator")
+    """Compile the locator and decoder library unless it is built already.
+    → its path."""
+    return _build.build_host(DECODER_SOURCE, "hostqr", "QR locator and decoder", deps=(SOURCE,))
 
 
 def library() -> ctypes.CDLL:
@@ -90,6 +97,22 @@ def library() -> ctypes.CDLL:
             lib.qr_detect_multi.restype = i32
             lib.qr_detect.argtypes = [p, i32, i32, p, i32, i32, p]
             lib.qr_detect.restype = i32
+            lib.qr_decode_quad.argtypes = [p, i32, i32, p, i32, p, i64, p, p]
+            lib.qr_decode_quad.restype = i64
+            lib.qr_detect_and_decode.argtypes = [p, i32, i32, p, i32, i32, p, i64]
+            lib.qr_detect_and_decode.restype = i64
+            lib.qr_detect_and_decode_multi.argtypes = [p, i32, i32, p, i32, i32, p, i64, p, i32]
+            lib.qr_detect_and_decode_multi.restype = i64
+            lib.qr_dec_homography.argtypes = [p, p, i32, i32, ctypes.c_double, p]
+            lib.qr_dec_homography.restype = i32
+            lib.qr_dec_warp_nearest.argtypes = [p, i32, i32, p, i32, i32, p]
+            lib.qr_dec_warp_nearest.restype = i32
+            lib.qr_dec_resize_area.argtypes = [p, i32, i32, i32, i32, p]
+            lib.qr_dec_resize_area.restype = None
+            lib.qr_dec_match_template.argtypes = [p, i32, i32, p, i32, i32, p]
+            lib.qr_dec_match_template.restype = ctypes.c_double
+            lib.qr_dec_perspective_transform.argtypes = [p, i32, p]
+            lib.qr_dec_perspective_transform.restype = None
             _lib = lib
         return _lib
 
